@@ -1,0 +1,184 @@
+"""The port's CUDA kernels against their plain PyTorch versions.
+
+The tests marked ``gpu`` build the kernels with nvcc and run them on a CUDA
+card; without one they skip.  On the card (no JAX needed there):
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
+
+The other tests run anywhere: a wrapper given CPU tensors runs the plain
+version and launches nothing.
+
+Tolerances: correlations within atol 1e-5 (sum order); hit rows equal
+except rows holding a lag within 1e-5 of the threshold; attempt bytes,
+frame starts and walk outputs exactly equal."""
+
+import numpy as np
+import pytest
+import torch
+
+from trackmaker_tpu_torch import PhyConfig, _build
+from trackmaker_tpu_torch.core.framing import Frame
+from trackmaker_tpu_torch.phy import spec_decode as sd
+from trackmaker_tpu_torch.phy.encoder import PhyEncoder
+from trackmaker_tpu_torch.phy.line_coding import preamble_waveform
+from trackmaker_tpu_torch.sync.correlate import preamble_energy
+from trackmaker_tpu_torch.sync.xcorr_hits import xcorr_hits, xcorr_hits_plain
+
+CFG = PhyConfig()
+PRE = preamble_waveform(CFG)
+SYNC = PRE[48:]
+THR = CFG.correlation_threshold
+BIGI = 2**30
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _captures(b: int = 4, n_frames: int = 12, seed: int = 3) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    frames = [Frame.new_data(i, 1, 2, rng.integers(0, 256, 20 + 9 * i,
+                                                   dtype=np.uint8).tobytes())
+              for i in range(n_frames)]
+    wave = PhyEncoder(CFG).encode_frames(frames, gap_samples=200).numpy()
+    return (wave[None] + rng.normal(0, 0.05, (b, len(wave)))).astype(np.float32)
+
+
+def _tables(rng, b=8, c=128, mf=72):
+    pos = np.full((b, c), BIGI, np.int64)
+    for i in range(b):
+        k = int(rng.integers(0, c + 1))
+        pos[i, :k] = np.sort(rng.integers(0, 40_000, k))
+    fields = np.stack([pos, rng.integers(1, 3000, (b, c)), rng.random((b, c)) < 0.25,
+                       rng.random((b, c)) < 0.6], axis=1).astype(np.int32)
+    return (torch.from_numpy(fields), torch.from_numpy(rng.integers(0, 30_000, b).astype(np.int32)),
+            torch.from_numpy(rng.choice([20_000, 41_000, BIGI], b).astype(np.int32)), mf)
+
+
+def test_cpu_tensors_run_the_plain_versions():
+    """On CPU tensors each wrapper returns its plain version's result and
+    counts no launch."""
+    x = torch.from_numpy(_captures(b=2, n_frames=3))
+    counts = [f.launches for f in (xcorr_hits, sd.attempt_manchester, sd.spec_walk)]
+    corr, rows = xcorr_hits(x, PRE, THR, emit_corr=True)
+    corr_p, rows_p = xcorr_hits_plain(x, PRE, THR, emit_corr=True)
+    assert torch.equal(corr, corr_p) and torch.equal(rows, rows_p)
+    cand, _, n_valid, _ = sd.compact_hit_rows(rows, 128)
+    vlen = torch.full((2,), x.shape[1], dtype=torch.int32)
+    args = (x, cand, n_valid, vlen, SYNC, preamble_energy(SYNC))
+    assert all(torch.equal(p, q) for p, q in zip(sd.attempt_manchester(*args),
+                                                 sd.attempt_manchester_plain(*args)))
+    table = _tables(np.random.default_rng(0))
+    assert all(torch.equal(p, q) for p, q in zip(sd.spec_walk(*table), sd.spec_walk_plain(*table)))
+    assert [f.launches for f in (xcorr_hits, sd.attempt_manchester, sd.spec_walk)] == counts
+
+
+def test_dispatch_rule_refuses_mixed_and_other_devices():
+    x = torch.zeros((1, 500))
+    assert _build.on_cuda(x) is False
+    with pytest.raises(ValueError):
+        _build.on_cuda(x, torch.zeros(1, device="meta"))
+    with pytest.raises(ValueError):
+        _build.on_cuda(torch.zeros(1, device="meta"))
+
+
+def test_build_names_track_the_sources():
+    for name in _build.KERNELS:
+        assert (_build.CSRC / f"{name}.cu").exists()
+        path = _build.library_path(name)
+        assert path.parent == _build.BUILD_DIR and path.name.startswith(name + "-")
+        assert path == _build.library_path(name)
+
+
+@pytest.mark.gpu
+def test_kernels_build(cuda):
+    for path in _build.build_all():
+        assert path.exists()
+
+
+@pytest.mark.gpu
+def test_xcorr_hits_kernel_matches_plain(cuda):
+    x = torch.from_numpy(_captures()).to(cuda)
+    x[1, -3000:] = 0.0
+    corr, rows = xcorr_hits(x, PRE, THR, emit_corr=True)
+    torch.cuda.synchronize()
+    corr_p, rows_p = xcorr_hits_plain(x, PRE, THR, emit_corr=True)
+    assert (corr - corr_p).abs().max().item() <= 1e-5
+    near = torch.nn.functional.pad((corr_p - THR).abs() < 1e-5,
+                                   (0, rows.shape[1] * 128 - corr.shape[1]))
+    near = near.reshape(rows.shape[0], rows.shape[1], 128).any(-1)
+    same = (rows[..., :5] == rows_p[..., :5]).all(-1) & (rows[..., 9:] == rows_p[..., 9:]).all(-1)
+    assert bool((same | near).all())
+    vals = rows[..., 5:9].contiguous().view(torch.float32)
+    vals_p = rows_p[..., 5:9].contiguous().view(torch.float32)
+    assert (vals - vals_p)[same].abs().max().item() <= 1e-5
+    _, rows_only = xcorr_hits(x, PRE, THR)
+    assert torch.equal(rows_only, rows)
+
+
+@pytest.mark.gpu
+def test_attempt_kernel_matches_plain(cuda):
+    x = torch.from_numpy(_captures()).to(cuda)
+    _, rows = xcorr_hits(x, PRE, THR)
+    cand, _, n_valid, _ = sd.compact_hit_rows(rows, 128)
+    vlen = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32, device=cuda)
+    vlen[2] -= 3000                       # cut one capture's valid length
+    args = (x, cand, n_valid, vlen, SYNC, preamble_energy(SYNC))
+    byts, fs = sd.attempt_manchester(*args)
+    torch.cuda.synchronize()
+    byts_p, fs_p = sd.attempt_manchester_plain(*args)
+    assert torch.equal(byts, byts_p) and torch.equal(fs, fs_p)
+    assert int(n_valid.min()) >= 12
+
+
+@pytest.mark.gpu
+def test_walk_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(5)
+    for mf in (1, 2, 5, 72, 128, 256):
+        fields, cur0, limit, _ = _tables(rng)
+        args = (fields.to(cuda), cur0.to(cuda), limit.to(cuda), mf)
+        got = sd.spec_walk(*args)
+        torch.cuda.synchronize()
+        want = sd.spec_walk_plain(*args)
+        for name, g, w in zip(got._fields, got, want):
+            assert torch.equal(g, w), (mf, name)
+
+
+@pytest.mark.gpu
+def test_positions_past_2_24_stay_exact(cuda):
+    """Frames past sample 2^24, where float32 no longer holds every
+    integer: starts and frame bytes come out exact."""
+    enc = PhyEncoder(CFG)
+    starts = [2**24 + 1001, 2**24 + 9003]
+    x = torch.zeros((1, 2**24 + 20_000))
+    frames = [Frame.new_data(i, 1, 2, bytes([7 + i]) * 33) for i in range(2)]
+    for s, f in zip(starts, frames):
+        wave = enc.encode_frame(f)
+        x[0, s:s + wave.shape[0]] = wave
+    x = x.to(cuda)
+    res, ok = sd.decode_capture_spec(CFG, x, 2, max_frames=4)
+    assert bool(ok.all())
+    assert res.start[0, :2].tolist() == starts
+    assert [f.data for f in res.to_frames(row=0)] == [f.data for f in frames]
+
+
+@pytest.mark.gpu
+def test_decode_on_the_card_equals_the_cpu(cuda):
+    x = torch.from_numpy(_captures())
+    before = [f.launches for f in (xcorr_hits, sd.attempt_manchester, sd.spec_walk)]
+    res, ok = sd.decode_capture_spec(CFG, x.to(cuda), 2, max_frames=16)
+    after = [f.launches for f in (xcorr_hits, sd.attempt_manchester, sd.spec_walk)]
+    assert all(a == b + 1 for a, b in zip(after, before))
+    res_p, ok_p = sd.decode_capture_spec(CFG, x, 2, max_frames=16)
+    assert torch.equal(ok.cpu(), ok_p) and bool(ok_p.all())
+    for name, g, w in zip(res._fields, res, res_p):
+        if name == "corr":
+            assert (g.cpu() - w).abs().max().item() <= 1e-5
+        else:
+            assert torch.equal(g.cpu(), w), name
+    assert res.count.tolist() == [12] * 4

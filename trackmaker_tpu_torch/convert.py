@@ -1,0 +1,32 @@
+"""Moving state between the JAX package and the port.
+
+The system has no weights: its state is the ``PhyConfig`` (the pattern
+tables follow from it).  These helpers take plain Python and numpy values,
+so neither side imports the other.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections.abc import Mapping
+
+import numpy as np
+
+from trackmaker_tpu_torch.core.config import PhyConfig
+from trackmaker_tpu_torch.phy.decoder import DecodedFrames
+
+
+def phy_config_from_fields(fields: Mapping) -> PhyConfig:
+    """The port's PhyConfig from ``dataclasses.asdict`` of the JAX one, or
+    any mapping of the same fields; a field the port lacks raises."""
+    names = {f.name for f in dataclasses.fields(PhyConfig)}
+    unknown = set(fields) - names
+    if unknown:
+        raise KeyError(f"PhyConfig has no fields {sorted(unknown)}")
+    return PhyConfig(**dict(fields))
+
+
+def frames_to_numpy(frames: DecodedFrames) -> dict[str, np.ndarray]:
+    """Every field of `frames` as a numpy array, keyed by field name."""
+    return {name: value.detach().cpu().numpy()
+            for name, value in frames._asdict().items()}

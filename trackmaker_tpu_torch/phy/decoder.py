@@ -1,0 +1,252 @@
+"""PHY decoder: 48 kHz captures -> frames (counterpart of ``trackmaker_tpu/phy/decoder.py``).
+
+``decode_capture`` is the exact scan: the receiver's sequential decisions
+replayed one candidate at a time.  From the cursor it takes the first
+correlation hit, refines the frame start on the sync word (first maximum
+wins), decodes and checks the header, applies the length, destination and
+completeness rules, and moves the cursor by what the attempt consumed.
+The bodies of the accepted frames are decoded and CRC-checked together
+afterwards.  It is the fallback and the oracle of the speculative decode
+(``phy/spec_decode.py``), which ``decode_capture_fast`` runs first.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from trackmaker_tpu_torch.core import bitops
+from trackmaker_tpu_torch.core.config import (
+    FRAME_TYPE_ACK,
+    FRAME_TYPE_DATA,
+    PHY_HEADER_BYTES,
+    PhyConfig,
+)
+from trackmaker_tpu_torch.core.framing import Frame
+from trackmaker_tpu_torch.phy import line_coding
+from trackmaker_tpu_torch.sync import auto_xcorr
+from trackmaker_tpu_torch.sync.correlate import preamble_energy
+
+_BIG = 2**30
+_HIT_BLOCK = 512   # the reference's hit lookup clamps the cursor to its blocks
+
+
+class DecodedFrames(NamedTuple):
+    """Fixed-size decode results over `max_frames` slots ([K] or [B, K])."""
+
+    valid: torch.Tensor        # bool: CRC-passed frame addressed to us
+    frame_bytes: torch.Tensor  # uint8[..., 7+max_frame_bytes] (zero-padded)
+    length: torch.Tensor       # int32: payload length
+    frame_type: torch.Tensor   # int32
+    sequence: torch.Tensor     # int32
+    src: torch.Tensor          # int32
+    dst: torch.Tensor          # int32
+    start: torch.Tensor        # int32: preamble start sample (-1 if empty)
+    corr: torch.Tensor         # f32: detection correlation
+
+    @property
+    def count(self) -> torch.Tensor:
+        return self.valid.sum(-1, dtype=torch.int32)
+
+    def to_frames(self, row: int | None = None) -> list[Frame]:
+        """Host side: the valid slots as Frame objects (pass `row` to pick
+        one capture of a batch)."""
+        valid = self.valid.cpu().numpy()
+        fb = self.frame_bytes.cpu().numpy()
+        ln = self.length.cpu().numpy()
+        if row is not None:
+            valid, fb, ln = valid[row], fb[row], ln[row]
+        out = []
+        for k in np.nonzero(valid)[0]:
+            f = Frame.from_bytes(fb[k, : PHY_HEADER_BYTES + ln[k]].tobytes())
+            assert f is not None
+            out.append(f)
+        return out
+
+
+def _empty_frames(cfg: PhyConfig, k: int, device) -> DecodedFrames:
+    z = torch.zeros(k, dtype=torch.int32, device=device)
+    return DecodedFrames(
+        valid=torch.zeros(k, dtype=torch.bool, device=device),
+        frame_bytes=torch.zeros((k, PHY_HEADER_BYTES + cfg.max_frame_bytes),
+                                dtype=torch.uint8, device=device),
+        length=z, frame_type=z.clone(), sequence=z.clone(), src=z.clone(),
+        dst=z.clone(), start=torch.full((k,), -1, dtype=torch.int32, device=device),
+        corr=torch.zeros(k, dtype=torch.float32, device=device))
+
+
+def decode_capture(
+    cfg: PhyConfig,
+    samples: torch.Tensor,       # f32[T]
+    local_addr: int,
+    max_frames: int = 64,
+    valid_len: int | None = None,
+    with_cursor: bool = False,
+    start_cursor: int | None = None,
+    scan_limit: int | None = None,
+):
+    """Decode one capture with the exact scan.
+
+    `valid_len` is the true length of a zero-padded capture: frames that
+    run past it are incomplete, and the scan stops on them.  The walk
+    starts at `start_cursor` (earlier hits are skipped) and ends at the
+    first candidate at or past `scan_limit`.  A local address below 0
+    accepts every destination.  With ``with_cursor=True`` the result is
+    ``(frames, searched_until, final_cursor)``, the last two as ints:
+    `searched_until` is the start of a pending incomplete frame if the
+    scan stopped on one, ``valid_len - (preamble_len - 1)`` if it ran out
+    of candidates, else the cursor where `max_frames` ran out.
+    """
+    line_coding._require_manchester(cfg)
+    if samples.ndim != 1:
+        raise ValueError("samples must be f32[T]")
+    x = samples.to(torch.float32)
+    dev = x.device
+    t = x.shape[0]
+    vlen = t if valid_len is None else int(valid_len)
+    cursor = 0 if start_cursor is None else int(start_cursor)
+    limit = _BIG if scan_limit is None else int(scan_limit)
+
+    pre = line_coding.preamble_waveform(cfg)
+    l_pre = len(pre)
+    sync_len, margin = cfg.sync_len, cfg.sync_margin
+    hdr_samples = cfg.header_samples
+    max_total_bytes = PHY_HEADER_BYTES + cfg.max_frame_bytes
+    max_window = cfg.samples_for_bits(max_total_bytes * 8)
+    if t < l_pre:   # shorter than the preamble: nothing to find
+        x = torch.nn.functional.pad(x, (0, l_pre - t))
+        t = l_pre
+
+    corr = auto_xcorr(x, pre)
+    hits = torch.nonzero(corr >= cfg.correlation_threshold).flatten().cpu().numpy()
+    last_lag = -(-corr.shape[0] // _HIT_BLOCK) * _HIT_BLOCK - 1
+    padded = torch.nn.functional.pad(x, (0, max_window + l_pre + margin + sync_len + 8))
+    sync = torch.from_numpy(pre[l_pre - sync_len:]).to(dev)
+    sync_e = preamble_energy(pre[l_pre - sync_len:])
+    n_pos = 2 * margin + 1
+    k = torch.arange(n_pos, device=dev)
+    win_idx = k[:, None] + torch.arange(sync_len, device=dev)
+    hdr_idx = torch.arange(hdr_samples, device=dev)
+    slab_len = 2 * margin + sync_len + hdr_samples
+
+    done, pending = False, _BIG
+    kept = []   # (slot, i, fs, dlen, ftype, seq, src, dst, crc)
+    for step in range(max_frames):
+        j = np.searchsorted(hits, min(max(cursor, 0), last_lag))
+        first = int(hits[j]) if j < len(hits) else _BIG
+        if first >= limit:            # no candidate left in this scan
+            done = True
+            break
+        i = min(first, t)
+        expected = i + l_pre - sync_len
+        base = max(expected - margin, 0)
+        slab = padded[base: base + slab_len]
+        wins = slab[win_idx]
+        dot = wins @ sync
+        we = (wins * wins).sum(-1)
+        cc = torch.where(we > 1e-6, dot / (torch.sqrt(we) * sync_e), 0.0)
+        posk = base + k
+        ok_k = ((posk >= expected - margin) & (posk <= expected + margin)
+                & (posk <= vlen - sync_len))
+        cc = torch.where(ok_k, cc, -torch.inf)
+        best_pos = torch.where(cc.amax() > -1.0, base + cc.argmax(), expected)
+        fs_t = best_pos + sync_len
+        off = (fs_t - base).clamp(0, slab_len - hdr_samples)
+        hdr = bitops.pack_bits(line_coding.decode(cfg, slab[off + hdr_idx]))
+        fs, dlen_hi, dlen_lo, crc, ftype, seq, src, dst = torch.cat(
+            [fs_t.reshape(1), hdr.to(torch.int64)]).tolist()
+        dlen = dlen_hi * 256 + dlen_lo
+
+        hdr_incomplete = fs + hdr_samples > vlen
+        header_ok = ftype in (FRAME_TYPE_DATA, FRAME_TYPE_ACK)
+        len_bad = (ftype == FRAME_TYPE_DATA and dlen == 0) or dlen > cfg.max_frame_bytes
+        total_samples = cfg.samples_for_bits((PHY_HEADER_BYTES + dlen) * 8)
+        incomplete = fs + total_samples > vlen
+        if hdr_incomplete or (header_ok and not len_bad and incomplete):
+            # wait for more data: the drain point stays at this preamble
+            pending = min(pending, i)
+            done = True
+            break
+        if header_ok and not len_bad and (dst == local_addr or local_addr < 0):
+            kept.append((step, i, fs, dlen, ftype, seq, src, dst, crc))
+        if not header_ok:
+            cursor = i + hdr_samples
+        elif len_bad:
+            cursor = i + 1
+        else:
+            cursor = i + l_pre + total_samples
+
+    res = _empty_frames(cfg, max_frames, dev)
+    if kept:
+        slot, i, fs, dlen, ftype, seq, src, dst, crc = (
+            torch.tensor(col, device=dev) for col in zip(*kept))
+        body = padded[fs[:, None] + torch.arange(max_window, device=dev)]
+        bits = line_coding.decode(cfg, body)
+        in_frame = torch.arange(bits.shape[-1], device=dev) < ((PHY_HEADER_BYTES + dlen) * 8)[:, None]
+        frame_bytes = bitops.pack_bits(torch.where(in_frame, bits, 0))
+        crc_ok = bitops.crc8(frame_bytes[:, PHY_HEADER_BYTES:],
+                             dlen.clamp(0, cfg.max_frame_bytes)).to(torch.int64) == crc
+        slot, good = slot[crc_ok], crc_ok
+        res.valid[slot] = True
+        res.frame_bytes[slot] = frame_bytes[good]
+        for field, col in ((res.length, dlen), (res.frame_type, ftype),
+                           (res.sequence, seq), (res.src, src), (res.dst, dst),
+                           (res.start, i)):
+            field[slot] = col[good].to(torch.int32)
+        lag = i[good].clamp(0, corr.shape[0] - 1)
+        res.corr[slot] = corr[lag]
+    if not with_cursor:
+        return res
+    if pending < _BIG:
+        searched = pending
+    else:
+        searched = vlen - (l_pre - 1) if done else cursor
+    return res, min(max(searched, 0), vlen), cursor
+
+
+def decode_captures(cfg: PhyConfig, x: torch.Tensor, local_addr: int,
+                    max_frames: int, valid_len: list[int]) -> DecodedFrames:
+    """The exact scan of every row of x f32[B, T], stacked to [B, K]."""
+    rows = [decode_capture(cfg, x[r], local_addr, max_frames, valid_len=valid_len[r])
+            for r in range(x.shape[0])]
+    return DecodedFrames(*(torch.stack(col) for col in zip(*rows)))
+
+
+def decode_capture_fast(
+    cfg: PhyConfig,
+    samples: torch.Tensor,       # f32[T] or f32[B, T]
+    local_addr: int,
+    max_frames: int = 64,
+    valid_len=None,              # int, or int per row of a zero-padded batch
+) -> DecodedFrames:
+    """Batch decode through the speculative path where it applies.
+
+    The speculative decode (kernels on a CUDA tensor, their plain versions
+    on a CPU tensor) runs first; the rows whose candidate table overflowed
+    are decoded again by the exact scan and take its result.  Every row
+    equals :func:`decode_capture` frame for frame; the speculative rows
+    hold their frames in the leading slots.
+    """
+    from trackmaker_tpu_torch.phy import spec_decode
+
+    line_coding._require_manchester(cfg)
+    x = samples.to(torch.float32)
+    batched = x.ndim == 2
+    xb = x if batched else x[None]
+    b, t = xb.shape
+    vlens = torch.as_tensor(t if valid_len is None else valid_len,
+                            dtype=torch.int32).expand(b).tolist()
+    if spec_decode.spec_supported_cfg(cfg):
+        res, ok = spec_decode.decode_capture_spec(
+            cfg, xb, local_addr, max_frames=max_frames, valid_len=vlens)
+        redo = torch.nonzero(~ok).flatten().tolist()
+        if redo:
+            exact = decode_captures(cfg, xb[redo], local_addr, max_frames,
+                                    [vlens[r] for r in redo])
+            for field, fix in zip(res, exact):
+                field[redo] = fix
+    else:
+        res = decode_captures(cfg, xb, local_addr, max_frames, vlens)
+    return res if batched else DecodedFrames(*(f[0] for f in res))

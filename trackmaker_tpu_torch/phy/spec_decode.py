@@ -1,0 +1,415 @@
+"""Speculative batched Manchester decode (counterpart of ``trackmaker_tpu/phy/pallas_decode.py``).
+
+``decode_capture_spec`` decodes a batch of captures in six steps:
+
+1. correlation and per-row hits (kernel ``sync/xcorr_hits``);
+2. ``compact_hit_rows``: the sorted candidate table and its overflow flag;
+3. ``attempt_manchester`` (kernel): the sync refine and the frame bytes of
+   every candidate, independent of where the walk will go;
+4. ``spec_phase_a``'s epilogue: header fields, length sanity, destination
+   filter and CRC8, giving each candidate's consumed/stop/keep fields;
+5. ``spec_walk`` (kernel): the sequential consumption walk over the table;
+6. ``spec_compact``: the kept frames, in position order, into the leading
+   slots.
+
+Because every hit is in the table, the walk replays the exact scan's cursor
+decisions; only a table overflow (``ok`` False) sends a capture to the exact
+scan (``phy/decoder.py:decode_capture_fast`` does this).  Each kernel
+wrapper runs its ``*_plain`` version on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from trackmaker_tpu_torch import _build
+from trackmaker_tpu_torch.core import bitops, framing
+from trackmaker_tpu_torch.core.config import (
+    FRAME_TYPE_DATA,
+    MANCHESTER,
+    PHY_HEADER_BYTES,
+    PhyConfig,
+)
+from trackmaker_tpu_torch.phy import line_coding
+from trackmaker_tpu_torch.phy.decoder import DecodedFrames
+from trackmaker_tpu_torch.sync.correlate import preamble_energy
+from trackmaker_tpu_torch.sync.xcorr_hits import BIGI, HIT_SLOTS, xcorr_hits
+
+GROUP_ROWS = 32     # hit rows per first-stage compaction group
+GROUP_SLOTS = 16    # hits a group may hold before the table overflows
+SYNC_POSITIONS = 13
+FRAME_BYTES = PHY_HEADER_BYTES + 256   # 263, the largest frame
+BIT_SAMPLES = 6
+
+
+def spec_supported_cfg(cfg: PhyConfig) -> bool:
+    """The configurations the attempt kernel is specialized for."""
+    return (cfg.line_coding == MANCHESTER and cfg.samples_per_level == 3
+            and cfg.preamble_len == 96 and cfg.sync_len == 48
+            and cfg.sync_margin == 6 and cfg.header_samples == 336
+            and PHY_HEADER_BYTES + cfg.max_frame_bytes == FRAME_BYTES)
+
+
+def _check_cfg(cfg: PhyConfig) -> None:
+    line_coding._require_manchester(cfg)
+    if not spec_supported_cfg(cfg):
+        raise ValueError("the speculative decode is specialized for the "
+                         "spl=3 Manchester configuration")
+
+
+def _per_row(value, b: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(value, dtype=torch.int32, device=device).expand(b).contiguous()
+
+
+# --- step 2 -----------------------------------------------------------------
+
+
+def _compact(vals: torch.Tensor, valid: torch.Tensor, n_out: int, fill):
+    """Pack the valid entries of vals[..., N] in order into n_out slots."""
+    rank = valid.cumsum(-1) - 1
+    slot = torch.where(valid & (rank < n_out), rank, n_out)   # n_out = sink
+    out = torch.full((*vals.shape[:-1], n_out + 1), fill, dtype=vals.dtype,
+                     device=vals.device)
+    return out.scatter_(-1, slot, vals)[..., :n_out].contiguous()
+
+
+def compact_hit_rows(rows: torch.Tensor, n_cand: int):
+    """(cand, corr, n_valid, overflow) from hit rows int32[B, R, 16].
+
+    cand int32[B, n_cand] holds every extracted hit position, ascending,
+    padded with 2^30; corr f32[B, n_cand] the correlation at each (0 past
+    n_valid); n_valid int32[B] counts the extracted hits, uncapped.  The
+    compaction runs in two stages, first within groups of 32 rows to 16
+    slots, then globally.  The table overflows when a row holds more than
+    four hits, a group more than 16, or the capture more than `n_cand`; an
+    overflowed capture must be decoded by the exact scan.
+    """
+    b, r, _ = rows.shape
+    starts = rows[..., :HIT_SLOTS]
+    cvals = rows[..., HIT_SLOTS + 1:2 * HIT_SLOTS + 1].contiguous().view(torch.float32)
+    counts = rows[..., HIT_SLOTS]
+    ng = -(-r // GROUP_ROWS)
+    pad = ng * GROUP_ROWS - r
+    if pad:
+        starts = torch.nn.functional.pad(starts, (0, 0, 0, pad), value=BIGI)
+        cvals = torch.nn.functional.pad(cvals, (0, 0, 0, pad))
+    sg = starts.reshape(b, ng, GROUP_ROWS * HIT_SLOTS)
+    cg = cvals.reshape(b, ng, GROUP_ROWS * HIT_SLOTS)
+    vg = sg < BIGI
+    grp_n = vg.sum(-1)
+    s_c = _compact(sg, vg, GROUP_SLOTS, BIGI).reshape(b, ng * GROUP_SLOTS)
+    c_c = _compact(cg, vg, GROUP_SLOTS, 0.0).reshape(b, ng * GROUP_SLOTS)
+
+    valid = s_c < BIGI
+    cand = _compact(s_c, valid, n_cand, BIGI)
+    corr = _compact(c_c, valid, n_cand, 0.0)
+    n_valid = valid.sum(-1, dtype=torch.int32)
+    overflow = ((counts > HIT_SLOTS).any(-1) | (grp_n > GROUP_SLOTS).any(-1)
+                | (counts.sum(-1) > n_cand))
+    return cand, corr, n_valid, overflow
+
+
+# --- step 3: kernel 2 ---------------------------------------------------------
+
+
+def attempt_manchester_plain(x: torch.Tensor, cand: torch.Tensor,
+                             n_valid: torch.Tensor, vlen: torch.Tensor,
+                             sync: np.ndarray, sync_e: float):
+    """Plain PyTorch version of :func:`attempt_manchester`."""
+    b, t = x.shape
+    n_cand = cand.shape[1]
+    dev = x.device
+    live = torch.arange(n_cand, device=dev) < n_valid.clamp(max=n_cand)[:, None]
+    xz = torch.nn.functional.pad(x, (0, 1))       # column t reads as zero
+
+    def windows(start: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+        idx = (start[..., None].to(torch.int64) + offsets).clamp(max=t)
+        flat = idx.reshape(b, -1)
+        return xz.gather(1, flat).reshape(idx.shape)
+
+    i_c = torch.minimum(cand, torch.tensor(t, dtype=cand.dtype, device=dev))
+    base = i_c + 42
+    k = torch.arange(SYNC_POSITIONS, device=dev)
+    win = windows(base, (k[:, None] + torch.arange(48, device=dev)).reshape(-1))
+    win = win.reshape(b, n_cand, SYNC_POSITIONS, 48)
+    s = torch.from_numpy(np.asarray(sync, np.float32)).to(dev)
+    # tap by tap, a rounded product then a rounded sum, as the kernel adds
+    # them: equal cc values keep a near-tie's first maximum the kernel's
+    dot = torch.zeros(win.shape[:-1], dtype=torch.float32, device=dev)
+    en = torch.zeros_like(dot)
+    for j in range(48):
+        v = win[..., j]
+        dot = dot + v * s[j]
+        en = en + v * v
+    cc =torch.where(en > 1e-6, dot / (torch.sqrt(en) * sync_e), 0.0)
+    ok_k = (base[..., None] + k) <= (vlen[:, None, None] - 48)
+    cc = torch.where(ok_k, cc, -torch.inf)
+    best = cc.argmax(-1).to(torch.int32)
+    fs = torch.where(cc.amax(-1) > -1.0, base + best, i_c + 48) + 48
+
+    body = windows(fs, torch.arange(FRAME_BYTES * 8 * BIT_SAMPLES, device=dev))
+    w = body.reshape(b, n_cand, FRAME_BYTES * 8, BIT_SAMPLES)
+    d = (w[..., 0] + w[..., 1] + w[..., 2]) - (w[..., 3] + w[..., 4] + w[..., 5])
+    byts = bitops.pack_bits((d <= 0.0).to(torch.uint8))
+    byts = torch.where(live[..., None], byts, 0)
+    fs = torch.where(live, fs, 0).to(torch.int32)
+    return byts, fs
+
+
+_ATTEMPT_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+    ctypes.c_float] + [ctypes.c_void_p] * 3
+
+
+def attempt_manchester(x: torch.Tensor, cand: torch.Tensor,
+                       n_valid: torch.Tensor, vlen: torch.Tensor,
+                       sync: np.ndarray, sync_e: float):
+    """Sync refine and frame decode of every live candidate slot.
+
+    x f32[B, T], cand int32[B, C], n_valid int32[B], vlen int32[B]; `sync`
+    is the 48-sample sync word and `sync_e` its norm.  Returns the frame
+    bytes uint8[B, C, 263] and the refined frame start fs int32[B, C] of
+    each slot c < min(n_valid, C), zeros elsewhere (see the kernel's note
+    in ``csrc/attempt_manchester.cu``).
+    """
+    if not _build.on_cuda(x, cand, n_valid, vlen):
+        return attempt_manchester_plain(x, cand, n_valid, vlen, sync, sync_e)
+    b, t = x.shape
+    n_cand = cand.shape[1]
+    for name, tensor, shape, dtype in (("x", x, (b, t), torch.float32),
+                                       ("cand", cand, (b, n_cand), torch.int32),
+                                       ("n_valid", n_valid, (b,), torch.int32),
+                                       ("vlen", vlen, (b,), torch.int32)):
+        if (tuple(tensor.shape) != shape or tensor.dtype != dtype
+                or not tensor.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {dtype}{list(shape)}")
+    if len(sync) != 48:
+        raise ValueError("the sync word must hold 48 samples")
+    s = torch.from_numpy(np.asarray(sync, np.float32)).to(x.device)
+    byts = torch.empty((b, n_cand, FRAME_BYTES), dtype=torch.uint8, device=x.device)
+    fs = torch.empty((b, n_cand), dtype=torch.int32, device=x.device)
+    fn = _build.entry("attempt_manchester", "tm_attempt_manchester",
+                      _ATTEMPT_ARGTYPES)
+    err = fn(x.data_ptr(), cand.data_ptr(), n_valid.data_ptr(), vlen.data_ptr(),
+             s.data_ptr(), b, t, n_cand, sync_e, byts.data_ptr(), fs.data_ptr(),
+             _build.stream_ptr(x))
+    _build.check(err, "attempt_manchester")
+    attempt_manchester.launches += 1
+    return byts, fs
+
+
+attempt_manchester.launches = 0
+
+
+# --- step 4 -----------------------------------------------------------------
+
+
+class SpecFields(NamedTuple):
+    """Cursor-independent products of steps 1-4, per candidate."""
+    cand: torch.Tensor       # int32[B, C] candidate preamble starts (2^30 pad)
+    fields: torch.Tensor     # int32[B, 4, C] walk rows: pos/consumed/stop/keep
+    overflow: torch.Tensor   # bool[B] candidate table overflowed
+    bytes_m: torch.Tensor    # uint8[B, C, 263] frame bytes, masked to length
+    dlen: torch.Tensor       # int32[B, C]
+    ftype: torch.Tensor      # int32[B, C]
+    seq: torch.Tensor        # int32[B, C]
+    src: torch.Tensor        # int32[B, C]
+    dst: torch.Tensor        # int32[B, C]
+    corr: torch.Tensor       # f32[B, C] correlation at each candidate
+
+
+def spec_phase_a(cfg: PhyConfig, x: torch.Tensor, local_addr: int,
+                 n_cand: int, vlens: torch.Tensor) -> SpecFields:
+    """Steps 1-4 for captures x f32[B, T] with true lengths vlens int32[B]."""
+    pre = line_coding.preamble_waveform(cfg)
+    sync = pre[cfg.preamble_len - cfg.sync_len:]
+    _, rows = xcorr_hits(x, pre, cfg.correlation_threshold)
+    cand, corr, n_valid, overflow = compact_hit_rows(rows, n_cand)
+    byts, fs = attempt_manchester(x, cand, n_valid, vlens, sync,
+                                  preamble_energy(sync))
+
+    hdr = framing.parse_header(byts)
+    dlen, ftype, dst = hdr["length"], hdr["frame_type"], hdr["dst"]
+    total_samples = cfg.samples_for_bits(8) * (PHY_HEADER_BYTES + dlen)
+    header_ok = hdr["type_valid"]
+    len_bad = ((ftype == FRAME_TYPE_DATA) & (dlen == 0)) | (dlen > cfg.max_frame_bytes)
+    vl = vlens[:, None]
+    hdr_incomplete = fs + cfg.header_samples > vl
+    incomplete = fs + total_samples > vl
+    dst_ok = (dst == local_addr) | (local_addr < 0)
+
+    in_frame = torch.arange(FRAME_BYTES, device=x.device) < (PHY_HEADER_BYTES + dlen)[..., None]
+    bytes_m = torch.where(in_frame, byts, 0)
+    crc = bitops.crc8(bytes_m[..., PHY_HEADER_BYTES:],
+                      dlen.clamp(0, cfg.max_frame_bytes))
+    crc_ok = crc.to(torch.int32) == hdr["crc"]
+
+    consumed = torch.where(
+        ~header_ok, cfg.header_samples,
+        torch.where(len_bad, 1, cfg.preamble_len + total_samples))
+    stopf = hdr_incomplete | (header_ok & ~len_bad & incomplete)
+    keepf = (~hdr_incomplete & header_ok & ~len_bad & ~incomplete
+             & dst_ok & crc_ok)
+    fields = torch.stack([cand, consumed.to(torch.int32), stopf.to(torch.int32),
+                          keepf.to(torch.int32)], dim=1)
+    return SpecFields(cand=cand, fields=fields, overflow=overflow,
+                      bytes_m=bytes_m, dlen=dlen, ftype=ftype, seq=hdr["sequence"],
+                      src=hdr["src"], dst=dst, corr=corr)
+
+
+# --- step 5: kernel 3 ---------------------------------------------------------
+
+
+class WalkResult(NamedTuple):
+    keep: torch.Tensor        # bool[B, C] attempted and kept
+    attempted: torch.Tensor   # bool[B, C] reached by the cursor
+    cur_f: torch.Tensor       # int32[B] final cursor
+    done: torch.Tensor        # bool[B] stopped, or fewer than max_frames attempts
+    pending: torch.Tensor     # int32[B] start of the incomplete frame (2^30 if none)
+    att: torch.Tensor         # int32[B] attempts made
+
+
+def spec_walk_plain(fields: torch.Tensor, start_cursor: torch.Tensor,
+                    scan_limit: torch.Tensor, max_frames: int) -> WalkResult:
+    """Plain PyTorch version of :func:`spec_walk`: the walk as a chase
+    through a successor table.  The successor of candidate c is the first
+    candidate at or past pos_c + consumed_c (positions are sorted); stop
+    candidates and absent ones lead to a sink at index C.  The attempted
+    set is the first `max_frames` nodes of the chain that starts at the
+    first candidate at or past the start cursor."""
+    b, _, c_n = fields.shape
+    dev = fields.device
+    pos, consumed = fields[:, 0], fields[:, 1]
+    stopf, keepf = fields[:, 2] > 0, fields[:, 3] > 0
+    exists = (pos < BIGI) & (pos < scan_limit[:, None])
+    nxt = (pos[:, None, :] < (pos + consumed)[:, :, None]).sum(-1)
+    nxt = torch.where(stopf | ~exists, c_n, nxt)
+    nxt = torch.cat([nxt, torch.full((b, 1), c_n, dtype=nxt.dtype, device=dev)], -1)
+
+    rows = torch.arange(b, device=dev)
+    ptr = (pos < start_cursor[:, None]).sum(-1)
+    visited = torch.zeros((b, c_n + 1), dtype=torch.bool, device=dev)
+    for _ in range(min(max_frames, c_n + 1)):
+        visited[rows, ptr] = True
+        ptr = nxt[rows, ptr]
+
+    att = visited[:, :c_n] & exists
+    att_n = att.sum(-1, dtype=torch.int32)
+    stop_at = att & stopf
+    pending = torch.where(stop_at, pos, BIGI).amin(-1)
+    adv_end = torch.where(att & ~stopf, pos + consumed, -1).amax(-1)
+    return WalkResult(
+        keep=att & keepf & ~stopf,
+        attempted=att,
+        cur_f=torch.maximum(start_cursor, adv_end).to(torch.int32),
+        done=stop_at.any(-1) | (att_n < max_frames),
+        pending=pending.to(torch.int32),
+        att=att_n)
+
+
+_WALK_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+
+
+def spec_walk(fields: torch.Tensor, start_cursor: torch.Tensor,
+              scan_limit: torch.Tensor, max_frames: int) -> WalkResult:
+    """The consumption walk of every capture over fields int32[B, 4, C]
+    from start_cursor int32[B], ignoring candidates at or past
+    scan_limit int32[B], for at most `max_frames` attempts (see the
+    kernel's note in ``csrc/spec_walk.cu``)."""
+    if not _build.on_cuda(fields, start_cursor, scan_limit):
+        return spec_walk_plain(fields, start_cursor, scan_limit, max_frames)
+    b, rows, c_n = fields.shape
+    if rows != 4 or fields.dtype != torch.int32 or not fields.is_contiguous():
+        raise ValueError("fields must be a contiguous int32[B, 4, C]")
+    for name, tensor in (("start_cursor", start_cursor), ("scan_limit", scan_limit)):
+        if (tuple(tensor.shape) != (b,) or tensor.dtype != torch.int32
+                or not tensor.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous int32[{b}]")
+    keep = torch.empty((b, c_n), dtype=torch.bool, device=fields.device)
+    attempted = torch.empty((b, c_n), dtype=torch.bool, device=fields.device)
+    state = torch.empty((b, 4), dtype=torch.int32, device=fields.device)
+    fn = _build.entry("spec_walk", "tm_spec_walk", _WALK_ARGTYPES)
+    err = fn(fields.data_ptr(), start_cursor.data_ptr(), scan_limit.data_ptr(),
+             b, c_n, max_frames, keep.data_ptr(), attempted.data_ptr(),
+             state.data_ptr(), _build.stream_ptr(fields))
+    _build.check(err, "spec_walk")
+    spec_walk.launches += 1
+    return WalkResult(keep=keep, attempted=attempted, cur_f=state[:, 0],
+                      done=state[:, 1] > 0, pending=state[:, 2], att=state[:, 3])
+
+
+spec_walk.launches = 0
+
+
+# --- step 6 -----------------------------------------------------------------
+
+
+def spec_compact(a: SpecFields, keep: torch.Tensor, max_frames: int) -> DecodedFrames:
+    """The kept candidates, in position order, in the leading `max_frames`
+    slots; the other slots are empty (invalid, zero, start -1)."""
+    b, c_n = keep.shape
+    src_idx = torch.arange(c_n, device=keep.device).expand(b, c_n)
+    idx = _compact(src_idx, keep, max_frames, c_n)
+    valid = idx < c_n
+    g = idx.clamp(max=c_n - 1)
+
+    def pick(arr: torch.Tensor, empty=0) -> torch.Tensor:
+        return torch.where(valid, arr.gather(1, g), empty)
+
+    frame_bytes = a.bytes_m.gather(1, g[..., None].expand(b, max_frames, FRAME_BYTES))
+    return DecodedFrames(
+        valid=valid,
+        frame_bytes=torch.where(valid[..., None], frame_bytes, 0),
+        length=pick(a.dlen),
+        frame_type=pick(a.ftype),
+        sequence=pick(a.seq),
+        src=pick(a.src),
+        dst=pick(a.dst),
+        start=pick(a.cand, -1),
+        corr=pick(a.corr, 0.0))
+
+
+def decode_capture_spec(
+    cfg: PhyConfig,
+    samples: torch.Tensor,       # f32[B, T]
+    local_addr: int,
+    max_frames: int = 64,
+    n_cand: int = 128,
+    valid_len=None,
+    start_cursor=None,
+    scan_limit=None,
+    with_cursor: bool = False,
+):
+    """Batched speculative decode; returns ``(DecodedFrames, ok[B])``.
+
+    Rows with ``ok`` False overflowed the candidate table and must be
+    decoded again by the exact scan.  Kept frames fill the leading slots in
+    position order; the exact scan leaves failed attempts as empty slots
+    between them, so the two agree frame for frame, not slot for slot.
+
+    `valid_len`, `start_cursor` and `scan_limit` (scalars or int per row)
+    follow the exact scan's cursor semantics; ``with_cursor=True`` returns
+    ``(frames, ok, searched_until[B], final_cursor[B])``.
+    """
+    _check_cfg(cfg)
+    if samples.ndim != 2:
+        raise ValueError("samples must be f32[B, T]")
+    x = samples.to(torch.float32).contiguous()
+    b, t = x.shape
+    dev = x.device
+    vlens = _per_row(t if valid_len is None else valid_len, b, dev)
+    a = spec_phase_a(cfg, x, local_addr, n_cand, vlens)
+    cur0 = _per_row(0 if start_cursor is None else start_cursor, b, dev)
+    limit = _per_row(BIGI if scan_limit is None else scan_limit, b, dev)
+    walk = spec_walk(a.fields, cur0, limit, max_frames)
+    res = spec_compact(a, walk.keep, max_frames)
+    ok = ~a.overflow
+    if not with_cursor:
+        return res, ok
+    drained = torch.where(walk.done, vlens - (cfg.preamble_len - 1), walk.cur_f)
+    searched_until = torch.where(walk.pending < BIGI, walk.pending, drained)
+    searched_until = torch.minimum(searched_until.clamp(min=0), vlens)
+    return res, ok, searched_until, walk.cur_f
