@@ -9,21 +9,34 @@ PyTorch built for CUDA and the CUDA toolkit (``nvcc``):
 Phases, each raising on failure (non-zero exit):
 
 0. setup: TF32 off, the card's name and power limit, the kernels built
-   from ``trackmaker_tpu_torch/csrc``;
-1. each kernel against its plain PyTorch version on the card, at the
-   flagship shapes (32 captures x 433,464 samples, 128 candidates);
-2. the flagship decode through ``decode_capture_fast``: 32 noisy captures
-   of 64 Manchester frames (128-byte payloads, 200-sample gaps, noise
-   sigma 0.05), with a payload gate, every row ``ok``, agreement with the
-   exact scan on two rows, and every kernel's launch count raised;
-3. the fallback: a capture that overflows the candidate table goes to the
-   exact scan on the card, and the merged batch equals the exact scan;
+   from ``trackmaker_tpu_torch/csrc`` (one nvcc per source, in parallel);
+1. each kernel against its plain PyTorch version on the card: the
+   Manchester kernels at the flagship shapes (32 captures x 433,464
+   samples, 128 candidates), then the correlation at the 60-sample 4B5B
+   preamble and the 4B5B attempt at the fourb5b_b32 shapes (32 captures x
+   275,640 samples, 128 candidates);
+2. the two main paths through ``decode_capture_fast``, each with every
+   launch count set to 0 just before it and read just after: the flagship,
+   32 noisy captures of 64 Manchester frames, and fourb5b_b32, 32 noisy
+   captures of 64 4B5B frames (both 128-byte payloads, 200-sample gaps,
+   noise sigma 0.05).  Each has a payload gate, every row ``ok``,
+   agreement with the exact scan on two rows, and each kernel of its path
+   launched;
+3. the fallbacks: a Manchester capture that overflows the candidate table,
+   and a 4B5B capture with a zeroed level inside an attempted frame, go to
+   the exact scan on the card, and each merged batch equals the exact scan;
 4. timings with CUDA events (median of 30 runs after warm-up) of each
-   kernel against its plain version and of ``decode_capture_spec`` end
-   to end, each printed beside the card's name and power limit.
+   kernel against its plain version, of ``decode_capture_spec`` end to
+   end for both line codes, and of the exact scan of one row (median of
+   5), each printed beside the card's name and power limit.
 
-The line before the last is a JSON object with the kernels' measurements;
-the last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with the kernels' measurements:
+``launches`` counts each kernel's launches in the main-path runs of
+phase 2 (both paths for the shared correlation and walk), ``ms`` and
+``plain_ms`` time it at the shapes of its first path, and ``bound_ms`` is
+the least time the card could take for that work (bytes over 3.35 TB/s or
+operations over 67 TFLOP/s, whichever is larger).  The last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -44,9 +57,12 @@ PAYLOAD = 128
 GAP = 200
 NOISE = 0.05
 MAX_FRAMES = N_FRAMES + 8
+N_CAND = 128
 LOCAL_ADDR = 2
 CORR_ATOL = 1e-5    # summation order differs between kernel and plain version
 RUNS = 30
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
+F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 
 
 def log(msg: str) -> None:
@@ -82,20 +98,25 @@ def time_ms(torch, fn, runs: int = RUNS) -> float:
     return statistics.median(times)
 
 
-def flagship_captures(seed: int):
-    """The bench's manchester_b32 input: frames and 32 noisy captures."""
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """(least ms, what sets it) for work moving `n_bytes` and doing `n_ops`."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / F32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def captures(torch, cfg, seed: int, dev):
+    """The bench's input for `cfg`: 64 frames and 32 noisy captures on `dev`."""
     from trackmaker_tpu_torch.core.framing import Frame
     from trackmaker_tpu_torch.phy.encoder import PhyEncoder
-    from trackmaker_tpu_torch import PhyConfig
 
     rng = np.random.default_rng(seed)
     frames = [Frame.new_data(i & 0xFF, 1, 2,
                              rng.integers(0, 256, PAYLOAD, dtype=np.uint8).tobytes())
               for i in range(N_FRAMES)]
-    wave = PhyEncoder(PhyConfig()).encode_frames(frames, gap_samples=GAP).numpy()
-    t = len(wave)
-    caps = wave[None] + rng.normal(0, NOISE, (BATCH, t)).astype(np.float32)
-    return frames, caps.astype(np.float32)
+    wave = PhyEncoder(cfg, device=dev).encode_frames(frames, gap_samples=GAP)
+    noise = rng.normal(0, NOISE, (BATCH, wave.shape[0])).astype(np.float32)
+    return frames, (wave[None] + torch.from_numpy(noise).to(dev)).contiguous()
 
 
 def frame_list(res, row: int | None = None):
@@ -113,6 +134,92 @@ def frame_list(res, row: int | None = None):
     return out
 
 
+def check_xcorr(torch, xcorr_hits, xcorr_hits_plain, x, pre, thr, tag: str):
+    """xcorr_hits against its plain version; returns (max |err|, rows)."""
+    corr_k, rows_k = xcorr_hits(x, pre, thr, emit_corr=True)
+    torch.cuda.synchronize()
+    corr_p, rows_p = xcorr_hits_plain(x, pre, thr, emit_corr=True)
+    err = (corr_k - corr_p).abs().max().item()
+    require(err <= CORR_ATOL, f"xcorr_hits ({tag}) corr differs by {err}")
+    _, rows_main = xcorr_hits(x, pre, thr)
+    require(torch.equal(rows_main, rows_k), f"xcorr_hits ({tag}) rows depend on emit_corr")
+    # a lag within CORR_ATOL of the threshold may fall on either side of it;
+    # every other lag must give the same hits
+    b = x.shape[0]
+    near = (corr_p - thr).abs() < CORR_ATOL
+    n_rows = rows_k.shape[1]
+    near_rows = torch.nn.functional.pad(near, (0, n_rows * 128 - near.shape[1]))
+    near_rows = near_rows.reshape(b, n_rows, 128).any(-1)
+    same = (rows_k[..., :5] == rows_p[..., :5]).all(-1) & (rows_k[..., 9:] == rows_p[..., 9:]).all(-1)
+    require(bool((same | near_rows).all()), f"xcorr_hits ({tag}) hit rows differ away from the threshold")
+    hit_vals = rows_k[..., 5:9].contiguous().view(torch.float32)
+    hit_vals_p = rows_p[..., 5:9].contiguous().view(torch.float32)
+    val_err = (hit_vals - hit_vals_p)[same].abs().max().item()
+    require(val_err <= CORR_ATOL, f"xcorr_hits ({tag}) hit corr differs by {val_err}")
+    log(f"phase 1: xcorr_hits == plain at L={len(pre)} (corr max |err| {err:.3g}, hit corr "
+        f"{val_err:.3g}, {int(near.sum())} lags within {CORR_ATOL} of the threshold, "
+        f"{int((~same).sum())} rows differing there)")
+    return max(err, val_err), rows_k
+
+
+def run_main_path(torch, decode_capture_fast, decode_capture, sd, cfg, x, frames,
+                  kernels, tag: str) -> dict[str, int]:
+    """One main-path run through decode_capture_fast, with its gates;
+    returns the launch count of each kernel in `kernels`."""
+    b = x.shape[0]
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = decode_capture_fast(cfg, x, LOCAL_ADDR, max_frames=MAX_FRAMES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    log(f"phase 2 ({tag}): decode_capture_fast took {wall * 1e3:.1f} ms (first call), "
+        f"kernel launches {launches}")
+    for k_name, n in launches.items():
+        require(n > 0, f"the {tag} main path never launched {k_name}")
+    counts = res.count.cpu().numpy()
+    require(bool((counts == N_FRAMES).all()),
+            f"{tag} count gate failed: {sorted(set(counts.tolist()))}")
+    fb = res.frame_bytes.cpu().numpy()
+    valid = res.valid.cpu().numpy()
+    for r in range(b):
+        for k, f in zip(np.nonzero(valid[r])[0], frames):
+            require(fb[r, k, 7:7 + PAYLOAD].tobytes() == f.data,
+                    f"{tag} payload gate failed at row {r} slot {k}")
+    spec_res, ok = sd.decode_capture_spec(cfg, x, LOCAL_ADDR, max_frames=MAX_FRAMES)
+    require(bool(ok.all()), f"a {tag} row is not ok")
+    require(all(torch.equal(p, q) for p, q in zip(spec_res, res)),
+            f"{tag}: decode_capture_fast differs from decode_capture_spec with every row ok")
+    for r in (0, b - 1):
+        exact = decode_capture(cfg, x[r], LOCAL_ADDR, MAX_FRAMES)
+        require(frame_list(res, r) == frame_list(exact), f"{tag} row {r} differs from the exact scan")
+        corr_gap = (res.corr[r][res.valid[r]] - exact.corr[exact.valid]).abs().max().item()
+        require(corr_gap <= CORR_ATOL, f"{tag} row {r} corr differs from the exact scan by {corr_gap}")
+    log(f"phase 2 ({tag}): payload gate passed ({b} rows x {N_FRAMES} frames), every row ok, "
+        f"rows 0 and {b - 1} equal the exact scan")
+    return launches
+
+
+def check_fallback(torch, decode_capture_fast, decode_captures, sd, cfg, small, want_frames,
+                   tag: str, what: str) -> None:
+    """Row 0 of `small` must be not ok and row 1 ok; the merged batch must
+    equal the exact scan."""
+    _, small_ok = sd.decode_capture_spec(cfg, small, LOCAL_ADDR, max_frames=MAX_FRAMES)
+    require(small_ok.tolist() == [False, True], f"{tag} fallback flags {small_ok.tolist()}")
+    merged = decode_capture_fast(cfg, small, LOCAL_ADDR, max_frames=MAX_FRAMES)
+    exact = decode_captures(cfg, small, LOCAL_ADDR, MAX_FRAMES, [small.shape[1]] * 2)
+    require(all(torch.equal(p[0], q[0]) for p, q in zip(merged, exact)),
+            f"the {tag} fallback row differs from the exact scan")
+    require(frame_list(merged, 1) == frame_list(exact, 1),
+            f"the {tag} clean row differs from the exact scan")
+    require(merged.count.tolist() == want_frames,
+            f"{tag} fallback frames {merged.count.tolist()}, expected {want_frames}")
+    log(f"phase 3 ({tag}): fallback row ({what}) re-decoded by the exact scan on the card; "
+        f"merged batch equals it ({merged.count.tolist()} frames)")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -126,9 +233,11 @@ def main() -> None:
         from trackmaker_tpu_torch import PhyConfig, _build
     except ImportError as exc:
         raise SystemExit(f"chip_smoke.py must run from a checkout of the repository: {exc}")
+    from trackmaker_tpu_torch.core.framing import Frame
     from trackmaker_tpu_torch.phy import spec_decode as sd
     from trackmaker_tpu_torch.phy.decoder import (
         decode_capture, decode_capture_fast, decode_captures)
+    from trackmaker_tpu_torch.phy.encoder import PhyEncoder
     from trackmaker_tpu_torch.phy.line_coding import preamble_waveform
     from trackmaker_tpu_torch.sync.correlate import preamble_energy
     from trackmaker_tpu_torch.sync.xcorr_hits import xcorr_hits, xcorr_hits_plain
@@ -146,42 +255,29 @@ def main() -> None:
     log(f"phase 0: kernels built in {time.perf_counter() - t0:.1f} s")
 
     cfg = PhyConfig()
-    frames, caps = flagship_captures(args.seed)
-    x = torch.from_numpy(caps).to(dev)
+    cfg4 = PhyConfig(line_coding="4b5b")
+    frames, x = captures(torch, cfg, args.seed, dev)
+    frames4, x4 = captures(torch, cfg4, args.seed + 1, dev)
     b, t = x.shape
-    log(f"flagship input: {b} x {t} samples, {N_FRAMES} frames per capture")
-    pre = preamble_waveform(cfg)
+    t4 = x4.shape[1]
+    log(f"flagship input: {b} x {t} samples; fourb5b_b32 input: {b} x {t4} samples; "
+        f"{N_FRAMES} frames per capture")
+    pre, pre4 = preamble_waveform(cfg), preamble_waveform(cfg4)
     sync = pre[cfg.preamble_len - cfg.sync_len:]
-    sync_e = preamble_energy(sync)
+    sync4 = pre4[cfg4.preamble_len - cfg4.sync_len:]
+    sync_e, sync_e4 = preamble_energy(sync), preamble_energy(sync4)
     vlens = torch.full((b,), t, dtype=torch.int32, device=dev)
+    vlens4 = torch.full((b,), t4, dtype=torch.int32, device=dev)
     errs = {}
 
     # --- phase 1: kernels against their plain versions -------------------------
-    corr_k, rows_k = xcorr_hits(x, pre, cfg.correlation_threshold, emit_corr=True)
-    torch.cuda.synchronize()
-    corr_p, rows_p = xcorr_hits_plain(x, pre, cfg.correlation_threshold, emit_corr=True)
-    err = (corr_k - corr_p).abs().max().item()
-    require(err <= CORR_ATOL, f"xcorr_hits corr differs by {err}")
-    _, rows_main = xcorr_hits(x, pre, cfg.correlation_threshold)
-    require(torch.equal(rows_main, rows_k), "xcorr_hits rows depend on emit_corr")
-    # a lag within CORR_ATOL of the threshold may fall on either side of it;
-    # every other lag must give the same hits
-    near = (corr_p - cfg.correlation_threshold).abs() < CORR_ATOL
-    n_rows = rows_k.shape[1]
-    near_rows = torch.nn.functional.pad(near, (0, n_rows * 128 - near.shape[1]))
-    near_rows = near_rows.reshape(b, n_rows, 128).any(-1)
-    same = (rows_k[..., :5] == rows_p[..., :5]).all(-1) & (rows_k[..., 9:] == rows_p[..., 9:]).all(-1)
-    require(bool((same | near_rows).all()), "xcorr_hits hit rows differ away from the threshold")
-    hit_vals = rows_k[..., 5:9].contiguous().view(torch.float32)
-    hit_vals_p = rows_p[..., 5:9].contiguous().view(torch.float32)
-    val_err = (hit_vals - hit_vals_p)[same].abs().max().item()
-    require(val_err <= CORR_ATOL, f"xcorr_hits hit corr differs by {val_err}")
-    errs["xcorr_hits"] = max(err, val_err)
-    log(f"phase 1: xcorr_hits == plain (corr max |err| {err:.3g}, hit corr "
-        f"{val_err:.3g}, {int(near.sum())} lags within {CORR_ATOL} of the threshold, "
-        f"{int((~same).sum())} rows differing there)")
+    errs["xcorr_hits"], rows_k = check_xcorr(
+        torch, xcorr_hits, xcorr_hits_plain, x, pre, cfg.correlation_threshold, "flagship")
+    err4, rows4 = check_xcorr(
+        torch, xcorr_hits, xcorr_hits_plain, x4, pre4, cfg4.correlation_threshold, "4b5b")
+    errs["xcorr_hits"] = max(errs["xcorr_hits"], err4)
 
-    cand, _, n_valid, _ = sd.compact_hit_rows(rows_k, 128)
+    cand, _, n_valid, _ = sd.compact_hit_rows(rows_k, N_CAND)
     bytes_k, fs_k = sd.attempt_manchester(x, cand, n_valid, vlens, sync, sync_e)
     torch.cuda.synchronize()
     bytes_p, fs_p = sd.attempt_manchester_plain(x, cand, n_valid, vlens, sync, sync_e)
@@ -193,25 +289,41 @@ def main() -> None:
     log(f"phase 1: attempt_manchester == plain on {int(n_valid.sum())} candidates "
         f"(n_valid per capture {int(n_valid.min())}..{int(n_valid.max())})")
 
+    cand4, _, n_valid4, _ = sd.compact_hit_rows(rows4, N_CAND)
+    got4 = sd.attempt_4b5b(x4, cand4, n_valid4, vlens4, sync4, sync_e4)
+    torch.cuda.synchronize()
+    want4 = sd.attempt_4b5b_plain(x4, cand4, n_valid4, vlens4, sync4, sync_e4)
+    errs["attempt_4b5b"] = 0
+    for field, g, w in zip(("bytes", "fs", "first_bad", "first_zero"), got4, want4):
+        require(torch.equal(g, w), f"attempt_4b5b {field} differs")
+        errs["attempt_4b5b"] = max(errs["attempt_4b5b"], (g.int() - w.int()).abs().max().item())
+    log(f"phase 1: attempt_4b5b == plain (bytes, fs, first_bad, first_zero) on "
+        f"{int(n_valid4.sum())} candidates (n_valid per capture "
+        f"{int(n_valid4.min())}..{int(n_valid4.max())}, "
+        f"{int(((got4[3] < sd.ZERO_SYMBOLS) & sd._live(cand4, n_valid4)).sum())} "
+        "with a near-zero level in their 640 symbols)")
+
     rng = np.random.default_rng(args.seed + 17)
     walk_err = 0
     tables = []
     for cap in (1, 2, 5, 72, 128, 256):
-        pos = np.full((b, 128), 2**30, np.int64)
+        pos = np.full((b, N_CAND), 2**30, np.int64)
         for r in range(b):
-            k = int(rng.integers(0, 129))
+            k = int(rng.integers(0, N_CAND + 1))
             pos[r, :k] = np.sort(rng.integers(0, 40_000, k))
-        fields = np.stack([pos, rng.integers(1, 3000, (b, 128)),
-                           rng.random((b, 128)) < 0.25, rng.random((b, 128)) < 0.6],
+        fields = np.stack([pos, rng.integers(1, 3000, (b, N_CAND)),
+                           rng.random((b, N_CAND)) < 0.25, rng.random((b, N_CAND)) < 0.6],
                           axis=1).astype(np.int32)
         cur0 = rng.integers(0, 30_000, b).astype(np.int32)
         limit = rng.choice([20_000, 41_000, 2**30], b).astype(np.int32)
         tables.append((torch.from_numpy(fields).to(dev), torch.from_numpy(cur0).to(dev),
                        torch.from_numpy(limit).to(dev), cap))
-    phase_a = sd.spec_phase_a(cfg, x, LOCAL_ADDR, 128, vlens)
+    phase_a = sd.spec_phase_a(cfg, x, LOCAL_ADDR, N_CAND, vlens)
+    phase_a4 = sd.spec_phase_a(cfg4, x4, LOCAL_ADDR, N_CAND, vlens4)
     zeros = torch.zeros(b, dtype=torch.int32, device=dev)
     no_limit = torch.full((b,), 2**30, dtype=torch.int32, device=dev)
-    tables.append((phase_a.fields, zeros, no_limit, MAX_FRAMES))
+    tables += [(phase_a.fields, zeros, no_limit, MAX_FRAMES),
+               (phase_a4.fields, zeros, no_limit, MAX_FRAMES)]
     for fields, cur0, limit, cap in tables:
         got = sd.spec_walk(fields, cur0, limit, cap)
         torch.cuda.synchronize()
@@ -221,67 +333,43 @@ def main() -> None:
             walk_err = max(walk_err, (g.long() - w.long()).abs().max().item())
     errs["spec_walk"] = walk_err
     log(f"phase 1: spec_walk == plain on {len(tables)} tables "
-        "(random ones with caps 1..256, and the flagship's)")
+        "(random ones with caps 1..256, the flagship's and fourb5b_b32's)")
 
-    # --- phase 2: the flagship main path -------------------------------------
-    kernels = (xcorr_hits, sd.attempt_manchester, sd.spec_walk)
-    for k in kernels:
-        k.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = decode_capture_fast(cfg, x, LOCAL_ADDR, max_frames=MAX_FRAMES)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in kernels}
-    log(f"phase 2: decode_capture_fast took {wall * 1e3:.1f} ms (first call), "
-        f"kernel launches {launches}")
-    for k_name, n in launches.items():
-        require(n > 0, f"the main path never launched {k_name}")
-    counts = res.count.cpu().numpy()
-    require(bool((counts == N_FRAMES).all()), f"count gate failed: {sorted(set(counts.tolist()))}")
-    fb = res.frame_bytes.cpu().numpy()
-    valid = res.valid.cpu().numpy()
-    for r in range(b):
-        for k, f in zip(np.nonzero(valid[r])[0], frames):
-            require(fb[r, k, 7:7 + PAYLOAD].tobytes() == f.data,
-                    f"payload gate failed at row {r} slot {k}")
-    spec_res, ok = sd.decode_capture_spec(cfg, x, LOCAL_ADDR, max_frames=MAX_FRAMES)
-    require(bool(ok.all()), "a flagship row overflowed its candidate table")
-    require(all(torch.equal(p, q) for p, q in zip(spec_res, res)),
-            "decode_capture_fast differs from decode_capture_spec with every row ok")
-    for r in (0, b - 1):
-        exact = decode_capture(cfg, x[r], LOCAL_ADDR, MAX_FRAMES)
-        require(frame_list(res, r) == frame_list(exact), f"row {r} differs from the exact scan")
-        corr_gap = (res.corr[r][res.valid[r]] - exact.corr[exact.valid]).abs().max().item()
-        require(corr_gap <= CORR_ATOL, f"row {r} corr differs from the exact scan by {corr_gap}")
-    log(f"phase 2: payload gate passed ({b} rows x {N_FRAMES} frames), every row ok, "
-        "rows 0 and 31 equal the exact scan")
+    # --- phase 2: the main paths -----------------------------------------------
+    launches = run_main_path(torch, decode_capture_fast, decode_capture, sd, cfg, x, frames,
+                             (xcorr_hits, sd.attempt_manchester, sd.spec_walk), "flagship")
+    launches4 = run_main_path(torch, decode_capture_fast, decode_capture, sd, cfg4, x4,
+                              frames4, (xcorr_hits, sd.attempt_4b5b, sd.spec_walk), "fourb5b_b32")
+    for k_name, n in launches4.items():
+        launches[k_name] = launches.get(k_name, 0) + n
 
-    # --- phase 3: the fallback ---------------------------------------------
-    from trackmaker_tpu_torch.core.framing import Frame
-    from trackmaker_tpu_torch.phy.encoder import PhyEncoder
-    enc = PhyEncoder(cfg)
+    # --- phase 3: the fallbacks ----------------------------------------------
+    enc = PhyEncoder(cfg, device=dev)
     tail = enc.encode_frames([Frame.new_data(i, 1, 2, bytes([i]) * 20) for i in range(3)],
                              gap_samples=300)
-    crowded = torch.cat([torch.from_numpy(pre).repeat(150), torch.zeros(500), tail])
-    clean = torch.cat([tail, torch.zeros(crowded.shape[0] - tail.shape[0])])
-    small = torch.stack([crowded, clean]).to(dev)
-    _, small_ok = sd.decode_capture_spec(cfg, small, LOCAL_ADDR, max_frames=MAX_FRAMES)
-    require(small_ok.tolist() == [False, True], f"fallback flags {small_ok.tolist()}")
-    merged = decode_capture_fast(cfg, small, LOCAL_ADDR, max_frames=MAX_FRAMES)
-    exact = decode_captures(cfg, small, LOCAL_ADDR, MAX_FRAMES, [small.shape[1]] * 2)
-    require(all(torch.equal(p[0], q[0]) for p, q in zip(merged, exact)),
-            "the fallback row differs from the exact scan")
-    require(frame_list(merged, 1) == frame_list(exact, 1), "the clean row differs from the exact scan")
-    require(int(merged.count[0]) == 3 and int(merged.count[1]) == 3, "fallback frames lost")
-    log(f"phase 3: fallback row (150 back-to-back preambles) re-decoded by the exact "
-        f"scan on the card; merged batch equals it ({merged.count.tolist()} frames)")
+    crowded = torch.cat([torch.from_numpy(pre).to(dev).repeat(150),
+                         torch.zeros(500, device=dev), tail])
+    clean = torch.cat([tail, torch.zeros(crowded.shape[0] - tail.shape[0], device=dev)])
+    check_fallback(torch, decode_capture_fast, decode_captures, sd, cfg,
+                   torch.stack([crowded, clean]), [3, 3], "flagship",
+                   "150 back-to-back preambles")
+    enc4 = PhyEncoder(cfg4, device=dev)
+    tail4 = enc4.encode_frames([Frame.new_data(i, 1, 2, bytes([i]) * 20) for i in range(3)],
+                               gap_samples=300)
+    zeroed = tail4.clone()
+    level0 = cfg4.preamble_len + 20 * 15 + 3   # a level inside the first frame
+    zeroed[level0:level0 + 3] = 0.0
+    check_fallback(torch, decode_capture_fast, decode_captures, sd, cfg4,
+                   torch.stack([zeroed, tail4]), [2, 3], "4b5b",
+                   "a zeroed level inside an attempted frame")
 
     # --- phase 4: timings ------------------------------------------------------
     ms = {
         "xcorr_hits": time_ms(torch, lambda: xcorr_hits(x, pre, cfg.correlation_threshold)),
         "attempt_manchester": time_ms(torch, lambda: sd.attempt_manchester(
             x, cand, n_valid, vlens, sync, sync_e)),
+        "attempt_4b5b": time_ms(torch, lambda: sd.attempt_4b5b(
+            x4, cand4, n_valid4, vlens4, sync4, sync_e4)),
         "spec_walk": time_ms(torch, lambda: sd.spec_walk(
             phase_a.fields, zeros, no_limit, MAX_FRAMES)),
     }
@@ -290,43 +378,81 @@ def main() -> None:
             x, pre, cfg.correlation_threshold)),
         "attempt_manchester": time_ms(torch, lambda: sd.attempt_manchester_plain(
             x, cand, n_valid, vlens, sync, sync_e)),
+        "attempt_4b5b": time_ms(torch, lambda: sd.attempt_4b5b_plain(
+            x4, cand4, n_valid4, vlens4, sync4, sync_e4)),
         "spec_walk": time_ms(torch, lambda: sd.spec_walk_plain(
             phase_a.fields, zeros, no_limit, MAX_FRAMES)),
     }
+    xcorr4_ms = time_ms(torch, lambda: xcorr_hits(x4, pre4, cfg4.correlation_threshold))
+
+    # least times, from the shapes and this run's candidates
+    live = int(n_valid.clamp(max=N_CAND).sum())
+    live4 = int(n_valid4.clamp(max=N_CAND).sum())
+    n_lags = t - len(pre) + 1
+    small_in = 3 * b * 4 + b * N_CAND * 4            # cand, n_valid, vlen
+    bounds = {
+        # each lag: len(pre) multiply-adds for the dot and for the energy
+        "xcorr_hits": bound(x.numel() * 4 + rows_k.numel() * 4,
+                            b * n_lags * 4 * len(pre)),
+        # each candidate: 13 x 48 refine taps (4 ops), 2104 bits of 6 ops
+        "attempt_manchester": bound(
+            x.numel() * 4 + small_in + b * N_CAND * (sd.FRAME_BYTES + 4),
+            live * (13 * 48 * 4 + sd.FRAME_BYTES * 8 * 6)),
+        # each candidate: 31 x 30 refine taps (4 ops), 3200 levels of 2 adds,
+        # a product and a compare
+        "attempt_4b5b": bound(
+            x4.numel() * 4 + small_in + b * N_CAND * (sd.FRAME_BYTES + 12),
+            live4 * (31 * 30 * 4 + sd.ZERO_SYMBOLS * 5 * 4)),
+        # the fields in, keep/attempted and four ints per capture out; a
+        # few integer ops per candidate
+        "spec_walk": bound(phase_a.fields.numel() * 4 + 2 * b * 4 + 2 * b * N_CAND + 4 * b * 4,
+                           b * N_CAND * 4),
+    }
     for k_name in ms:
-        log(f"phase 4: {k_name}: kernel {ms[k_name]:.4f} ms, plain {plain_ms[k_name]:.4f} ms "
-            f"[{card}]")
+        log(f"phase 4: {k_name}: kernel {ms[k_name]:.4f} ms, plain {plain_ms[k_name]:.4f} ms, "
+            f"bound {bounds[k_name][0]:.4f} ms ({bounds[k_name][1]}) [{card}]")
+    log(f"phase 4: xcorr_hits at the fourb5b_b32 shape (L=60): kernel {xcorr4_ms:.4f} ms "
+        f"[{card}]")
     steps = {
-        "compact_hit_rows": time_ms(torch, lambda: sd.compact_hit_rows(rows_main, 128)),
+        "compact_hit_rows": time_ms(torch, lambda: sd.compact_hit_rows(rows_k, N_CAND)),
         "spec_phase_a": time_ms(torch, lambda: sd.spec_phase_a(
-            cfg, x, LOCAL_ADDR, 128, vlens)),
+            cfg, x, LOCAL_ADDR, N_CAND, vlens)),
+        "spec_phase_a 4b5b": time_ms(torch, lambda: sd.spec_phase_a(
+            cfg4, x4, LOCAL_ADDR, N_CAND, vlens4)),
         "spec_compact": time_ms(torch, lambda: sd.spec_compact(
             phase_a, sd.spec_walk(phase_a.fields, zeros, no_limit, MAX_FRAMES).keep,
             MAX_FRAMES)),
     }
     for step, v in steps.items():
         log(f"phase 4: step {step}: {v:.4f} ms [{card}]")
-    e2e = time_ms(torch, lambda: sd.decode_capture_spec(
-        cfg, x, LOCAL_ADDR, max_frames=MAX_FRAMES))
-    rt = b * t / cfg.sample_rate / (e2e / 1e3)
-    log(f"phase 4: decode_capture_spec {b} x {t}: {e2e:.4f} ms, {rt:.1f}x real time "
-        f"[{card}]")
-    torch.cuda.reset_peak_memory_stats()
-    sd.decode_capture_spec(cfg, x, LOCAL_ADDR, max_frames=MAX_FRAMES)
-    torch.cuda.synchronize()
-    log(f"phase 4: decode_capture_spec peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{card}]")
+    for tag, c, xx in (("flagship", cfg, x), ("fourb5b_b32", cfg4, x4)):
+        e2e = time_ms(torch, lambda: sd.decode_capture_spec(
+            c, xx, LOCAL_ADDR, max_frames=MAX_FRAMES))
+        rt = xx.numel() / c.sample_rate / (e2e / 1e3)
+        log(f"phase 4: decode_capture_spec {tag} {xx.shape[0]} x {xx.shape[1]}: {e2e:.4f} ms, "
+            f"{rt:.1f}x real time [{card}]")
+        torch.cuda.reset_peak_memory_stats()
+        sd.decode_capture_spec(c, xx, LOCAL_ADDR, max_frames=MAX_FRAMES)
+        torch.cuda.synchronize()
+        log(f"phase 4: decode_capture_spec {tag} peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{card}]")
+        scan = time_ms(torch, lambda: decode_capture(c, xx[0], LOCAL_ADDR, MAX_FRAMES), runs=5)
+        log(f"phase 4: exact scan {tag}, one row of {N_FRAMES} frames: {scan:.4f} ms [{card}]")
 
     replaces = {
         "xcorr_hits": "trackmaker_tpu/sync/pallas_xcorr.py:148",
         "attempt_manchester": "trackmaker_tpu/phy/pallas_decode.py:207",
+        "attempt_4b5b": "trackmaker_tpu/phy/pallas_decode.py:409",
         "spec_walk": "trackmaker_tpu/phy/pallas_decode.py:609",
     }
     print(json.dumps({"kernels": [
         {"name": k_name, "route": "cuda",
          "source": f"trackmaker_tpu_torch/csrc/{k_name}.cu",
          "replaces": replaces[k_name], "launches": launches[k_name],
-         "max_abs_err": errs[k_name], "ms": ms[k_name], "plain_ms": plain_ms[k_name]}
+         "max_abs_err": errs[k_name], "ms": ms[k_name], "plain_ms": plain_ms[k_name],
+         "bound_ms": bounds[k_name][0], "bound_by": bounds[k_name][1],
+         # no single PyTorch call computes any of these functions
+         "library_ms": None}
         for k_name in ms]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

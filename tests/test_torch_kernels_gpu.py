@@ -10,7 +10,8 @@ version and launches nothing.
 
 Tolerances: correlations within atol 1e-5 (sum order); hit rows equal
 except rows holding a lag within 1e-5 of the threshold; attempt bytes,
-frame starts and walk outputs exactly equal."""
+frame starts, first invalid and near-zero symbols, and walk outputs
+exactly equal (kernel and plain version add in the same order)."""
 
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ import torch
 from trackmaker_tpu_torch import PhyConfig, _build
 from trackmaker_tpu_torch.core.framing import Frame
 from trackmaker_tpu_torch.phy import spec_decode as sd
+from trackmaker_tpu_torch.phy.decoder import decode_capture, decode_capture_fast
 from trackmaker_tpu_torch.phy.encoder import PhyEncoder
 from trackmaker_tpu_torch.phy.line_coding import preamble_waveform
 from trackmaker_tpu_torch.sync.correlate import preamble_energy
@@ -27,6 +29,9 @@ from trackmaker_tpu_torch.sync.xcorr_hits import xcorr_hits, xcorr_hits_plain
 CFG = PhyConfig()
 PRE = preamble_waveform(CFG)
 SYNC = PRE[48:]
+CFG4 = PhyConfig(line_coding="4b5b")
+PRE4 = preamble_waveform(CFG4)
+SYNC4 = PRE4[30:]
 THR = CFG.correlation_threshold
 BIGI = 2**30
 
@@ -40,12 +45,12 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _captures(b: int = 4, n_frames: int = 12, seed: int = 3) -> np.ndarray:
+def _captures(b: int = 4, n_frames: int = 12, seed: int = 3, cfg=CFG) -> np.ndarray:
     rng = np.random.default_rng(seed)
     frames = [Frame.new_data(i, 1, 2, rng.integers(0, 256, 20 + 9 * i,
                                                    dtype=np.uint8).tobytes())
               for i in range(n_frames)]
-    wave = PhyEncoder(CFG).encode_frames(frames, gap_samples=200).numpy()
+    wave = PhyEncoder(cfg, device="cpu").encode_frames(frames, gap_samples=200).numpy()
     return (wave[None] + rng.normal(0, 0.05, (b, len(wave)))).astype(np.float32)
 
 
@@ -76,6 +81,22 @@ def test_cpu_tensors_run_the_plain_versions():
     table = _tables(np.random.default_rng(0))
     assert all(torch.equal(p, q) for p, q in zip(sd.spec_walk(*table), sd.spec_walk_plain(*table)))
     assert [f.launches for f in (xcorr_hits, sd.attempt_manchester, sd.spec_walk)] == counts
+
+
+def test_cpu_tensors_run_the_plain_4b5b_attempt():
+    x = torch.from_numpy(_captures(b=2, n_frames=3, cfg=CFG4))
+    before = sd.attempt_4b5b.launches
+    _, rows = xcorr_hits(x, PRE4, THR)
+    cand, _, n_valid, _ = sd.compact_hit_rows(rows, 128)
+    vlen = torch.full((2,), x.shape[1], dtype=torch.int32)
+    args = (x, cand, n_valid, vlen, SYNC4, preamble_energy(SYNC4))
+    got = sd.attempt_4b5b(*args)
+    assert all(torch.equal(p, q) for p, q in zip(got, sd.attempt_4b5b_plain(*args)))
+    assert sd.attempt_4b5b.launches == before
+    # every frame decodes whole: the first invalid symbol lies past its
+    # 2 * (7 + payload) symbols
+    assert n_valid.tolist() == [3, 3]
+    assert bool((got[2][:, :3] >= torch.tensor([54, 72, 90], dtype=torch.int32)).all())
 
 
 def test_dispatch_rule_refuses_mixed_and_other_devices():
@@ -137,6 +158,47 @@ def test_attempt_kernel_matches_plain(cuda):
 
 
 @pytest.mark.gpu
+def test_attempt_4b5b_kernel_matches_plain(cuda):
+    x = torch.from_numpy(_captures(cfg=CFG4)).to(cuda)
+    x[3, 1220:1223] = 0.0                 # a zero level inside frame 1
+    x[1, -2000:] = 0.0
+    _, rows = xcorr_hits(x, PRE4, THR)
+    cand, _, n_valid, _ = sd.compact_hit_rows(rows, 128)
+    vlen = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32, device=cuda)
+    vlen[2] -= 2500                       # cut one capture's valid length
+    args = (x, cand, n_valid, vlen, SYNC4, preamble_energy(SYNC4))
+    before = sd.attempt_4b5b.launches
+    got = sd.attempt_4b5b(*args)
+    torch.cuda.synchronize()
+    assert sd.attempt_4b5b.launches == before + 1
+    want = sd.attempt_4b5b_plain(*args)
+    for name, g, w in zip(("bytes", "fs", "first_bad", "first_zero"), got, want):
+        assert torch.equal(g, w), name
+    assert int(n_valid.min()) >= 12 and bool((got[3] < sd.ZERO_SYMBOLS).any())
+
+
+@pytest.mark.gpu
+def test_4b5b_decode_on_the_card_equals_the_cpu(cuda):
+    x = torch.from_numpy(_captures(cfg=CFG4))
+    x[3, 1220:1223] = 0.0                 # a zero level: row 3 goes to the exact scan
+    kernels = (xcorr_hits, sd.attempt_4b5b, sd.spec_walk)
+    before = [f.launches for f in kernels]
+    res, ok = sd.decode_capture_spec(CFG4, x.to(cuda), 2, max_frames=16)
+    assert [f.launches for f in kernels] == [b + 1 for b in before]
+    res_p, ok_p = sd.decode_capture_spec(CFG4, x, 2, max_frames=16)
+    assert ok.cpu().tolist() == ok_p.tolist() == [True, True, True, False]
+    for name, g, w in zip(res._fields, res, res_p):
+        if name == "corr":
+            assert (g.cpu() - w).abs().max().item() <= 1e-5
+        else:
+            assert torch.equal(g.cpu(), w), name
+    fast = decode_capture_fast(CFG4, x.to(cuda), 2, max_frames=16)
+    exact = decode_capture(CFG4, x[3].to(cuda), 2, max_frames=16)
+    assert all(torch.equal(f[3], e) for f, e in zip(fast, exact))
+    assert fast.count.tolist()[:3] == [12] * 3
+
+
+@pytest.mark.gpu
 def test_walk_kernel_matches_plain(cuda):
     rng = np.random.default_rng(5)
     for mf in (1, 2, 5, 72, 128, 256):
@@ -153,7 +215,7 @@ def test_walk_kernel_matches_plain(cuda):
 def test_positions_past_2_24_stay_exact(cuda):
     """Frames past sample 2^24, where float32 no longer holds every
     integer: starts and frame bytes come out exact."""
-    enc = PhyEncoder(CFG)
+    enc = PhyEncoder(CFG, device="cpu")
     starts = [2**24 + 1001, 2**24 + 9003]
     x = torch.zeros((1, 2**24 + 20_000))
     frames = [Frame.new_data(i, 1, 2, bytes([7 + i]) * 33) for i in range(2)]

@@ -51,7 +51,7 @@ def _raw(data, seq=0, src=1, dst=2, ftype=1):
 
 def _scenarios() -> dict[str, tuple[np.ndarray, int]]:
     """name -> (capture, valid length) of every scenario."""
-    enc = PhyEncoder(CFG)
+    enc = PhyEncoder(CFG, device="cpu")
 
     def frame(seq, dst, data):
         return enc.encode_frame(Frame.new_data(seq, 1, dst, data)).numpy()
@@ -375,6 +375,7 @@ def test_wrappers_check_devices():
         sd.attempt_manchester(x, cand, one, one.to("meta"), SYNC, 1.0)
     with pytest.raises(ValueError):
         sd.decode_capture_spec(CFG, torch.zeros(500), 2)
-    with pytest.raises(NotImplementedError):
-        sd.decode_capture_spec(CFG.replace(line_coding="4b5b"), x, 2)
+    with pytest.raises(ValueError):
+        sd.decode_capture_spec(CFG.replace(line_coding="4b5b", samples_per_level=4), x, 2)
     assert not sd.spec_supported_cfg(CFG.replace(samples_per_level=4))
+    assert sd.spec_supported_cfg(CFG.replace(line_coding="4b5b"))

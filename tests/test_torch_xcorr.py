@@ -40,7 +40,7 @@ BIGI = 2**30
 def _corpus() -> np.ndarray:
     """Three noisy captures of a few frames each, 6000 samples."""
     rng = np.random.default_rng(11)
-    enc = PhyEncoder(CFG)
+    enc = PhyEncoder(CFG, device="cpu")
     rows = []
     for r in range(3):
         frames = [Frame.new_data(i, 1, 2, rng.integers(0, 256, 10 + 7 * i + r,

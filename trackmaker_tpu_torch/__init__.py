@@ -1,10 +1,10 @@
 """trackmaker_tpu_torch — the PyTorch and CUDA port of trackmaker_tpu.
 
 It mirrors the JAX package's layout, so each module's counterpart sits at
-the same path under ``trackmaker_tpu/``.  The flagship Manchester decode
-runs on an NVIDIA Hopper card through three hand-written CUDA kernels
-(``csrc/``), built with ``nvcc`` at first use; on CPU tensors every kernel
-wrapper runs its plain PyTorch version.  Importing the package touches no
+the same path under ``trackmaker_tpu/``.  The batch decode of the
+Manchester and 4B5B line codes runs on an NVIDIA Hopper card through four
+hand-written CUDA kernels (``csrc/``), built with ``nvcc`` at first use; on
+CPU tensors every kernel wrapper runs its plain PyTorch version.  Importing the package touches no
 device and builds nothing.
 
     trackmaker_tpu_torch.core   PhyConfig, bit ops, CRC8, frame codec

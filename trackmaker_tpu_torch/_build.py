@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -24,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "trackmaker_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-KERNELS = ("xcorr_hits", "attempt_manchester", "spec_walk")
+KERNELS = ("xcorr_hits", "attempt_manchester", "attempt_4b5b", "spec_walk")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -87,7 +88,9 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def build_all() -> list[Path]:
-    return [build(name) for name in KERNELS]
+    """Build every kernel, one nvcc process per source, all at once."""
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        return list(pool.map(build, KERNELS))
 
 
 def entry(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:

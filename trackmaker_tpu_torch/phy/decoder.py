@@ -5,8 +5,11 @@ replayed one candidate at a time.  From the cursor it takes the first
 correlation hit, refines the frame start on the sync word (first maximum
 wins), decodes and checks the header, applies the length, destination and
 completeness rules, and moves the cursor by what the attempt consumed.
-The bodies of the accepted frames are decoded and CRC-checked together
-afterwards.  It is the fallback and the oracle of the speculative decode
+Manchester bodies never fail to decode, so the bodies of the accepted
+frames are decoded and CRC-checked together afterwards.  A 4B5B body can
+stop at an invalid symbol, and then the cursor moves by the valid part
+only, so each 4B5B step decodes its body and checks its CRC in the scan.
+It is the fallback and the oracle of the speculative decode
 (``phy/spec_decode.py``), which ``decode_capture_fast`` runs first.
 """
 
@@ -21,6 +24,7 @@ from trackmaker_tpu_torch.core import bitops
 from trackmaker_tpu_torch.core.config import (
     FRAME_TYPE_ACK,
     FRAME_TYPE_DATA,
+    MANCHESTER,
     PHY_HEADER_BYTES,
     PhyConfig,
 )
@@ -77,6 +81,20 @@ def _empty_frames(cfg: PhyConfig, k: int, device) -> DecodedFrames:
         corr=torch.zeros(k, dtype=torch.float32, device=device))
 
 
+def _decode_body(cfg: PhyConfig, window: torch.Tensor, dlen: torch.Tensor):
+    """(frame bytes, valid bit count, payload CRC8) of body windows
+    f32[..., max_window] holding frames of `dlen` payload bytes.  Bits past
+    the frame are zero in the bytes and do not count."""
+    bits, bit_ok = line_coding.decode(cfg, window)
+    total_bits = (PHY_HEADER_BYTES + dlen) * 8
+    in_frame = torch.arange(bits.shape[-1], device=bits.device) < total_bits[..., None]
+    n_valid_bits = (bit_ok & in_frame).sum(-1)
+    frame_bytes = bitops.pack_bits(torch.where(in_frame, bits, 0))
+    crc = bitops.crc8(frame_bytes[..., PHY_HEADER_BYTES:],
+                      dlen.clamp(0, cfg.max_frame_bytes))
+    return frame_bytes, n_valid_bits, crc
+
+
 def decode_capture(
     cfg: PhyConfig,
     samples: torch.Tensor,       # f32[T]
@@ -99,7 +117,6 @@ def decode_capture(
     scan stopped on one, ``valid_len - (preamble_len - 1)`` if it ran out
     of candidates, else the cursor where `max_frames` ran out.
     """
-    line_coding._require_manchester(cfg)
     if samples.ndim != 1:
         raise ValueError("samples must be f32[T]")
     x = samples.to(torch.float32)
@@ -112,9 +129,13 @@ def decode_capture(
     pre = line_coding.preamble_waveform(cfg)
     l_pre = len(pre)
     sync_len, margin = cfg.sync_len, cfg.sync_margin
-    hdr_samples = cfg.header_samples
+    hdr_samples, hdr_bits = cfg.header_samples, cfg.header_bits
     max_total_bytes = PHY_HEADER_BYTES + cfg.max_frame_bytes
     max_window = cfg.samples_for_bits(max_total_bytes * 8)
+    # Manchester bodies decode in one batch after the scan: decoding each in
+    # its step made a flagship row 75-112 ms in place of 44-68 ms (H100,
+    # `chip_smoke.py` phase 4, two runs of each)
+    body_in_scan = cfg.line_coding != MANCHESTER
     if t < l_pre:   # shorter than the preamble: nothing to find
         x = torch.nn.functional.pad(x, (0, l_pre - t))
         t = l_pre
@@ -129,10 +150,13 @@ def decode_capture(
     k = torch.arange(n_pos, device=dev)
     win_idx = k[:, None] + torch.arange(sync_len, device=dev)
     hdr_idx = torch.arange(hdr_samples, device=dev)
+    hdr_bit_idx = torch.arange(hdr_bits, device=dev)
+    body_idx = torch.arange(max_window, device=dev)
     slab_len = 2 * margin + sync_len + hdr_samples
 
     done, pending = False, _BIG
     kept = []   # (slot, i, fs, dlen, ftype, seq, src, dst, crc)
+    kept_bytes = []   # 4B5B: the frame bytes of each kept slot
     for step in range(max_frames):
         j = np.searchsorted(hits, min(max(cursor, 0), last_lag))
         first = int(hits[j]) if j < len(hits) else _BIG
@@ -154,27 +178,46 @@ def decode_capture(
         best_pos = torch.where(cc.amax() > -1.0, base + cc.argmax(), expected)
         fs_t = best_pos + sync_len
         off = (fs_t - base).clamp(0, slab_len - hdr_samples)
-        hdr = bitops.pack_bits(line_coding.decode(cfg, slab[off + hdr_idx]))
-        fs, dlen_hi, dlen_lo, crc, ftype, seq, src, dst = torch.cat(
-            [fs_t.reshape(1), hdr.to(torch.int64)]).tolist()
+        bits, bit_ok = line_coding.decode(cfg, slab[off + hdr_idx])
+        n_hdr = bit_ok[:hdr_bits].sum()
+        hdr = bitops.pack_bits(torch.where(hdr_bit_idx < n_hdr, bits[:hdr_bits], 0))
+        vals = [fs_t.reshape(1), n_hdr.reshape(1), hdr.to(torch.int64)]
+        if body_in_scan:
+            body_bytes, n_valid_bits, crc_calc = _decode_body(
+                cfg, padded[fs_t + body_idx], hdr[0].to(torch.int64) * 256 + hdr[1])
+            vals += [n_valid_bits.reshape(1), crc_calc.to(torch.int64).reshape(1)]
+        fields = torch.cat(vals).tolist()   # the step's one host sync
+        fs, n_hdr, dlen_hi, dlen_lo, crc, ftype, seq, src, dst = fields[:9]
         dlen = dlen_hi * 256 + dlen_lo
 
         hdr_incomplete = fs + hdr_samples > vlen
-        header_ok = ftype in (FRAME_TYPE_DATA, FRAME_TYPE_ACK)
+        header_ok = (n_hdr >= line_coding.MIN_HEADER_BITS
+                     and ftype in (FRAME_TYPE_DATA, FRAME_TYPE_ACK))
         len_bad = (ftype == FRAME_TYPE_DATA and dlen == 0) or dlen > cfg.max_frame_bytes
-        total_samples = cfg.samples_for_bits((PHY_HEADER_BYTES + dlen) * 8)
+        total_bits = (PHY_HEADER_BYTES + dlen) * 8
+        total_samples = cfg.samples_for_bits(total_bits)
         incomplete = fs + total_samples > vlen
+        if body_in_scan:
+            n_valid_bits, crc_ok = fields[9], fields[10] == crc
+        else:   # every Manchester bit decodes; the CRC is checked after the scan
+            n_valid_bits, crc_ok = total_bits, True
+        line_fail = n_valid_bits < total_bits
         if hdr_incomplete or (header_ok and not len_bad and incomplete):
             # wait for more data: the drain point stays at this preamble
             pending = min(pending, i)
             done = True
             break
-        if header_ok and not len_bad and (dst == local_addr or local_addr < 0):
+        if (header_ok and not len_bad and not line_fail and crc_ok
+                and (dst == local_addr or local_addr < 0)):
             kept.append((step, i, fs, dlen, ftype, seq, src, dst, crc))
+            if body_in_scan:
+                kept_bytes.append(body_bytes)
         if not header_ok:
             cursor = i + hdr_samples
         elif len_bad:
             cursor = i + 1
+        elif line_fail:
+            cursor = i + l_pre + cfg.samples_for_bits(n_valid_bits)
         else:
             cursor = i + l_pre + total_samples
 
@@ -182,13 +225,14 @@ def decode_capture(
     if kept:
         slot, i, fs, dlen, ftype, seq, src, dst, crc = (
             torch.tensor(col, device=dev) for col in zip(*kept))
-        body = padded[fs[:, None] + torch.arange(max_window, device=dev)]
-        bits = line_coding.decode(cfg, body)
-        in_frame = torch.arange(bits.shape[-1], device=dev) < ((PHY_HEADER_BYTES + dlen) * 8)[:, None]
-        frame_bytes = bitops.pack_bits(torch.where(in_frame, bits, 0))
-        crc_ok = bitops.crc8(frame_bytes[:, PHY_HEADER_BYTES:],
-                             dlen.clamp(0, cfg.max_frame_bytes)).to(torch.int64) == crc
-        slot, good = slot[crc_ok], crc_ok
+        if body_in_scan:
+            frame_bytes = torch.stack(kept_bytes)
+            good = torch.ones_like(slot, dtype=torch.bool)
+        else:
+            frame_bytes, _, crc_calc = _decode_body(
+                cfg, padded[fs[:, None] + body_idx], dlen)
+            good = crc_calc.to(torch.int64) == crc
+        slot = slot[good]
         res.valid[slot] = True
         res.frame_bytes[slot] = frame_bytes[good]
         for field, col in ((res.length, dlen), (res.frame_type, ftype),
@@ -224,14 +268,14 @@ def decode_capture_fast(
     """Batch decode through the speculative path where it applies.
 
     The speculative decode (kernels on a CUDA tensor, their plain versions
-    on a CPU tensor) runs first; the rows whose candidate table overflowed
-    are decoded again by the exact scan and take its result.  Every row
+    on a CPU tensor) runs first; the rows it flags not ``ok`` (a candidate
+    table that overflowed, or, for 4B5B, a near-zero level in an attempted
+    frame) are decoded again by the exact scan and take its result.  Every row
     equals :func:`decode_capture` frame for frame; the speculative rows
     hold their frames in the leading slots.
     """
     from trackmaker_tpu_torch.phy import spec_decode
 
-    line_coding._require_manchester(cfg)
     x = samples.to(torch.float32)
     batched = x.ndim == 2
     xb = x if batched else x[None]

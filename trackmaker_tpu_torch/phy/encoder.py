@@ -2,7 +2,8 @@
 
 A waveform is the preamble followed by the line-coded frame bits; frames
 in a track are joined with silence gaps.  Equal-length frames encode as
-one batch.
+one batch.  ``PhyEncoder`` makes its waveforms on the device it is given,
+the card unless the caller asks for another.
 """
 
 from __future__ import annotations
@@ -27,10 +28,11 @@ def encode_frame_bytes(cfg: PhyConfig, frame_bytes: torch.Tensor) -> torch.Tenso
 
 
 class PhyEncoder:
-    """Host facade: frames in, f32 CPU waveform tensors out."""
+    """Host facade: frames in, f32 waveform tensors on `device` out."""
 
-    def __init__(self, cfg: PhyConfig):
+    def __init__(self, cfg: PhyConfig, device: torch.device | str = "cuda"):
         self.cfg = cfg
+        self.device = torch.device(device)
         self.preamble = line_coding.preamble_waveform(cfg)
 
     @property
@@ -49,7 +51,7 @@ class PhyEncoder:
     def encode_frame(self, frame: Frame) -> torch.Tensor:
         self._check(frame)
         raw = torch.frombuffer(bytearray(frame.to_bytes()), dtype=torch.uint8)
-        return encode_frame_bytes(self.cfg, raw[None])[0]
+        return encode_frame_bytes(self.cfg, raw[None].to(self.device))[0]
 
     def encode_frames(self, frames: list[Frame],
                       gap_samples: int | None = None) -> torch.Tensor:
@@ -57,7 +59,7 @@ class PhyEncoder:
         gap = (self.cfg.inter_frame_gap_samples
                if gap_samples is None else gap_samples)
         if not frames:
-            return torch.zeros(0, dtype=torch.float32)
+            return torch.zeros(0, dtype=torch.float32, device=self.device)
         for f in frames:
             self._check(f)
         raws = [np.frombuffer(f.to_bytes(), dtype=np.uint8) for f in frames]
@@ -66,11 +68,11 @@ class PhyEncoder:
             by_len.setdefault(len(r), []).append(i)
         waves: dict[int, torch.Tensor] = {}
         for idxs in by_len.values():
-            batch = torch.from_numpy(np.stack([raws[i] for i in idxs]))
+            batch = torch.from_numpy(np.stack([raws[i] for i in idxs])).to(self.device)
             out = encode_frame_bytes(self.cfg, batch)
             for row, i in enumerate(idxs):
                 waves[i] = out[row]
-        silence = torch.zeros(gap, dtype=torch.float32)
+        silence = torch.zeros(gap, dtype=torch.float32, device=self.device)
         parts = []
         for i in range(len(frames)):
             parts.append(waves[i])

@@ -1,11 +1,12 @@
-"""Speculative batched Manchester decode (counterpart of ``trackmaker_tpu/phy/pallas_decode.py``).
+"""Speculative batched decode (counterpart of ``trackmaker_tpu/phy/pallas_decode.py``).
 
 ``decode_capture_spec`` decodes a batch of captures in six steps:
 
 1. correlation and per-row hits (kernel ``sync/xcorr_hits``);
 2. ``compact_hit_rows``: the sorted candidate table and its overflow flag;
-3. ``attempt_manchester`` (kernel): the sync refine and the frame bytes of
-   every candidate, independent of where the walk will go;
+3. the attempt kernel of the line code, ``attempt_manchester`` or
+   ``attempt_4b5b``: the sync refine and the frame bytes of every
+   candidate, independent of where the walk will go;
 4. ``spec_phase_a``'s epilogue: header fields, length sanity, destination
    filter and CRC8, giving each candidate's consumed/stop/keep fields;
 5. ``spec_walk`` (kernel): the sequential consumption walk over the table;
@@ -13,9 +14,12 @@
    slots.
 
 Because every hit is in the table, the walk replays the exact scan's cursor
-decisions; only a table overflow (``ok`` False) sends a capture to the exact
-scan (``phy/decoder.py:decode_capture_fast`` does this).  Each kernel
-wrapper runs its ``*_plain`` version on CPU tensors.
+decisions.  A capture goes to the exact scan (``phy/decoder.py:
+decode_capture_fast`` does this) only when its table overflowed, or, for
+4B5B, when an attempted candidate holds a near-zero level: the attempt
+kernel reads each transition against the level just before, while the
+receiver skips near-zero levels.  Each kernel wrapper runs its ``*_plain``
+version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch
 from trackmaker_tpu_torch import _build
 from trackmaker_tpu_torch.core import bitops, framing
 from trackmaker_tpu_torch.core.config import (
+    FOUR_B_FIVE_B,
     FRAME_TYPE_DATA,
     MANCHESTER,
     PHY_HEADER_BYTES,
@@ -45,20 +50,34 @@ SYNC_POSITIONS = 13
 FRAME_BYTES = PHY_HEADER_BYTES + 256   # 263, the largest frame
 BIT_SAMPLES = 6
 
+# 4B5B attempt (kernel csrc/attempt_4b5b.cu)
+SYNC_POSITIONS_4B5B = 31
+SYNC_LEN_4B5B = 30
+FRAME_SYMBOLS = 2 * FRAME_BYTES     # 526 symbols hold the largest frame
+ZERO_SYMBOLS = 640                  # symbols searched for a near-zero level
+SYMBOL_SAMPLES = 15                 # 5 levels x 3 samples
+HEADER_SYMBOLS = 2 * PHY_HEADER_BYTES
+MIN_HEADER_SYMBOLS = -(-line_coding.MIN_HEADER_BITS // 4)   # 13 nibbles
+LEVEL_NEAR_ZERO = 4e-6              # |3-sample level sum| at most this is near zero
+
 
 def spec_supported_cfg(cfg: PhyConfig) -> bool:
-    """The configurations the attempt kernel is specialized for."""
-    return (cfg.line_coding == MANCHESTER and cfg.samples_per_level == 3
-            and cfg.preamble_len == 96 and cfg.sync_len == 48
-            and cfg.sync_margin == 6 and cfg.header_samples == 336
-            and PHY_HEADER_BYTES + cfg.max_frame_bytes == FRAME_BYTES)
+    """The configurations the attempt kernels are specialized for."""
+    if cfg.samples_per_level != 3 or PHY_HEADER_BYTES + cfg.max_frame_bytes != FRAME_BYTES:
+        return False
+    if cfg.line_coding == MANCHESTER:
+        return (cfg.preamble_len == 96 and cfg.sync_len == 48
+                and cfg.sync_margin == 6 and cfg.header_samples == 336)
+    if cfg.line_coding == FOUR_B_FIVE_B:
+        return (cfg.preamble_len == 60 and cfg.sync_len == 30
+                and cfg.sync_margin == 15 and cfg.header_samples == 210)
+    return False
 
 
 def _check_cfg(cfg: PhyConfig) -> None:
-    line_coding._require_manchester(cfg)
     if not spec_supported_cfg(cfg):
-        raise ValueError("the speculative decode is specialized for the "
-                         "spl=3 Manchester configuration")
+        raise ValueError("the speculative decode is specialized for the spl=3 "
+                         "Manchester and 4B5B configurations")
 
 
 def _per_row(value, b: int, device: torch.device) -> torch.Tensor:
@@ -113,7 +132,65 @@ def compact_hit_rows(rows: torch.Tensor, n_cand: int):
     return cand, corr, n_valid, overflow
 
 
-# --- step 3: kernel 2 ---------------------------------------------------------
+# --- step 3: the attempt kernels -----------------------------------------------
+
+
+def _live(cand: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    """bool[B, C]: the slots c < min(n_valid, C) an attempt kernel decodes."""
+    n_cand = cand.shape[1]
+    return torch.arange(n_cand, device=cand.device) < n_valid.clamp(max=n_cand)[:, None]
+
+
+def _windows(x: torch.Tensor, start: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """x[b, start[b, ...] + offsets] for x f32[B, T]; samples at or past T
+    read as zero."""
+    b, t = x.shape
+    xz = torch.nn.functional.pad(x, (0, 1))       # column t reads as zero
+    idx = (start[..., None].to(torch.int64) + offsets).clamp(max=t)
+    return xz.gather(1, idx.reshape(b, -1)).reshape(idx.shape)
+
+
+def _refine_plain(x: torch.Tensor, i_c: torch.Tensor, vlen: torch.Tensor,
+                  sync: np.ndarray, sync_e: float, base_offset: int,
+                  n_pos: int) -> torch.Tensor:
+    """The sync refine of every slot: the frame start int32[B, C] behind
+    the best of `n_pos` sync-word positions from i_c + base_offset, as the
+    attempt kernels compute it."""
+    dev = x.device
+    sync_len = len(sync)
+    base = i_c + base_offset
+    k = torch.arange(n_pos, device=dev)
+    win = _windows(x, base, (k[:, None] + torch.arange(sync_len, device=dev)).reshape(-1))
+    win = win.reshape(*base.shape, n_pos, sync_len)
+    s = torch.from_numpy(np.asarray(sync, np.float32)).to(dev)
+    # tap by tap, a rounded product then a rounded sum, as the kernels add
+    # them: equal cc values keep a near-tie's first maximum the kernel's
+    dot = torch.zeros(win.shape[:-1], dtype=torch.float32, device=dev)
+    en = torch.zeros_like(dot)
+    for j in range(sync_len):
+        v = win[..., j]
+        dot = dot + v * s[j]
+        en = en + v * v
+    cc = torch.where(en > 1e-6, dot / (torch.sqrt(en) * sync_e), 0.0)
+    ok_k = (base[..., None] + k) <= (vlen[:, None, None] - sync_len)
+    cc = torch.where(ok_k, cc, -torch.inf)
+    best = cc.argmax(-1).to(torch.int32)
+    fallback = i_c + (base_offset + (n_pos - 1) // 2)   # the expected position
+    return (torch.where(cc.amax(-1) > -1.0, base + best, fallback) + sync_len).to(torch.int32)
+
+
+def _check_attempt_args(x, cand, n_valid, vlen, sync, sync_len: int) -> None:
+    b, t = x.shape
+    n_cand = cand.shape[1]
+    for name, tensor, shape, dtype in (("x", x, (b, t), torch.float32),
+                                       ("cand", cand, (b, n_cand), torch.int32),
+                                       ("n_valid", n_valid, (b,), torch.int32),
+                                       ("vlen", vlen, (b,), torch.int32)):
+        if (tuple(tensor.shape) != shape or tensor.dtype != dtype
+                or not tensor.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {dtype}{list(shape)}")
+    if len(sync) != sync_len:
+        raise ValueError(f"the sync word must hold {sync_len} samples")
 
 
 def attempt_manchester_plain(x: torch.Tensor, cand: torch.Tensor,
@@ -123,35 +200,11 @@ def attempt_manchester_plain(x: torch.Tensor, cand: torch.Tensor,
     b, t = x.shape
     n_cand = cand.shape[1]
     dev = x.device
-    live = torch.arange(n_cand, device=dev) < n_valid.clamp(max=n_cand)[:, None]
-    xz = torch.nn.functional.pad(x, (0, 1))       # column t reads as zero
-
-    def windows(start: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
-        idx = (start[..., None].to(torch.int64) + offsets).clamp(max=t)
-        flat = idx.reshape(b, -1)
-        return xz.gather(1, flat).reshape(idx.shape)
-
+    live = _live(cand, n_valid)
     i_c = torch.minimum(cand, torch.tensor(t, dtype=cand.dtype, device=dev))
-    base = i_c + 42
-    k = torch.arange(SYNC_POSITIONS, device=dev)
-    win = windows(base, (k[:, None] + torch.arange(48, device=dev)).reshape(-1))
-    win = win.reshape(b, n_cand, SYNC_POSITIONS, 48)
-    s = torch.from_numpy(np.asarray(sync, np.float32)).to(dev)
-    # tap by tap, a rounded product then a rounded sum, as the kernel adds
-    # them: equal cc values keep a near-tie's first maximum the kernel's
-    dot = torch.zeros(win.shape[:-1], dtype=torch.float32, device=dev)
-    en = torch.zeros_like(dot)
-    for j in range(48):
-        v = win[..., j]
-        dot = dot + v * s[j]
-        en = en + v * v
-    cc =torch.where(en > 1e-6, dot / (torch.sqrt(en) * sync_e), 0.0)
-    ok_k = (base[..., None] + k) <= (vlen[:, None, None] - 48)
-    cc = torch.where(ok_k, cc, -torch.inf)
-    best = cc.argmax(-1).to(torch.int32)
-    fs = torch.where(cc.amax(-1) > -1.0, base + best, i_c + 48) + 48
-
-    body = windows(fs, torch.arange(FRAME_BYTES * 8 * BIT_SAMPLES, device=dev))
+    fs = _refine_plain(x, i_c, vlen, sync, sync_e, base_offset=42,
+                       n_pos=SYNC_POSITIONS)
+    body = _windows(x, fs, torch.arange(FRAME_BYTES * 8 * BIT_SAMPLES, device=dev))
     w = body.reshape(b, n_cand, FRAME_BYTES * 8, BIT_SAMPLES)
     d = (w[..., 0] + w[..., 1] + w[..., 2]) - (w[..., 3] + w[..., 4] + w[..., 5])
     byts = bitops.pack_bits((d <= 0.0).to(torch.uint8))
@@ -177,17 +230,9 @@ def attempt_manchester(x: torch.Tensor, cand: torch.Tensor,
     """
     if not _build.on_cuda(x, cand, n_valid, vlen):
         return attempt_manchester_plain(x, cand, n_valid, vlen, sync, sync_e)
+    _check_attempt_args(x, cand, n_valid, vlen, sync, 48)
     b, t = x.shape
     n_cand = cand.shape[1]
-    for name, tensor, shape, dtype in (("x", x, (b, t), torch.float32),
-                                       ("cand", cand, (b, n_cand), torch.int32),
-                                       ("n_valid", n_valid, (b,), torch.int32),
-                                       ("vlen", vlen, (b,), torch.int32)):
-        if (tuple(tensor.shape) != shape or tensor.dtype != dtype
-                or not tensor.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous {dtype}{list(shape)}")
-    if len(sync) != 48:
-        raise ValueError("the sync word must hold 48 samples")
     s = torch.from_numpy(np.asarray(sync, np.float32)).to(x.device)
     byts = torch.empty((b, n_cand, FRAME_BYTES), dtype=torch.uint8, device=x.device)
     fs = torch.empty((b, n_cand), dtype=torch.int32, device=x.device)
@@ -204,6 +249,84 @@ def attempt_manchester(x: torch.Tensor, cand: torch.Tensor,
 attempt_manchester.launches = 0
 
 
+def attempt_4b5b_plain(x: torch.Tensor, cand: torch.Tensor,
+                       n_valid: torch.Tensor, vlen: torch.Tensor,
+                       sync: np.ndarray, sync_e: float):
+    """Plain PyTorch version of :func:`attempt_4b5b`."""
+    b, t = x.shape
+    dev = x.device
+    live = _live(cand, n_valid)
+    i_c = torch.minimum(cand, torch.tensor(t, dtype=cand.dtype, device=dev))
+    fs = _refine_plain(x, i_c, vlen, sync, sync_e, base_offset=15,
+                       n_pos=SYNC_POSITIONS_4B5B)
+    body = _windows(x, fs, torch.arange(ZERO_SYMBOLS * SYMBOL_SAMPLES, device=dev))
+    w = body.reshape(*fs.shape, ZERO_SYMBOLS * 5, 3)
+    level = (w[..., 0] + w[..., 1]) + w[..., 2]          # the kernel's order
+    prev = torch.cat([torch.ones_like(level[..., :1]), level[..., :-1]], dim=-1)
+    tr = (prev * level < 0.0).to(torch.int64).reshape(*fs.shape, ZERO_SYMBOLS, 5)
+    sym = (tr[..., :FRAME_SYMBOLS, :]
+           * torch.tensor([16, 8, 4, 2, 1], device=dev)).sum(-1)
+    nib = torch.from_numpy(line_coding.FOURB_FIVEB_DECODE).to(dev)[sym]
+    near0 = (level.abs() <= LEVEL_NEAR_ZERO).reshape(*fs.shape, ZERO_SYMBOLS, 5).any(-1)
+
+    def first(flag: torch.Tensor) -> torch.Tensor:
+        n = flag.shape[-1]
+        pos = torch.arange(n, dtype=torch.int32, device=dev)
+        return torch.where(flag, pos, n).amin(-1).to(torch.int32)
+
+    first_bad = first(nib < 0)
+    first_zero = first(near0)
+    sym_idx = torch.arange(FRAME_SYMBOLS, device=dev)
+    nib = torch.where(sym_idx < first_bad[..., None], nib, 0)
+    byts = (nib[..., 0::2] * 16 + nib[..., 1::2]).to(torch.uint8)
+    byts = torch.where(live[..., None], byts, 0)
+    return (byts, torch.where(live, fs, 0), torch.where(live, first_bad, 0),
+            torch.where(live, first_zero, 0))
+
+
+_ATTEMPT_4B5B_ARGTYPES = _ATTEMPT_ARGTYPES + [ctypes.c_void_p] * 2   # + first_bad, first_zero
+
+
+def attempt_4b5b(x: torch.Tensor, cand: torch.Tensor,
+                 n_valid: torch.Tensor, vlen: torch.Tensor,
+                 sync: np.ndarray, sync_e: float):
+    """Sync refine and 4B5B + NRZI decode of every live candidate slot.
+
+    x f32[B, T], cand int32[B, C], n_valid int32[B], vlen int32[B]; `sync`
+    is the 30-sample sync word and `sync_e` its norm.  Returns, for each
+    slot c < min(n_valid, C) (zeros elsewhere):
+
+    * ``bytes`` uint8[B, C, 263]: the nibble pairs of the first 526
+      symbols, zero from the first invalid symbol on;
+    * ``fs`` int32[B, C]: the refined frame start;
+    * ``first_bad`` int32[B, C]: the first invalid symbol, 526 if none;
+    * ``first_zero`` int32[B, C]: the first of 640 symbols holding a
+      near-zero level sum, 640 if none.
+
+    Each transition is read against the level just before it (see the
+    kernel's note in ``csrc/attempt_4b5b.cu``).
+    """
+    if not _build.on_cuda(x, cand, n_valid, vlen):
+        return attempt_4b5b_plain(x, cand, n_valid, vlen, sync, sync_e)
+    _check_attempt_args(x, cand, n_valid, vlen, sync, SYNC_LEN_4B5B)
+    b, t = x.shape
+    n_cand = cand.shape[1]
+    s = torch.from_numpy(np.asarray(sync, np.float32)).to(x.device)
+    byts = torch.empty((b, n_cand, FRAME_BYTES), dtype=torch.uint8, device=x.device)
+    fs, first_bad, first_zero = (
+        torch.empty((b, n_cand), dtype=torch.int32, device=x.device) for _ in range(3))
+    fn = _build.entry("attempt_4b5b", "tm_attempt_4b5b", _ATTEMPT_4B5B_ARGTYPES)
+    err = fn(x.data_ptr(), cand.data_ptr(), n_valid.data_ptr(), vlen.data_ptr(),
+             s.data_ptr(), b, t, n_cand, sync_e, byts.data_ptr(), fs.data_ptr(),
+             first_bad.data_ptr(), first_zero.data_ptr(), _build.stream_ptr(x))
+    _build.check(err, "attempt_4b5b")
+    attempt_4b5b.launches += 1
+    return byts, fs, first_bad, first_zero
+
+
+attempt_4b5b.launches = 0
+
+
 # --- step 4 -----------------------------------------------------------------
 
 
@@ -212,6 +335,7 @@ class SpecFields(NamedTuple):
     cand: torch.Tensor       # int32[B, C] candidate preamble starts (2^30 pad)
     fields: torch.Tensor     # int32[B, 4, C] walk rows: pos/consumed/stop/keep
     overflow: torch.Tensor   # bool[B] candidate table overflowed
+    nonconf: torch.Tensor    # bool[B, C] the exact scan may differ if attempted
     bytes_m: torch.Tensor    # uint8[B, C, 263] frame bytes, masked to length
     dlen: torch.Tensor       # int32[B, C]
     ftype: torch.Tensor      # int32[B, C]
@@ -228,13 +352,34 @@ def spec_phase_a(cfg: PhyConfig, x: torch.Tensor, local_addr: int,
     sync = pre[cfg.preamble_len - cfg.sync_len:]
     _, rows = xcorr_hits(x, pre, cfg.correlation_threshold)
     cand, corr, n_valid, overflow = compact_hit_rows(rows, n_cand)
-    byts, fs = attempt_manchester(x, cand, n_valid, vlens, sync,
-                                  preamble_energy(sync))
+    if cfg.line_coding == MANCHESTER:
+        byts, fs = attempt_manchester(x, cand, n_valid, vlens, sync,
+                                      preamble_energy(sync))
+    else:
+        byts, fs, first_bad, first_zero = attempt_4b5b(
+            x, cand, n_valid, vlens, sync, preamble_energy(sync))
 
     hdr = framing.parse_header(byts)
     dlen, ftype, dst = hdr["length"], hdr["frame_type"], hdr["dst"]
+    total_bits = (PHY_HEADER_BYTES + dlen) * 8
     total_samples = cfg.samples_for_bits(8) * (PHY_HEADER_BYTES + dlen)
-    header_ok = hdr["type_valid"]
+    if cfg.line_coding == MANCHESTER:   # every Manchester bit decodes
+        header_ok = hdr["type_valid"]
+        line_fail = torch.zeros_like(header_ok)
+        nonconf = torch.zeros_like(header_ok)
+        fail_samples = total_samples
+    else:
+        # a symbol past the frame decides nothing: frames of at most 263
+        # bytes end by symbol 526, and a longer length is len_bad
+        symbols = total_bits // 4
+        valid_symbols = torch.minimum(first_bad, symbols)
+        header_ok = hdr["type_valid"] & (first_bad >= MIN_HEADER_SYMBOLS)
+        line_fail = 4 * valid_symbols < total_bits
+        # a near-zero level in the header or the frame: the receiver skips
+        # it when it reads transitions, the kernel does not
+        nonconf = ((first_zero < HEADER_SYMBOLS)
+                   | (first_zero < symbols.clamp(max=ZERO_SYMBOLS)))
+        fail_samples = valid_symbols * SYMBOL_SAMPLES
     len_bad = ((ftype == FRAME_TYPE_DATA) & (dlen == 0)) | (dlen > cfg.max_frame_bytes)
     vl = vlens[:, None]
     hdr_incomplete = fs + cfg.header_samples > vl
@@ -249,13 +394,14 @@ def spec_phase_a(cfg: PhyConfig, x: torch.Tensor, local_addr: int,
 
     consumed = torch.where(
         ~header_ok, cfg.header_samples,
-        torch.where(len_bad, 1, cfg.preamble_len + total_samples))
+        torch.where(len_bad, 1, cfg.preamble_len
+                    + torch.where(line_fail, fail_samples, total_samples)))
     stopf = hdr_incomplete | (header_ok & ~len_bad & incomplete)
-    keepf = (~hdr_incomplete & header_ok & ~len_bad & ~incomplete
+    keepf = (~hdr_incomplete & header_ok & ~len_bad & ~incomplete & ~line_fail
              & dst_ok & crc_ok)
     fields = torch.stack([cand, consumed.to(torch.int32), stopf.to(torch.int32),
                           keepf.to(torch.int32)], dim=1)
-    return SpecFields(cand=cand, fields=fields, overflow=overflow,
+    return SpecFields(cand=cand, fields=fields, overflow=overflow, nonconf=nonconf,
                       bytes_m=bytes_m, dlen=dlen, ftype=ftype, seq=hdr["sequence"],
                       src=hdr["src"], dst=dst, corr=corr)
 
@@ -385,8 +531,9 @@ def decode_capture_spec(
 ):
     """Batched speculative decode; returns ``(DecodedFrames, ok[B])``.
 
-    Rows with ``ok`` False overflowed the candidate table and must be
-    decoded again by the exact scan.  Kept frames fill the leading slots in
+    Rows with ``ok`` False must be decoded again by the exact scan: their
+    candidate table overflowed, or (4B5B) an attempted candidate holds a
+    near-zero level.  Kept frames fill the leading slots in
     position order; the exact scan leaves failed attempts as empty slots
     between them, so the two agree frame for frame, not slot for slot.
 
@@ -406,7 +553,7 @@ def decode_capture_spec(
     limit = _per_row(BIGI if scan_limit is None else scan_limit, b, dev)
     walk = spec_walk(a.fields, cur0, limit, max_frames)
     res = spec_compact(a, walk.keep, max_frames)
-    ok = ~a.overflow
+    ok = ~(a.overflow | (walk.attempted & a.nonconf).any(-1))
     if not with_cursor:
         return res, ok
     drained = torch.where(walk.done, vlens - (cfg.preamble_len - 1), walk.cur_f)
