@@ -14,29 +14,37 @@ Phases, each raising on failure (non-zero exit):
    Manchester kernels at the flagship shapes (32 captures x 433,464
    samples, 128 candidates), then the correlation at the 60-sample 4B5B
    preamble and the 4B5B attempt at the fourb5b_b32 shapes (32 captures x
-   275,640 samples, 128 candidates);
-2. the two main paths through ``decode_capture_fast``, each with every
-   launch count set to 0 just before it and read just after: the flagship,
-   32 noisy captures of 64 Manchester frames, and fourb5b_b32, 32 noisy
-   captures of 64 4B5B frames (both 128-byte payloads, 200-sample gaps,
-   noise sigma 0.05).  Each has a payload gate, every row ``ok``,
-   agreement with the exact scan on two rows, and each kernel of its path
-   launched;
+   275,640 samples, 128 candidates), then the four ASK kernels at the
+   ask_b16 shapes (16 captures x 338,752 samples, 97 candidate rows): the
+   sliding dot at L=440 and L=30, the fire rule on the batch's sync, the
+   record chain on the batch's chain rows and on random rows with ties,
+   the walk on the batch's successor table and on random tables;
+2. the three main paths, each with its kernels' launch counts set to 0
+   just before it and read just after: the flagship and fourb5b_b32
+   through ``decode_capture_fast`` (32 noisy captures of 64 frames of
+   128-byte payloads, 200-sample gaps, noise sigma 0.05), and ask_b16
+   through ``ask.demodulate_fast`` (16 tracks of 64 ASK frames of
+   b"the quick brown fox", ``build_track`` seeds 7-22, no noise).  Each has
+   a payload gate, every row ``ok``, agreement with the exact scan on two
+   rows, and each kernel of its path launched;
 3. the fallbacks: a Manchester capture that overflows the candidate table,
-   and a 4B5B capture with a zeroed level inside an attempted frame, go to
-   the exact scan on the card, and each merged batch equals the exact scan;
+   a 4B5B capture with a zeroed level inside an attempted frame, and an
+   ASK capture of 150 back-to-back chirps before three frames (more fire
+   candidates than its table holds) go to the exact scan on the card, and
+   each merged batch equals the exact scan;
 4. timings with CUDA events (median of 30 runs after warm-up) of each
-   kernel against its plain version, of ``decode_capture_spec`` end to
-   end for both line codes, and of the exact scan of one row (median of
-   5), each printed beside the card's name and power limit.
+   kernel against its plain version (and the sliding dot against
+   ``conv1d``), of ``decode_capture_spec`` and ``demodulate_spec`` end to
+   end, and of the exact scan of one row (median of 5), each printed
+   beside the card's name and power limit.
 
 The line before the last is a JSON object with the kernels' measurements:
 ``launches`` counts each kernel's launches in the main-path runs of
-phase 2 (both paths for the shared correlation and walk), ``ms`` and
-``plain_ms`` time it at the shapes of its first path, and ``bound_ms`` is
-the least time the card could take for that work (bytes over 3.35 TB/s or
-operations over 67 TFLOP/s, whichever is larger).  The last line is
-``{"ok": true, "device": {...}}``.
+phase 2 (both line-coded paths for the shared correlation and walk),
+``ms`` and ``plain_ms`` time it at the shapes of its first path, and
+``bound_ms`` is the least time the card could take for that work (bytes
+over 3.35 TB/s or operations over 67 TFLOP/s, whichever is larger).  The
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -61,8 +69,14 @@ N_CAND = 128
 LOCAL_ADDR = 2
 CORR_ATOL = 1e-5    # summation order differs between kernel and plain version
 RUNS = 30
+ASK_BATCH = 16
+ASK_FRAMES = 64
+ASK_TEXT = b"the quick brown fox"
+ASK_MAX_FRAMES = ASK_FRAMES + 8
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+# the kernel each wrapper launches, where the two names differ
+KERNEL_NAMES = {"sliding_dot_scaled": "sliding_dot", "dense_fire_candidates": "ask_fire"}
 
 
 def log(msg: str) -> None:
@@ -220,6 +234,170 @@ def check_fallback(torch, decode_capture_fast, decode_captures, sd, cfg, small, 
         f"merged batch equals it ({merged.count.tolist()} frames)")
 
 
+def ask_captures(torch, ask, cfg, dev):
+    """The ask_b16 input (bench.py's ask row): 16 tracks of 64 frames,
+    zero-padded to the longest, on `dev`."""
+    frames = ask.build_frames(ASK_TEXT, cfg, num_frames=ASK_FRAMES)
+    waves = [ask.build_track(cfg, frames, seed=7 + r) for r in range(ASK_BATCH)]
+    caps = np.zeros((ASK_BATCH, max(len(w) for w in waves)), np.float32)
+    for r, w in enumerate(waves):
+        caps[r, :len(w)] = w
+    return frames, torch.from_numpy(caps).to(dev)
+
+
+def chain_rows(torch, rng, n: int, win: int, dev):
+    """Random record-chain rows with ties, an empty row and a flat row."""
+    vals = np.full((n, win), -np.inf, np.float32)
+    mask = rng.random((n, win)) < 0.05
+    vals[mask] = rng.normal(1, 0.5, mask.sum()).astype(np.float32)
+    vals[3, 40] = vals[3, 60] = np.float32(2.5)
+    vals[4] = -np.inf
+    vals[5] = np.float32(0.5)
+    return (torch.from_numpy(vals).to(dev),
+            torch.from_numpy(rng.integers(0, 1 << 20, n).astype(np.int32)).to(dev))
+
+
+def walk_table(torch, rng, b: int, c1: int, dev):
+    """A random ASK successor table int32[b, 6, c1]."""
+    fields = np.stack([rng.random((b, c1)) < 0.95, rng.random((b, c1)) < 0.95,
+                       rng.random((b, c1)) < 0.95, rng.integers(-5, 400_000, (b, c1)),
+                       rng.integers(-1, c1, (b, c1)), rng.random((b, c1)) < 0.03], axis=1)
+    return torch.from_numpy(fields.astype(np.int32)).to(dev)
+
+
+def chain_columns(torch, vals, base, guard: int) -> int:
+    """The columns the record chain needs on these rows: each row up to its
+    first fire, all of it when it never fires."""
+    n, win = vals.shape
+    m = torch.nn.functional.pad(vals.cummax(-1).values[:, :-1], (1, 0), value=-np.inf)
+    upd = vals > m
+    idx = base[:, None] + torch.arange(win, dtype=torch.int32, device=vals.device)
+    rec = torch.where(upd, idx, -(2**30)).cummax(-1).values
+    rec = torch.nn.functional.pad(rec[:, :-1], (1, 0), value=-(2**30))
+    fire = ~upd & (idx > rec + guard) & (m > -np.inf)
+    lane = torch.arange(win, device=vals.device)
+    return int((torch.where(fire, lane, win - 1).amin(-1) + 1).sum())
+
+
+def check_ask_kernels(torch, ask, ask_spec, sdot, cfg, xa, rng) -> tuple[dict, dict]:
+    """Phase 1 for the four ASK kernels at the ask_b16 shapes; returns
+    (max |err| per kernel, the inputs phase 4 times them on)."""
+    dev = xa.device
+    b = xa.shape[0]
+    pre = ask._chirp_np(cfg)
+    k30 = ask._demod_dense_tables_np(cfg)[0]
+    demod_in = ask.demod_dense_input(cfg, xa)
+    errs = dict.fromkeys(("sliding_dot", "ask_fire", "ask_chain", "ask_walk"), 0)
+
+    def record(k_name: str, got, want, what: str) -> None:
+        require(all(torch.equal(g, w) for g, w in zip(got, want)), f"{k_name} differs {what}")
+        errs[k_name] = max([errs[k_name]] + [(g.double() - w.double()).abs().max().item()
+                                             for g, w in zip(got, want)])
+
+    for x, pattern, scale in ((xa, pre, 1.0 / cfg.sync_divisor), (demod_in, k30, 1.0)):
+        got = sdot.sliding_dot_scaled(x, pattern, scale)
+        torch.cuda.synchronize()
+        record("sliding_dot", [got], [sdot.sliding_dot_scaled_plain(x, pattern, scale)],
+               f"at L={len(pattern)}")
+    log(f"phase 1: sliding_dot == plain at L=440 on {b} x {xa.shape[1]} and at L=30 on "
+        f"{demod_in.shape[0]} x {demod_in.shape[1]}")
+
+    power, sync, upd_ok = ask.dense_arrays(cfg, xa)
+    hits = ask_spec.dense_fire_candidates(cfg, sync, upd_ok)
+    torch.cuda.synchronize()
+    record("ask_fire", [hits], [ask_spec.dense_fire_candidates_plain(cfg, sync, upd_ok)],
+           "on the batch's sync")
+    log(f"phase 1: ask_fire == plain ({int(upd_ok.sum())} updates, {int(hits.sum())} fire "
+        "candidates)")
+
+    cand, n_valid, overflow = ask_spec.extract_candidates(hits, 96)
+    virt = torch.full((b, 1), -(cfg.frame_samples + 1), dtype=torch.int32, device=dev)
+    cand_full = torch.cat([virt, cand], dim=1)
+    vals, base, _ = ask_spec.chain_windows(cfg, xa, power, sync, upd_ok, cand_full)
+    rows = [(vals, base)] + [chain_rows(torch, rng, 300, win, dev) for win in (1000, 1024, 4096)]
+    for v, bs in rows:
+        got = ask.ask_chain(v, bs, cfg.peak_guard)
+        torch.cuda.synchronize()
+        record("ask_chain", got, ask.ask_chain_plain(v, bs, cfg.peak_guard),
+               f"on rows of {v.shape[1]}")
+    log(f"phase 1: ask_chain == plain on the batch's {vals.shape[0]} chain rows "
+        f"({int(ask.ask_chain(vals, base, cfg.peak_guard)[0].sum())} fire) and on random rows "
+        "with ties (widths 1000, 1024, 4096)")
+
+    fields = ask_spec.phase_b(cfg, xa, power, sync, upd_ok, cand_full)
+    tables = [(fields, ASK_MAX_FRAMES)] + [(walk_table(torch, rng, 16, 97, dev), mf)
+                                           for mf in (1, 72, 128)]
+    for f, mf in tables:
+        got = ask_spec.ask_walk(f, mf)
+        torch.cuda.synchronize()
+        record("ask_walk", got, ask_spec.ask_walk_plain(f, mf), f"(max_frames {mf})")
+    log(f"phase 1: ask_walk == plain on the batch's table (candidates per capture "
+        f"{int(n_valid.min())}..{int(n_valid.max())}, overflow {int(overflow.sum())}) and on "
+        "three random tables")
+    return errs, dict(demod_in=demod_in, sync=sync, upd_ok=upd_ok, vals=vals, base=base,
+                      fields=fields, k30=k30, pre=pre)
+
+
+def run_ask_main_path(torch, ask, ask_spec, cfg, xa, frames, kernels) -> dict[str, int]:
+    """The ask_b16 main path through ask.demodulate_fast, with its gates;
+    returns the launch count of each kernel in `kernels`."""
+    b = xa.shape[0]
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ask.demodulate_fast(cfg, xa, max_frames=ASK_MAX_FRAMES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {KERNEL_NAMES.get(k.__name__, k.__name__): k.launches for k in kernels}
+    log(f"phase 2 (ask_b16): demodulate_fast took {wall * 1e3:.1f} ms (first call), "
+        f"kernel launches {launches}")
+    for k_name, n in launches.items():
+        require(n > 0, f"the ask_b16 main path never launched {k_name}")
+    spec_res, ok = ask_spec.demodulate_spec(cfg, xa, max_frames=ASK_MAX_FRAMES)
+    require(bool(ok.all()), "an ask_b16 row is not ok")
+    require(all(torch.equal(p, q) for p, q in zip(spec_res, res)),
+            "ask_b16: demodulate_fast differs from demodulate_spec with every row ok")
+    counts = res.count.cpu().numpy()
+    require(bool((counts == ASK_FRAMES).all()),
+            f"ask_b16 count gate failed: {sorted(set(counts.tolist()))}")
+    bits, valid = res.bits.cpu().numpy(), res.valid.cpu().numpy()
+    for r in range(b):
+        require(np.array_equal(bits[r][valid[r]], frames[:, 8:]),
+                f"ask_b16 payload gate failed at row {r}")
+    for r in (0, b - 1):
+        exact = ask.demodulate(cfg, xa[r], max_frames=ASK_MAX_FRAMES)
+        require(all(torch.equal(p[r], q) for p, q in zip(res, exact)),
+                f"ask_b16 row {r} differs from the exact scan")
+    log(f"phase 2 (ask_b16): payload gate passed ({b} rows x {ASK_FRAMES} frames), every row "
+        f"ok, rows 0 and {b - 1} equal the exact scan in all four fields")
+    return launches
+
+
+def check_ask_fallback(torch, ask, ask_spec, cfg, dev) -> None:
+    """Row 0, 150 back-to-back chirps before three frames, overflows its
+    candidate table; row 1, the three frames alone, is clean.  The merged
+    batch must equal the exact scan."""
+    frames = ask.build_frames(b"fallback", cfg, num_frames=3)
+    tail = ask.build_track(cfg, frames, seed=2)
+    crowded = np.concatenate([np.tile(ask._chirp_np(cfg), 150), np.zeros(500, np.float32), tail])
+    clean = np.pad(tail, (0, len(crowded) - len(tail)))
+    small = torch.from_numpy(np.stack([crowded, clean])).to(dev)
+    _, small_ok = ask_spec.demodulate_spec(cfg, small, max_frames=ASK_MAX_FRAMES)
+    require(small_ok.tolist() == [False, True], f"ask fallback flags {small_ok.tolist()}")
+    merged = ask.demodulate_fast(cfg, small, max_frames=ASK_MAX_FRAMES)
+    for r in range(2):
+        exact = ask.demodulate(cfg, small[r], max_frames=ASK_MAX_FRAMES)
+        require(all(torch.equal(p[r], q) for p, q in zip(merged, exact)),
+                f"ask fallback row {r} differs from the exact scan")
+    require(merged.count.tolist() == [2, 3],
+            f"ask fallback frames {merged.count.tolist()}, expected [2, 3]")
+    log("phase 3 (ask): fallback row (150 back-to-back chirps, more fire candidates than the "
+        f"table holds) re-decoded by the exact scan on the card; merged batch equals it "
+        f"({merged.count.tolist()} frames)")
+
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -234,11 +412,13 @@ def main() -> None:
     except ImportError as exc:
         raise SystemExit(f"chip_smoke.py must run from a checkout of the repository: {exc}")
     from trackmaker_tpu_torch.core.framing import Frame
+    from trackmaker_tpu_torch.phy import ask, ask_spec
     from trackmaker_tpu_torch.phy import spec_decode as sd
     from trackmaker_tpu_torch.phy.decoder import (
         decode_capture, decode_capture_fast, decode_captures)
     from trackmaker_tpu_torch.phy.encoder import PhyEncoder
     from trackmaker_tpu_torch.phy.line_coding import preamble_waveform
+    from trackmaker_tpu_torch.sync import sliding_dot as sdot
     from trackmaker_tpu_torch.sync.correlate import preamble_energy
     from trackmaker_tpu_torch.sync.xcorr_hits import xcorr_hits, xcorr_hits_plain
 
@@ -260,8 +440,11 @@ def main() -> None:
     frames4, x4 = captures(torch, cfg4, args.seed + 1, dev)
     b, t = x.shape
     t4 = x4.shape[1]
+    acfg = ask.AskConfig()
+    frames_a, xa = ask_captures(torch, ask, acfg, dev)
     log(f"flagship input: {b} x {t} samples; fourb5b_b32 input: {b} x {t4} samples; "
-        f"{N_FRAMES} frames per capture")
+        f"{N_FRAMES} frames per capture; ask_b16 input: {xa.shape[0]} x {xa.shape[1]} samples, "
+        f"{ASK_FRAMES} frames per capture")
     pre, pre4 = preamble_waveform(cfg), preamble_waveform(cfg4)
     sync = pre[cfg.preamble_len - cfg.sync_len:]
     sync4 = pre4[cfg4.preamble_len - cfg4.sync_len:]
@@ -334,6 +517,8 @@ def main() -> None:
     errs["spec_walk"] = walk_err
     log(f"phase 1: spec_walk == plain on {len(tables)} tables "
         "(random ones with caps 1..256, the flagship's and fourb5b_b32's)")
+    ask_errs, ask_in = check_ask_kernels(torch, ask, ask_spec, sdot, acfg, xa, rng)
+    errs.update(ask_errs)
 
     # --- phase 2: the main paths -----------------------------------------------
     launches = run_main_path(torch, decode_capture_fast, decode_capture, sd, cfg, x, frames,
@@ -342,6 +527,9 @@ def main() -> None:
                               frames4, (xcorr_hits, sd.attempt_4b5b, sd.spec_walk), "fourb5b_b32")
     for k_name, n in launches4.items():
         launches[k_name] = launches.get(k_name, 0) + n
+    ask_kernels = (sdot.sliding_dot_scaled, ask_spec.dense_fire_candidates, ask.ask_chain,
+                   ask_spec.ask_walk)
+    launches.update(run_ask_main_path(torch, ask, ask_spec, acfg, xa, frames_a, ask_kernels))
 
     # --- phase 3: the fallbacks ----------------------------------------------
     enc = PhyEncoder(cfg, device=dev)
@@ -362,6 +550,7 @@ def main() -> None:
     check_fallback(torch, decode_capture_fast, decode_captures, sd, cfg4,
                    torch.stack([zeroed, tail4]), [2, 3], "4b5b",
                    "a zeroed level inside an attempted frame")
+    check_ask_fallback(torch, ask, ask_spec, acfg, dev)
 
     # --- phase 4: timings ------------------------------------------------------
     ms = {
@@ -384,12 +573,42 @@ def main() -> None:
             phase_a.fields, zeros, no_limit, MAX_FRAMES)),
     }
     xcorr4_ms = time_ms(torch, lambda: xcorr_hits(x4, pre4, cfg4.correlation_threshold))
+    sync_scale = 1.0 / acfg.sync_divisor
+    demod_in, k30 = ask_in["demod_in"], ask_in["k30"]
+    ask_calls = {
+        "sliding_dot": (sdot.sliding_dot_scaled, sdot.sliding_dot_scaled_plain,
+                        (xa, ask_in["pre"], sync_scale)),
+        "ask_fire": (ask_spec.dense_fire_candidates, ask_spec.dense_fire_candidates_plain,
+                     (acfg, ask_in["sync"], ask_in["upd_ok"])),
+        "ask_chain": (ask.ask_chain, ask.ask_chain_plain,
+                      (ask_in["vals"], ask_in["base"], acfg.peak_guard)),
+        "ask_walk": (ask_spec.ask_walk, ask_spec.ask_walk_plain,
+                     (ask_in["fields"], ASK_MAX_FRAMES)),
+    }
+    for k_name, (kernel, plain, args) in ask_calls.items():
+        ms[k_name] = time_ms(torch, lambda: kernel(*args))
+        plain_ms[k_name] = time_ms(torch, lambda: plain(*args))
+    sd30_ms = time_ms(torch, lambda: sdot.sliding_dot_scaled(demod_in, k30, 1.0))
+    sd30_plain_ms = time_ms(torch, lambda: sdot.sliding_dot_scaled_plain(demod_in, k30, 1.0))
+    # the library yardstick of the sliding dot: one cuDNN convolution (TF32
+    # off since phase 0), the scale folded into its weights
+    conv_w = {n: torch.from_numpy(p * np.float32(sc)).to(dev).view(1, 1, -1)
+              for n, p, sc in ((440, ask_in["pre"], sync_scale), (30, k30, 1.0))}
+
+    def conv_dot(xx, n):
+        return torch.nn.functional.conv1d(xx[:, None], conv_w[n], padding=n - 1)[:, 0, :xx.shape[1]]
+
+    conv_err = (conv_dot(xa, 440) - sdot.sliding_dot_scaled(xa, ask_in["pre"], sync_scale)
+                ).abs().max().item()
+    library_ms = {"sliding_dot": time_ms(torch, lambda: conv_dot(xa, 440))}
+    conv30_ms = time_ms(torch, lambda: conv_dot(demod_in, 30))
 
     # least times, from the shapes and this run's candidates
     live = int(n_valid.clamp(max=N_CAND).sum())
     live4 = int(n_valid4.clamp(max=N_CAND).sum())
     n_lags = t - len(pre) + 1
     small_in = 3 * b * 4 + b * N_CAND * 4            # cand, n_valid, vlen
+    chain_cols = chain_columns(torch, ask_in["vals"], ask_in["base"], acfg.peak_guard)
     bounds = {
         # each lag: len(pre) multiply-adds for the dot and for the energy
         "xcorr_hits": bound(x.numel() * 4 + rows_k.numel() * 4,
@@ -407,12 +626,30 @@ def main() -> None:
         # few integer ops per candidate
         "spec_walk": bound(phase_a.fields.numel() * 4 + 2 * b * 4 + 2 * b * N_CAND + 4 * b * 4,
                            b * N_CAND * 4),
+        # each lag: 440 products and 440 sums, then the scale
+        "sliding_dot": bound(2 * xa.numel() * 4, xa.numel() * (2 * 440 + 1)),
+        # sync and upd in, hits out; a select per sample (the window
+        # compares run only at updates and stop at the first larger value,
+        # far below the bytes term)
+        "ask_fire": bound(xa.numel() * 6, xa.numel()),
+        # each row up to its first fire (all of it when none): the value in,
+        # a max, a compare, an index select and a max per column
+        "ask_chain": bound(4 * chain_cols + ask_in["base"].numel() * 9, 4 * chain_cols),
+        # the table in, a peak and a flag per slot out; about 12 integer
+        # ops per slot
+        "ask_walk": bound(ask_in["fields"].numel() * 4 + xa.shape[0] * (ASK_MAX_FRAMES * 5 + 1),
+                          xa.shape[0] * ASK_MAX_FRAMES * 12),
     }
+    sd30_bound = bound(2 * demod_in.numel() * 4, demod_in.numel() * (2 * 30 + 1))
     for k_name in ms:
         log(f"phase 4: {k_name}: kernel {ms[k_name]:.4f} ms, plain {plain_ms[k_name]:.4f} ms, "
             f"bound {bounds[k_name][0]:.4f} ms ({bounds[k_name][1]}) [{card}]")
     log(f"phase 4: xcorr_hits at the fourb5b_b32 shape (L=60): kernel {xcorr4_ms:.4f} ms "
         f"[{card}]")
+    log(f"phase 4: sliding_dot at L=440 vs conv1d: {library_ms['sliding_dot']:.4f} ms "
+        f"(max |conv1d - kernel| {conv_err:.3g}); at L=30 ({demod_in.shape[0]} x "
+        f"{demod_in.shape[1]}): kernel {sd30_ms:.4f} ms, plain {sd30_plain_ms:.4f} ms, conv1d "
+        f"{conv30_ms:.4f} ms, bound {sd30_bound[0]:.4f} ms ({sd30_bound[1]}) [{card}]")
     steps = {
         "compact_hit_rows": time_ms(torch, lambda: sd.compact_hit_rows(rows_k, N_CAND)),
         "spec_phase_a": time_ms(torch, lambda: sd.spec_phase_a(
@@ -438,12 +675,42 @@ def main() -> None:
             f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{card}]")
         scan = time_ms(torch, lambda: decode_capture(c, xx[0], LOCAL_ADDR, MAX_FRAMES), runs=5)
         log(f"phase 4: exact scan {tag}, one row of {N_FRAMES} frames: {scan:.4f} ms [{card}]")
+    power_a, sync_a, upd_a = ask.dense_arrays(acfg, xa)
+    hits_a = ask_spec.dense_fire_candidates(acfg, sync_a, upd_a)
+    cand_a, _, _ = ask_spec.extract_candidates(hits_a, 96)
+    cand_full_a = torch.cat([torch.full((xa.shape[0], 1), -(acfg.frame_samples + 1),
+                                        dtype=torch.int32, device=dev), cand_a], dim=1)
+    ask_steps = {
+        "dense_arrays": lambda: ask.dense_arrays(acfg, xa),
+        "dense_fire_candidates": lambda: ask_spec.dense_fire_candidates(acfg, sync_a, upd_a),
+        "extract_candidates": lambda: ask_spec.extract_candidates(hits_a, 96),
+        "phase_b": lambda: ask_spec.phase_b(acfg, xa, power_a, sync_a, upd_a, cand_full_a),
+        "ask_walk": lambda: ask_spec.ask_walk(ask_in["fields"], ASK_MAX_FRAMES),
+        "demod_dense": lambda: ask.demod_dense(acfg, xa),
+    }
+    for step, fn in ask_steps.items():
+        log(f"phase 4: ask_b16 step {step}: {time_ms(torch, fn):.4f} ms [{card}]")
+    e2e = time_ms(torch, lambda: ask_spec.demodulate_spec(acfg, xa, max_frames=ASK_MAX_FRAMES))
+    rt = xa.numel() / acfg.sample_rate / (e2e / 1e3)
+    log(f"phase 4: demodulate_spec ask_b16 {xa.shape[0]} x {xa.shape[1]}: {e2e:.4f} ms, "
+        f"{rt:.1f}x real time [{card}]")
+    torch.cuda.reset_peak_memory_stats()
+    ask_spec.demodulate_spec(acfg, xa, max_frames=ASK_MAX_FRAMES)
+    torch.cuda.synchronize()
+    log(f"phase 4: demodulate_spec ask_b16 peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{card}]")
+    scan = time_ms(torch, lambda: ask.demodulate(acfg, xa[0], max_frames=ASK_MAX_FRAMES), runs=5)
+    log(f"phase 4: exact scan ask_b16, one row of {ASK_FRAMES} frames: {scan:.4f} ms [{card}]")
 
     replaces = {
         "xcorr_hits": "trackmaker_tpu/sync/pallas_xcorr.py:148",
         "attempt_manchester": "trackmaker_tpu/phy/pallas_decode.py:207",
         "attempt_4b5b": "trackmaker_tpu/phy/pallas_decode.py:409",
         "spec_walk": "trackmaker_tpu/phy/pallas_decode.py:609",
+        "sliding_dot": "trackmaker_tpu/sync/pallas_xcorr.py:93",
+        "ask_fire": "trackmaker_tpu/phy/ask_spec.py:64",
+        "ask_chain": "trackmaker_tpu/phy/ask_spec.py:221",
+        "ask_walk": "trackmaker_tpu/phy/ask_spec.py:455",
     }
     print(json.dumps({"kernels": [
         {"name": k_name, "route": "cuda",
@@ -451,8 +718,9 @@ def main() -> None:
          "replaces": replaces[k_name], "launches": launches[k_name],
          "max_abs_err": errs[k_name], "ms": ms[k_name], "plain_ms": plain_ms[k_name],
          "bound_ms": bounds[k_name][0], "bound_by": bounds[k_name][1],
-         # no single PyTorch call computes any of these functions
-         "library_ms": None}
+         # only the sliding dot has one PyTorch call computing the same
+         # function (conv1d); none computes any of the others
+         "library_ms": library_ms.get(k_name)}
         for k_name in ms]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

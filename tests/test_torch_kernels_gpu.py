@@ -11,7 +11,10 @@ version and launches nothing.
 Tolerances: correlations within atol 1e-5 (sum order); hit rows equal
 except rows holding a lag within 1e-5 of the threshold; attempt bytes,
 frame starts, first invalid and near-zero symbols, and walk outputs
-exactly equal (kernel and plain version add in the same order)."""
+exactly equal (kernel and plain version add in the same order).  The ASK
+kernels (sliding dot, fire rule, record chain, walk) equal their plain
+versions exactly: the sliding dot adds its taps in one order in both, the
+others only take maxima, compare and move integers."""
 
 import numpy as np
 import pytest
@@ -19,11 +22,13 @@ import torch
 
 from trackmaker_tpu_torch import PhyConfig, _build
 from trackmaker_tpu_torch.core.framing import Frame
+from trackmaker_tpu_torch.phy import ask, ask_spec
 from trackmaker_tpu_torch.phy import spec_decode as sd
 from trackmaker_tpu_torch.phy.decoder import decode_capture, decode_capture_fast
 from trackmaker_tpu_torch.phy.encoder import PhyEncoder
 from trackmaker_tpu_torch.phy.line_coding import preamble_waveform
 from trackmaker_tpu_torch.sync.correlate import preamble_energy
+from trackmaker_tpu_torch.sync.sliding_dot import sliding_dot_scaled, sliding_dot_scaled_plain
 from trackmaker_tpu_torch.sync.xcorr_hits import xcorr_hits, xcorr_hits_plain
 
 CFG = PhyConfig()
@@ -34,6 +39,9 @@ PRE4 = preamble_waveform(CFG4)
 SYNC4 = PRE4[30:]
 THR = CFG.correlation_threshold
 BIGI = 2**30
+ACFG = ask.AskConfig()
+ASK_KERNELS = (sliding_dot_scaled, ask_spec.dense_fire_candidates, ask.ask_chain,
+               ask_spec.ask_walk)
 
 
 @pytest.fixture
@@ -244,3 +252,119 @@ def test_decode_on_the_card_equals_the_cpu(cuda):
         else:
             assert torch.equal(g.cpu(), w), name
     assert res.count.tolist() == [12] * 4
+
+
+def _ask_tracks(b: int = 3, n_frames: int = 6) -> np.ndarray:
+    frames = ask.build_frames(b"the quick brown fox", ACFG, num_frames=n_frames)
+    waves = [ask.build_track(ACFG, frames, seed=7 + r) for r in range(b)]
+    caps = np.zeros((b, max(len(w) for w in waves)), np.float32)
+    for r, w in enumerate(waves):
+        caps[r, :len(w)] = w
+    return caps
+
+
+def _chain_rows(rng, n: int, win: int):
+    vals = np.full((n, win), -np.inf, np.float32)
+    mask = rng.random((n, win)) < 0.05
+    vals[mask] = rng.normal(1, 0.5, mask.sum()).astype(np.float32)
+    vals[3, 40] = vals[3, 60] = np.float32(2.5)            # a tie
+    vals[4] = -np.inf                                       # no update at all
+    vals[5, :] = np.float32(0.5)                            # one update, then ties only
+    base = rng.integers(0, 1 << 20, n).astype(np.int32)
+    return torch.from_numpy(vals), torch.from_numpy(base)
+
+
+def _walk_table(rng, b: int = 8, c1: int = 97) -> torch.Tensor:
+    fields = np.stack([rng.random((b, c1)) < 0.95, rng.random((b, c1)) < 0.95,
+                       rng.random((b, c1)) < 0.95, rng.integers(-5, 400_000, (b, c1)),
+                       rng.integers(-1, c1, (b, c1)), rng.random((b, c1)) < 0.03], axis=1)
+    return torch.from_numpy(fields.astype(np.int32))
+
+
+def test_cpu_tensors_run_the_plain_ask_kernels():
+    """On CPU tensors the ASK kernel wrappers return their plain versions'
+    results and count no launch."""
+    rng = np.random.default_rng(1)
+    before = [f.launches for f in ASK_KERNELS]
+    x = torch.from_numpy(rng.normal(0, 1, (2, 3000)).astype(np.float32))
+    pre = ask._chirp_np(ACFG)
+    assert torch.equal(sliding_dot_scaled(x, pre, 0.005), sliding_dot_scaled_plain(x, pre, 0.005))
+    upd = x > 0.5
+    assert torch.equal(ask_spec.dense_fire_candidates(ACFG, x, upd),
+                       ask_spec.dense_fire_candidates_plain(ACFG, x, upd))
+    vals, base = _chain_rows(rng, 8, 1024)
+    assert all(torch.equal(p, q) for p, q in zip(ask.ask_chain(vals, base, 200),
+                                                 ask.ask_chain_plain(vals, base, 200)))
+    table = _walk_table(rng)
+    assert all(torch.equal(p, q) for p, q in zip(ask_spec.ask_walk(table, 20),
+                                                 ask_spec.ask_walk_plain(table, 20)))
+    assert [f.launches for f in ASK_KERNELS] == before
+
+
+@pytest.mark.gpu
+def test_sliding_dot_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(0, 1, (3, 5001)).astype(np.float32)).to(cuda)
+    x[1, 2000:] = 0.0
+    for pattern, scale in ((ask._chirp_np(ACFG), 1 / 200), (ask._demod_dense_tables_np(ACFG)[0], 1.0),
+                           (np.ones(1, np.float32), 2.0),
+                           (rng.normal(0, 1, 512).astype(np.float32), 0.3)):
+        got = sliding_dot_scaled(x, pattern, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(got, sliding_dot_scaled_plain(x, pattern, scale)), len(pattern)
+
+
+@pytest.mark.gpu
+def test_ask_fire_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(3)
+    for t in (1, 202, 1024, 1025, 9000):
+        sync = torch.from_numpy(rng.normal(0, 1, (2, t)).astype(np.float32)).to(cuda)
+        upd = torch.from_numpy(rng.random((2, t)) < 0.3).to(cuda)
+        upd[1] = True
+        got = ask_spec.dense_fire_candidates(ACFG, sync, upd)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ask_spec.dense_fire_candidates_plain(ACFG, sync, upd)), t
+
+
+@pytest.mark.gpu
+def test_ask_chain_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(4)
+    for win in (1000, 1024, 4096):
+        vals, base = _chain_rows(rng, 70, win)
+        vals, base = vals.to(cuda), base.to(cuda)
+        fired, peak = ask.ask_chain(vals, base, 200)
+        torch.cuda.synchronize()
+        fired_p, peak_p = ask.ask_chain_plain(vals, base, 200)
+        assert torch.equal(fired, fired_p) and torch.equal(peak, peak_p), win
+        assert not fired[4] and int(peak[4]) == -BIGI
+        assert fired[5] and int(peak[5]) == int(base[5])    # the first of equal values holds
+
+
+@pytest.mark.gpu
+def test_ask_walk_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(5)
+    for mf in (1, 72, 128):
+        table = _walk_table(rng).to(cuda)
+        got = ask_spec.ask_walk(table, mf)
+        torch.cuda.synchronize()
+        for g, w in zip(got, ask_spec.ask_walk_plain(table, mf)):
+            assert torch.equal(g, w), mf
+
+
+@pytest.mark.gpu
+def test_ask_receiver_on_the_card_equals_the_cpu(cuda):
+    """The speculative ASK receiver launches each of its kernels and equals
+    its run on the CPU; a 2-candidate table sends every row through
+    demodulate_fast's exact scan on the card."""
+    x = torch.from_numpy(_ask_tracks())
+    before = [f.launches for f in ASK_KERNELS]
+    res, ok = ask_spec.demodulate_spec(ACFG, x.to(cuda), max_frames=8)
+    assert [f.launches - b for f, b in zip(ASK_KERNELS, before)] == [2, 1, 1, 1]
+    res_p, ok_p = ask_spec.demodulate_spec(ACFG, x, max_frames=8)
+    assert ok.cpu().tolist() == ok_p.tolist() == [True] * 3
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(res, res_p))
+    assert res.count.tolist() == [6] * 3
+    exact = ask.demodulate(ACFG, x[2].to(cuda), max_frames=8)
+    assert all(torch.equal(g[2], e) for g, e in zip(res, exact))
+    small, small_ok = ask_spec.demodulate_spec(ACFG, x.to(cuda), max_frames=8, n_cand=2)
+    assert not bool(small_ok.any())

@@ -1,7 +1,8 @@
 """Moving state between the JAX package and the port.
 
-The system has no weights: its state is the ``PhyConfig`` (the pattern
-tables follow from it).  These helpers take plain Python and numpy values,
+The system has no weights: its state is the ``PhyConfig`` of the line-coded
+PHY and the ``AskConfig`` of the ASK modem (the pattern tables follow from
+them).  These helpers take plain Python and numpy values,
 so neither side imports the other.
 """
 
@@ -13,17 +14,28 @@ from collections.abc import Mapping
 import numpy as np
 
 from trackmaker_tpu_torch.core.config import PhyConfig
+from trackmaker_tpu_torch.phy.ask import AskConfig
 from trackmaker_tpu_torch.phy.decoder import DecodedFrames
+
+
+def _config_from_fields(cls, fields: Mapping):
+    names = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(fields) - names
+    if unknown:
+        raise KeyError(f"{cls.__name__} has no fields {sorted(unknown)}")
+    return cls(**dict(fields))
 
 
 def phy_config_from_fields(fields: Mapping) -> PhyConfig:
     """The port's PhyConfig from ``dataclasses.asdict`` of the JAX one, or
     any mapping of the same fields; a field the port lacks raises."""
-    names = {f.name for f in dataclasses.fields(PhyConfig)}
-    unknown = set(fields) - names
-    if unknown:
-        raise KeyError(f"PhyConfig has no fields {sorted(unknown)}")
-    return PhyConfig(**dict(fields))
+    return _config_from_fields(PhyConfig, fields)
+
+
+def ask_config_from_fields(fields: Mapping) -> AskConfig:
+    """The port's AskConfig from ``dataclasses.asdict`` of the JAX one, or
+    any mapping of the same fields; a field the port lacks raises."""
+    return _config_from_fields(AskConfig, fields)
 
 
 def frames_to_numpy(frames: DecodedFrames) -> dict[str, np.ndarray]:

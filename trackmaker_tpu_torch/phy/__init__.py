@@ -1,1 +1,1 @@
-"""Line code, encoder, and the exact and speculative decoders."""
+"""Line code, encoder, the exact and speculative decoders, and the ASK modem."""
