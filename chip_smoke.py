@@ -18,29 +18,41 @@ Phases, each raising on failure (non-zero exit):
    ask_b16 shapes (16 captures x 338,752 samples, 97 candidate rows): the
    sliding dot at L=440 and L=30, the fire rule on the batch's sync, the
    record chain on the batch's chain rows and on random rows with ties,
-   the walk on the batch's successor table and on random tables;
-2. the three main paths, each with its kernels' launch counts set to 0
-   just before it and read just after: the flagship and fourb5b_b32
-   through ``decode_capture_fast`` (32 noisy captures of 64 frames of
-   128-byte payloads, 200-sample gaps, noise sigma 0.05), and ask_b16
-   through ``ask.demodulate_fast`` (16 tracks of 64 ASK frames of
-   b"the quick brown fox", ``build_track`` seeds 7-22, no noise).  Each has
-   a payload gate, every row ``ok``, agreement with the exact scan on two
-   rows, and each kernel of its path launched;
+   the walk on the batch's successor table and on random tables; then the
+   row stats at the equalized_b32 (L=96) and fourb5b_b32 (L=60) shapes and
+   the dense normalized correlation at L=440 (the ASK chirp, on the ask_b16
+   captures), each against its plain version and, at L <= 128, exactly
+   against the hit kernel's dense corr;
+2. the main paths, each with its kernels' launch counts set to 0 just
+   before it and read just after: the flagship and fourb5b_b32 through
+   ``decode_capture_fast`` (32 noisy captures of 64 frames of 128-byte
+   payloads, 200-sample gaps, noise sigma 0.05); equalized_b32, the
+   flagship's frames through the echo channel (taps 1 and 0.45 at delay 7,
+   noise sigma 0.02 from a seeded ``torch.Generator``), through
+   ``equalize_capture`` and then ``decode_capture_fast``; ask_b16 through
+   ``ask.demodulate_fast`` (16 tracks of 64 ASK frames of b"the quick
+   brown fox", ``build_track`` seeds 7-22, no noise); and ``auto_xcorr``
+   at L=440 once.  Each decode has a payload gate, every row ``ok``,
+   agreement with the exact scan on two rows, and each kernel of its path
+   launched (equalized_b32: each exactly once);
 3. the fallbacks: a Manchester capture that overflows the candidate table,
    a 4B5B capture with a zeroed level inside an attempted frame, and an
    ASK capture of 150 back-to-back chirps before three frames (more fire
    candidates than its table holds) go to the exact scan on the card, and
-   each merged batch equals the exact scan;
+   each merged batch equals the exact scan; a noise-only batch passes the
+   equalizer bit for bit;
 4. timings with CUDA events (median of 30 runs after warm-up) of each
-   kernel against its plain version (and the sliding dot against
-   ``conv1d``), of ``decode_capture_spec`` and ``demodulate_spec`` end to
-   end, and of the exact scan of one row (median of 5), each printed
-   beside the card's name and power limit.
+   kernel against its plain version (the sliding dot and the normalized
+   correlation also against ``conv1d``), of the equalizer's steps, of
+   ``decode_capture_spec``, ``equalize_capture`` (alone and before the
+   decode) and ``demodulate_spec`` end to end, and of the exact scan of one
+   row (median of 5), with peak device memory and, for the equalized
+   decode, the device's busy share (torch.profiler), each printed beside
+   the card's name and power limit.
 
 The line before the last is a JSON object with the kernels' measurements:
 ``launches`` counts each kernel's launches in the main-path runs of
-phase 2 (both line-coded paths for the shared correlation and walk),
+phase 2 (the three line-coded paths for the shared correlation and walk),
 ``ms`` and ``plain_ms`` time it at the shapes of its first path, and
 ``bound_ms`` is the least time the card could take for that work (bytes
 over 3.35 TB/s or operations over 67 TFLOP/s, whichever is larger).  The
@@ -68,6 +80,8 @@ MAX_FRAMES = N_FRAMES + 8
 N_CAND = 128
 LOCAL_ADDR = 2
 CORR_ATOL = 1e-5    # summation order differs between kernel and plain version
+EQ_TAPS = (1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.45)   # bench.py's equalized row
+EQ_NOISE = 0.02
 RUNS = 30
 ASK_BATCH = 16
 ASK_FRAMES = 64
@@ -76,7 +90,10 @@ ASK_MAX_FRAMES = ASK_FRAMES + 8
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 # the kernel each wrapper launches, where the two names differ
-KERNEL_NAMES = {"sliding_dot_scaled": "sliding_dot", "dense_fire_candidates": "ask_fire"}
+KERNEL_NAMES = {"sliding_dot_scaled": "sliding_dot", "dense_fire_candidates": "ask_fire",
+                "normalized_xcorr_dense": "normalized_xcorr"}
+# the source of each kernel, where it is not csrc/<name>.cu
+SOURCES = {"normalized_xcorr": "xcorr_norm", "xcorr_rowstats": "xcorr_norm"}
 
 
 def log(msg: str) -> None:
@@ -112,6 +129,25 @@ def time_ms(torch, fn, runs: int = RUNS) -> float:
     return statistics.median(times)
 
 
+def busy_share(torch, fn, calls: int = 5) -> float | None:
+    """The share of wall time the card spends in kernels and copies over
+    `calls` calls of `fn` (torch.profiler's device events), or None when the
+    profiler traced no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy_us / wall_us if busy_us > 0 else None
+
+
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     """(least ms, what sets it) for work moving `n_bytes` and doing `n_ops`."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -119,18 +155,38 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def bench_frames(rng):
+    """The bench's 64 frames of random 128-byte payloads."""
+    from trackmaker_tpu_torch.core.framing import Frame
+
+    return [Frame.new_data(i & 0xFF, 1, 2, rng.integers(0, 256, PAYLOAD, dtype=np.uint8).tobytes())
+            for i in range(N_FRAMES)]
+
+
 def captures(torch, cfg, seed: int, dev):
     """The bench's input for `cfg`: 64 frames and 32 noisy captures on `dev`."""
-    from trackmaker_tpu_torch.core.framing import Frame
     from trackmaker_tpu_torch.phy.encoder import PhyEncoder
 
     rng = np.random.default_rng(seed)
-    frames = [Frame.new_data(i & 0xFF, 1, 2,
-                             rng.integers(0, 256, PAYLOAD, dtype=np.uint8).tobytes())
-              for i in range(N_FRAMES)]
+    frames = bench_frames(rng)
     wave = PhyEncoder(cfg, device=dev).encode_frames(frames, gap_samples=GAP)
     noise = rng.normal(0, NOISE, (BATCH, wave.shape[0])).astype(np.float32)
     return frames, (wave[None] + torch.from_numpy(noise).to(dev)).contiguous()
+
+
+def eq_captures(torch, cfg, seed: int, dev):
+    """The equalized_b32 input (bench.py's equalized row), built on `dev`:
+    64 frames through the echo channel, 32 captures with noise from a
+    seeded generator."""
+    from trackmaker_tpu_torch.dsp import channel
+    from trackmaker_tpu_torch.phy.encoder import PhyEncoder
+
+    frames = bench_frames(np.random.default_rng(seed))
+    wave = PhyEncoder(cfg, device=dev).encode_frames(frames, gap_samples=GAP)
+    ech = channel.multipath(wave, EQ_TAPS)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    noise = torch.randn((BATCH, ech.shape[0]), generator=gen, device=dev) * EQ_NOISE
+    return frames, (ech[None] + noise).contiguous()
 
 
 def frame_list(res, row: int | None = None):
@@ -177,19 +233,23 @@ def check_xcorr(torch, xcorr_hits, xcorr_hits_plain, x, pre, thr, tag: str):
 
 
 def run_main_path(torch, decode_capture_fast, decode_capture, sd, cfg, x, frames,
-                  kernels, tag: str) -> dict[str, int]:
-    """One main-path run through decode_capture_fast, with its gates;
-    returns the launch count of each kernel in `kernels`."""
+                  kernels, tag: str, front=None) -> dict[str, int]:
+    """One main-path run through decode_capture_fast, behind the front-end
+    `front` (captures in, captures out) where given, with its gates; returns
+    the launch count of each kernel in `kernels`."""
     b = x.shape[0]
     for k in kernels:
         k.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    if front is not None:
+        x = front(x)
     res = decode_capture_fast(cfg, x, LOCAL_ADDR, max_frames=MAX_FRAMES)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
-    log(f"phase 2 ({tag}): decode_capture_fast took {wall * 1e3:.1f} ms (first call), "
+    what = "decode_capture_fast" if front is None else f"{front.__name__} + decode_capture_fast"
+    log(f"phase 2 ({tag}): {what} took {wall * 1e3:.1f} ms (first call), "
         f"kernel launches {launches}")
     for k_name, n in launches.items():
         require(n > 0, f"the {tag} main path never launched {k_name}")
@@ -397,6 +457,69 @@ def check_ask_fallback(torch, ask, ask_spec, cfg, dev) -> None:
         f"({merged.count.tolist()} frames)")
 
 
+def rows_of(torch, corr, n_rows: int):
+    """corr f32[B, N] padded with -3.4e38 to rows of 128 lags."""
+    return torch.nn.functional.pad(corr, (0, n_rows * 128 - corr.shape[1]),
+                                   value=-3.4e38).reshape(corr.shape[0], n_rows, 128)
+
+
+def check_rowstats(torch, xn, xcorr_hits, x, pre, tag: str) -> float:
+    """xcorr_rowstats against its plain version (row maxima within
+    CORR_ATOL, positions equal on rows whose two largest lags differ by
+    more) and, exactly, against the row reduction of xcorr_hits' dense corr;
+    returns the max |err| against the plain version."""
+    rowmax, rowpos = xn.xcorr_rowstats(x, pre)
+    torch.cuda.synchronize()
+    rowmax_p, rowpos_p = xn.xcorr_rowstats_plain(x, pre)
+    b, n_rows = rowmax.shape
+    require(rowmax_p.shape == (b, n_rows) and rowpos.shape == (b, n_rows),
+            f"xcorr_rowstats ({tag}) shapes {list(rowmax.shape)} / {list(rowmax_p.shape)}")
+    err = (rowmax - rowmax_p).abs().max().item()
+    require(err <= CORR_ATOL, f"xcorr_rowstats ({tag}) row maxima differ by {err}")
+    top2 = rows_of(torch, xn.normalized_xcorr_dense_plain(x, pre), n_rows).topk(2, -1).values
+    clear = top2[..., 0] - top2[..., 1] > CORR_ATOL
+    require(torch.equal(rowpos[clear], rowpos_p[clear]),
+            f"xcorr_rowstats ({tag}) positions differ on an unambiguous row")
+    dense, _ = xcorr_hits(x, pre, float("inf"), emit_corr=True)
+    mx, lane = rows_of(torch, dense, n_rows).max(-1)
+    pos = (torch.arange(n_rows, device=x.device) * 128 + lane).to(torch.int32)
+    require(torch.equal(rowmax, mx) and torch.equal(rowpos, pos),
+            f"xcorr_rowstats ({tag}) differs from the row reduction of xcorr_hits' corr")
+    log(f"phase 1: xcorr_rowstats == plain at L={len(pre)} on {b} x {x.shape[1]} (row max "
+        f"|err| {err:.3g}, positions equal on {int(clear.sum())} of {clear.numel()} unambiguous "
+        "rows) and == the row reduction of xcorr_hits' dense corr, bit for bit")
+    return err
+
+
+def check_dense(torch, xn, xcorr_hits, xa, chirp, xe, pre) -> float:
+    """normalized_xcorr_dense against its plain version at L=440 on the
+    ask_b16 captures and, exactly, against xcorr_hits' dense corr at L=96;
+    returns the max |err| against the plain version."""
+    got = xn.normalized_xcorr_dense(xa, chirp)
+    torch.cuda.synchronize()
+    want = xn.normalized_xcorr_dense_plain(xa, chirp)
+    require(got.shape == want.shape, f"normalized_xcorr shape {list(got.shape)}")
+    err = (got - want).abs().max().item()
+    require(err <= CORR_ATOL, f"normalized_xcorr at L={len(chirp)} differs by {err}")
+    corr, _ = xcorr_hits(xe, pre, float("inf"), emit_corr=True)
+    require(torch.equal(xn.normalized_xcorr_dense(xe, pre), corr),
+            f"normalized_xcorr at L={len(pre)} differs from xcorr_hits' dense corr")
+    log(f"phase 1: normalized_xcorr == plain at L={len(chirp)} on {xa.shape[0]} x {xa.shape[1]} "
+        f"(max |err| {err:.3g}, peak corr {got.max().item():.4f}) and == xcorr_hits' dense corr "
+        f"at L={len(pre)} on {xe.shape[0]} x {xe.shape[1]}, bit for bit")
+    return err
+
+
+def check_equalizer_noise(torch, equalizer, cfg, dev, seed: int) -> None:
+    """A noise-only batch passes the equalizer bit for bit, untrained."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    noise = torch.randn((4, 40_000), generator=gen, device=dev) * 0.1
+    out, info = equalizer.equalize_capture(cfg, noise)
+    require(not bool(info["applied"].any()), "the equalizer trained on noise")
+    require(torch.equal(out, noise), "a noise-only capture came back changed")
+    log("phase 3 (equalizer): a noise-only batch of 4 passes unchanged (quality "
+        f"{info['quality'].max().item():.3f} < 0.5, output bit-identical)")
+
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -412,13 +535,16 @@ def main() -> None:
     except ImportError as exc:
         raise SystemExit(f"chip_smoke.py must run from a checkout of the repository: {exc}")
     from trackmaker_tpu_torch.core.framing import Frame
+    from trackmaker_tpu_torch.dsp import equalizer
     from trackmaker_tpu_torch.phy import ask, ask_spec
     from trackmaker_tpu_torch.phy import spec_decode as sd
     from trackmaker_tpu_torch.phy.decoder import (
         decode_capture, decode_capture_fast, decode_captures)
     from trackmaker_tpu_torch.phy.encoder import PhyEncoder
     from trackmaker_tpu_torch.phy.line_coding import preamble_waveform
+    from trackmaker_tpu_torch.sync import auto_xcorr
     from trackmaker_tpu_torch.sync import sliding_dot as sdot
+    from trackmaker_tpu_torch.sync import xcorr_norm as xn
     from trackmaker_tpu_torch.sync.correlate import preamble_energy
     from trackmaker_tpu_torch.sync.xcorr_hits import xcorr_hits, xcorr_hits_plain
 
@@ -438,13 +564,14 @@ def main() -> None:
     cfg4 = PhyConfig(line_coding="4b5b")
     frames, x = captures(torch, cfg, args.seed, dev)
     frames4, x4 = captures(torch, cfg4, args.seed + 1, dev)
+    frames_e, xe = eq_captures(torch, cfg, args.seed + 2, dev)
     b, t = x.shape
     t4 = x4.shape[1]
     acfg = ask.AskConfig()
     frames_a, xa = ask_captures(torch, ask, acfg, dev)
     log(f"flagship input: {b} x {t} samples; fourb5b_b32 input: {b} x {t4} samples; "
-        f"{N_FRAMES} frames per capture; ask_b16 input: {xa.shape[0]} x {xa.shape[1]} samples, "
-        f"{ASK_FRAMES} frames per capture")
+        f"equalized_b32 input: {b} x {xe.shape[1]} samples; {N_FRAMES} frames per capture; "
+        f"ask_b16 input: {xa.shape[0]} x {xa.shape[1]} samples, {ASK_FRAMES} frames per capture")
     pre, pre4 = preamble_waveform(cfg), preamble_waveform(cfg4)
     sync = pre[cfg.preamble_len - cfg.sync_len:]
     sync4 = pre4[cfg4.preamble_len - cfg4.sync_len:]
@@ -519,14 +646,50 @@ def main() -> None:
         "(random ones with caps 1..256, the flagship's and fourb5b_b32's)")
     ask_errs, ask_in = check_ask_kernels(torch, ask, ask_spec, sdot, acfg, xa, rng)
     errs.update(ask_errs)
+    errs["xcorr_rowstats"] = max(check_rowstats(torch, xn, xcorr_hits, xe, pre, "equalized_b32"),
+                                 check_rowstats(torch, xn, xcorr_hits, x4, pre4, "fourb5b_b32"))
+    chirp = ask._chirp_np(acfg)        # dsp/osc.py's chirp
+    errs["normalized_xcorr"] = check_dense(torch, xn, xcorr_hits, xa, chirp, xe, pre)
 
     # --- phase 2: the main paths -----------------------------------------------
     launches = run_main_path(torch, decode_capture_fast, decode_capture, sd, cfg, x, frames,
                              (xcorr_hits, sd.attempt_manchester, sd.spec_walk), "flagship")
     launches4 = run_main_path(torch, decode_capture_fast, decode_capture, sd, cfg4, x4,
                               frames4, (xcorr_hits, sd.attempt_4b5b, sd.spec_walk), "fourb5b_b32")
-    for k_name, n in launches4.items():
-        launches[k_name] = launches.get(k_name, 0) + n
+    eq_info = {}
+
+    def equalize_capture(xx):
+        out, info = equalizer.equalize_capture(cfg, xx)
+        eq_info.update(info)
+        return out
+
+    eq_kernels = (xn.xcorr_rowstats, xcorr_hits, sd.attempt_manchester, sd.spec_walk)
+    launches_e = run_main_path(torch, decode_capture_fast, decode_capture, sd, cfg, xe, frames_e,
+                               eq_kernels, "equalized_b32", front=equalize_capture)
+    require(launches_e == dict.fromkeys(launches_e, 1),
+            f"equalized_b32 launches {launches_e}, expected one of each kernel")
+    require(bool(eq_info["applied"].all()), "an equalized_b32 row was not equalized")
+    stock_e = decode_capture_fast(cfg, xe, LOCAL_ADDR, max_frames=MAX_FRAMES).count
+    log(f"phase 2 (equalized_b32): every row applied (lam {eq_info['lam'].min().item():.3g}.."
+        f"{eq_info['lam'].max().item():.3g}, quality {eq_info['quality'].min().item():.4f}.."
+        f"{eq_info['quality'].max().item():.4f}); the stock decode of the same captures finds "
+        f"{int(stock_e.min())}..{int(stock_e.max())} of {N_FRAMES} frames per row")
+    for launch_counts in (launches4, launches_e):
+        for k_name, n in launch_counts.items():
+            launches[k_name] = launches.get(k_name, 0) + n
+    xn.normalized_xcorr_dense.launches = 0
+    torch.cuda.synchronize()
+    corr_a = auto_xcorr(xa, chirp)
+    torch.cuda.synchronize()
+    launches["normalized_xcorr"] = xn.normalized_xcorr_dense.launches
+    require(launches["normalized_xcorr"] == 1,
+            f"auto_xcorr at L={len(chirp)} launched normalized_xcorr "
+            f"{launches['normalized_xcorr']} times")
+    require(corr_a.shape == (xa.shape[0], xa.shape[1] - len(chirp) + 1)
+            and bool(torch.isfinite(corr_a).all()), "auto_xcorr at L=440 gave a bad result")
+    log(f"phase 2 (auto_xcorr): L={len(chirp)} on {xa.shape[0]} x {xa.shape[1]} launched "
+        f"normalized_xcorr once; peak corr per track {corr_a.amax(-1).min().item():.4f}.."
+        f"{corr_a.amax(-1).max().item():.4f}")
     ask_kernels = (sdot.sliding_dot_scaled, ask_spec.dense_fire_candidates, ask.ask_chain,
                    ask_spec.ask_walk)
     launches.update(run_ask_main_path(torch, ask, ask_spec, acfg, xa, frames_a, ask_kernels))
@@ -551,6 +714,7 @@ def main() -> None:
                    torch.stack([zeroed, tail4]), [2, 3], "4b5b",
                    "a zeroed level inside an attempted frame")
     check_ask_fallback(torch, ask, ask_spec, acfg, dev)
+    check_equalizer_noise(torch, equalizer, cfg, dev, args.seed + 23)
 
     # --- phase 4: timings ------------------------------------------------------
     ms = {
@@ -588,6 +752,11 @@ def main() -> None:
     for k_name, (kernel, plain, args) in ask_calls.items():
         ms[k_name] = time_ms(torch, lambda: kernel(*args))
         plain_ms[k_name] = time_ms(torch, lambda: plain(*args))
+    ms["xcorr_rowstats"] = time_ms(torch, lambda: xn.xcorr_rowstats(xe, pre))
+    plain_ms["xcorr_rowstats"] = time_ms(torch, lambda: xn.xcorr_rowstats_plain(xe, pre))
+    ms["normalized_xcorr"] = time_ms(torch, lambda: xn.normalized_xcorr_dense(xa, chirp))
+    plain_ms["normalized_xcorr"] = time_ms(torch, lambda: xn.normalized_xcorr_dense_plain(
+        xa, chirp))
     sd30_ms = time_ms(torch, lambda: sdot.sliding_dot_scaled(demod_in, k30, 1.0))
     sd30_plain_ms = time_ms(torch, lambda: sdot.sliding_dot_scaled_plain(demod_in, k30, 1.0))
     # the library yardstick of the sliding dot: one cuDNN convolution (TF32
@@ -601,12 +770,25 @@ def main() -> None:
     conv_err = (conv_dot(xa, 440) - sdot.sliding_dot_scaled(xa, ask_in["pre"], sync_scale)
                 ).abs().max().item()
     library_ms = {"sliding_dot": time_ms(torch, lambda: conv_dot(xa, 440))}
+    # the normalized correlation's nearest PyTorch calls: the dot and the
+    # window energy, each one valid-mode cuDNN convolution (TF32 off)
+    chirp_w = torch.from_numpy(chirp).to(dev).view(1, 1, -1)
+    ones_w = torch.ones_like(chirp_w)
+
+    def conv_dot_energy():
+        xx = xa[:, None]
+        return (torch.nn.functional.conv1d(xx, chirp_w),
+                torch.nn.functional.conv1d(xx * xx, ones_w))
+
+    library_ms["normalized_xcorr"] = time_ms(torch, conv_dot_energy)
     conv30_ms = time_ms(torch, lambda: conv_dot(demod_in, 30))
 
     # least times, from the shapes and this run's candidates
     live = int(n_valid.clamp(max=N_CAND).sum())
     live4 = int(n_valid4.clamp(max=N_CAND).sum())
     n_lags = t - len(pre) + 1
+    n_lags_e = xe.shape[1] - len(pre) + 1
+    n_lags_a = xa.shape[1] - len(chirp) + 1
     small_in = 3 * b * 4 + b * N_CAND * 4            # cand, n_valid, vlen
     chain_cols = chain_columns(torch, ask_in["vals"], ask_in["base"], acfg.peak_guard)
     bounds = {
@@ -639,6 +821,14 @@ def main() -> None:
         # ops per slot
         "ask_walk": bound(ask_in["fields"].numel() * 4 + xa.shape[0] * (ASK_MAX_FRAMES * 5 + 1),
                           xa.shape[0] * ASK_MAX_FRAMES * 12),
+        # each lag: len(pre) multiply-adds for the dot and for the energy;
+        # a max and a position per 128 lags out
+        "xcorr_rowstats": bound(xe.numel() * 4 + b * -(-n_lags_e // 128) * 8,
+                                b * n_lags_e * 4 * len(pre)),
+        # each lag: 440 multiply-adds for the dot and for the energy; the
+        # captures in, the dense correlation out
+        "normalized_xcorr": bound(xa.numel() * 4 + xa.shape[0] * n_lags_a * 4,
+                                  xa.shape[0] * n_lags_a * 4 * len(chirp)),
     }
     sd30_bound = bound(2 * demod_in.numel() * 4, demod_in.numel() * (2 * 30 + 1))
     for k_name in ms:
@@ -646,6 +836,8 @@ def main() -> None:
             f"bound {bounds[k_name][0]:.4f} ms ({bounds[k_name][1]}) [{card}]")
     log(f"phase 4: xcorr_hits at the fourb5b_b32 shape (L=60): kernel {xcorr4_ms:.4f} ms "
         f"[{card}]")
+    log(f"phase 4: normalized_xcorr at L=440 vs conv1d dot + conv1d energy: "
+        f"{library_ms['normalized_xcorr']:.4f} ms [{card}]")
     log(f"phase 4: sliding_dot at L=440 vs conv1d: {library_ms['sliding_dot']:.4f} ms "
         f"(max |conv1d - kernel| {conv_err:.3g}); at L=30 ({demod_in.shape[0]} x "
         f"{demod_in.shape[1]}): kernel {sd30_ms:.4f} ms, plain {sd30_plain_ms:.4f} ms, conv1d "
@@ -702,6 +894,41 @@ def main() -> None:
     scan = time_ms(torch, lambda: ask.demodulate(acfg, xa[0], max_frames=ASK_MAX_FRAMES), runs=5)
     log(f"phase 4: exact scan ask_b16, one row of {ASK_FRAMES} frames: {scan:.4f} ms [{card}]")
 
+    _, info_e = equalizer.equalize_capture(cfg, xe)
+    anchors_e = info_e["anchor"][:, None].expand(-1, 4).contiguous()   # the fit's shape
+    g_t = equalizer._mmse_taps(info_e["h"], info_e["lam"])
+    eq_steps = {
+        "auto_xcorr_row_stats": lambda: xn.xcorr_rowstats(xe, pre),
+        "estimate_channel (4 anchors)": lambda: equalizer.estimate_channel(cfg, xe, anchors_e),
+        "_mmse_taps": lambda: equalizer._mmse_taps(info_e["h"], info_e["lam"]),
+        "_apply_fir": lambda: equalizer._apply_fir(xe, g_t),
+    }
+    for step, fn in eq_steps.items():
+        log(f"phase 4: equalized_b32 step {step}: {time_ms(torch, fn):.4f} ms [{card}]")
+    eq_ms = time_ms(torch, lambda: equalizer.equalize_capture(cfg, xe))
+    rt = xe.numel() / cfg.sample_rate / (eq_ms / 1e3)
+    log(f"phase 4: equalize_capture equalized_b32 {b} x {xe.shape[1]}: {eq_ms:.4f} ms, "
+        f"{rt:.1f}x real time [{card}]")
+
+    def eq_decode():
+        return sd.decode_capture_spec(cfg, equalizer.equalize_capture(cfg, xe)[0], LOCAL_ADDR,
+                                      max_frames=MAX_FRAMES)
+
+    e2e = time_ms(torch, eq_decode)
+    rt = xe.numel() / cfg.sample_rate / (e2e / 1e3)
+    log(f"phase 4: equalize_capture + decode_capture_spec equalized_b32 {b} x {xe.shape[1]}: "
+        f"{e2e:.4f} ms, {rt:.1f}x real time [{card}]")
+    for what, fn in (("equalize_capture", lambda: equalizer.equalize_capture(cfg, xe)),
+                     ("equalize_capture + decode_capture_spec", eq_decode)):
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        share = busy_share(torch, fn)
+        busy = "not measured (no device events traced)" if share is None else f"{share:.3f}"
+        log(f"phase 4: {what} equalized_b32 peak device memory {peak:.1f} MiB, device busy "
+            f"share over 5 calls (torch.profiler) {busy} [{card}]")
+
     replaces = {
         "xcorr_hits": "trackmaker_tpu/sync/pallas_xcorr.py:148",
         "attempt_manchester": "trackmaker_tpu/phy/pallas_decode.py:207",
@@ -711,15 +938,18 @@ def main() -> None:
         "ask_fire": "trackmaker_tpu/phy/ask_spec.py:64",
         "ask_chain": "trackmaker_tpu/phy/ask_spec.py:221",
         "ask_walk": "trackmaker_tpu/phy/ask_spec.py:455",
+        "xcorr_rowstats": "trackmaker_tpu/sync/pallas_xcorr.py:640",
+        "normalized_xcorr": "trackmaker_tpu/sync/pallas_xcorr.py:93",
     }
     print(json.dumps({"kernels": [
         {"name": k_name, "route": "cuda",
-         "source": f"trackmaker_tpu_torch/csrc/{k_name}.cu",
+         "source": f"trackmaker_tpu_torch/csrc/{SOURCES.get(k_name, k_name)}.cu",
          "replaces": replaces[k_name], "launches": launches[k_name],
          "max_abs_err": errs[k_name], "ms": ms[k_name], "plain_ms": plain_ms[k_name],
          "bound_ms": bounds[k_name][0], "bound_by": bounds[k_name][1],
-         # only the sliding dot has one PyTorch call computing the same
-         # function (conv1d); none computes any of the others
+         # the sliding dot has one PyTorch call computing the same function
+         # (conv1d), the normalized correlation two (conv1d for the dot and
+         # for the energy); none computes any of the others
          "library_ms": library_ms.get(k_name)}
         for k_name in ms]}))
     print(json.dumps({"ok": True, "device": {

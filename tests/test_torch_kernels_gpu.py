@@ -11,7 +11,13 @@ version and launches nothing.
 Tolerances: correlations within atol 1e-5 (sum order); hit rows equal
 except rows holding a lag within 1e-5 of the threshold; attempt bytes,
 frame starts, first invalid and near-zero symbols, and walk outputs
-exactly equal (kernel and plain version add in the same order).  The ASK
+exactly equal (kernel and plain version add in the same order).  The
+normalized correlation at any length and its row stats: corr and row maxima
+within atol 1e-5 of the plain versions (sum order), positions equal on rows
+whose two largest lags differ by more; at L <= 128 exactly the correlation
+kernel's dense corr and its reduction by row (the same sums in the same
+order).  The equalized decode on the card: the equalized captures within
+1e-4 of the CPU's, the decoded frames equal.  The ASK
 kernels (sliding dot, fire rule, record chain, walk) equal their plain
 versions exactly: the sliding dot adds its taps in one order in both, the
 others only take maxima, compare and move integers."""
@@ -22,6 +28,8 @@ import torch
 
 from trackmaker_tpu_torch import PhyConfig, _build
 from trackmaker_tpu_torch.core.framing import Frame
+from trackmaker_tpu_torch.dsp import channel, equalizer
+from trackmaker_tpu_torch.dsp.osc import chirp_np
 from trackmaker_tpu_torch.phy import ask, ask_spec
 from trackmaker_tpu_torch.phy import spec_decode as sd
 from trackmaker_tpu_torch.phy.decoder import decode_capture, decode_capture_fast
@@ -30,6 +38,12 @@ from trackmaker_tpu_torch.phy.line_coding import preamble_waveform
 from trackmaker_tpu_torch.sync.correlate import preamble_energy
 from trackmaker_tpu_torch.sync.sliding_dot import sliding_dot_scaled, sliding_dot_scaled_plain
 from trackmaker_tpu_torch.sync.xcorr_hits import xcorr_hits, xcorr_hits_plain
+from trackmaker_tpu_torch.sync.xcorr_norm import (
+    normalized_xcorr_dense,
+    normalized_xcorr_dense_plain,
+    xcorr_rowstats,
+    xcorr_rowstats_plain,
+)
 
 CFG = PhyConfig()
 PRE = preamble_waveform(CFG)
@@ -368,3 +382,97 @@ def test_ask_receiver_on_the_card_equals_the_cpu(cuda):
     assert all(torch.equal(g[2], e) for g, e in zip(res, exact))
     small, small_ok = ask_spec.demodulate_spec(ACFG, x.to(cuda), max_frames=8, n_cand=2)
     assert not bool(small_ok.any())
+
+
+def _rows_of(corr: torch.Tensor, n_rows: int) -> torch.Tensor:
+    return torch.nn.functional.pad(corr, (0, n_rows * 128 - corr.shape[1]),
+                                   value=-3.4e38).reshape(corr.shape[0], n_rows, 128)
+
+
+def test_cpu_tensors_run_the_plain_normalized_correlation():
+    """On CPU tensors both entry points of the normalized-correlation kernel
+    return their plain versions' results and count no launch."""
+    x = torch.from_numpy(_captures(b=2, n_frames=3))
+    before = (normalized_xcorr_dense.launches, xcorr_rowstats.launches)
+    chirp = chirp_np(440)
+    assert torch.equal(normalized_xcorr_dense(x, chirp), normalized_xcorr_dense_plain(x, chirp))
+    got, want = xcorr_rowstats(x, PRE), xcorr_rowstats_plain(x, PRE)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (normalized_xcorr_dense.launches, xcorr_rowstats.launches) == before
+
+
+@pytest.mark.gpu
+def test_normalized_xcorr_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(_captures()).to(cuda)
+    x[1, -3000:] = 0.0
+    for pattern in (chirp_np(440), rng.normal(0, 1, 129).astype(np.float32),
+                    rng.normal(0, 1, 1024).astype(np.float32), np.ones(1, np.float32), PRE4):
+        before = normalized_xcorr_dense.launches
+        got = normalized_xcorr_dense(x, pattern)
+        torch.cuda.synchronize()
+        assert normalized_xcorr_dense.launches == before + 1
+        want = normalized_xcorr_dense_plain(x, pattern)
+        assert got.shape == want.shape
+        assert (got - want).abs().max().item() <= 1e-5, len(pattern)
+    for pattern in (PRE, PRE4):       # at L <= 128 the hit kernel's corr, bit for bit
+        corr, _ = xcorr_hits(x, pattern, THR, emit_corr=True)
+        assert torch.equal(normalized_xcorr_dense(x, pattern), corr)
+
+
+@pytest.mark.gpu
+def test_rowstats_kernel_matches_plain_and_the_hit_kernel(cuda):
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(_captures()).to(cuda)
+    x[1, -3000:] = 0.0
+    for pattern in (PRE, PRE4, chirp_np(440)):
+        rowmax, rowpos = xcorr_rowstats(x, pattern)
+        torch.cuda.synchronize()
+        rowmax_p, rowpos_p = xcorr_rowstats_plain(x, pattern)
+        assert rowmax.shape == rowmax_p.shape and rowpos.dtype == torch.int32
+        assert (rowmax - rowmax_p).abs().max().item() <= 1e-5
+        top2 = _rows_of(normalized_xcorr_dense_plain(x, pattern), rowmax.shape[1]).topk(2, -1)
+        clear = top2.values[..., 0] - top2.values[..., 1] > 1e-5
+        assert torch.equal(rowpos[clear], rowpos_p[clear]) and bool(clear.any())
+        if len(pattern) <= 128:       # exactly the hit kernel's corr reduced by row
+            corr, _ = xcorr_hits(x, pattern, THR, emit_corr=True)
+            mx, lane = _rows_of(corr, rowmax.shape[1]).max(-1)
+            base = torch.arange(rowmax.shape[1], device=cuda) * 128
+            assert torch.equal(rowmax, mx) and torch.equal(rowpos, (base + lane).int())
+    # exact ties take the first lag; a capture shorter than one row
+    t = np.zeros((2, 1024), np.float32)
+    t[0, 100:108] = t[0, 110:118] = 1.0
+    t[1, 607:615] = t[1, 600:608] = 1.0
+    rowmax, rowpos = xcorr_rowstats(torch.from_numpy(t).to(cuda), np.ones(8, np.float32))
+    assert rowpos[0, 0] == 100 and rowpos[1, 4] == 600
+    short = torch.from_numpy(rng.normal(0, 1, (3, 150)).astype(np.float32)).to(cuda)
+    got = xcorr_rowstats(short, PRE4)
+    want = xcorr_rowstats_plain(short, PRE4)
+    assert got[0].shape == (3, 1) and (got[0] - want[0]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.gpu
+def test_equalized_decode_on_the_card_equals_the_cpu(cuda):
+    """Echoed captures (taps 1 and 0.45 at delay 7) equalized and decoded on
+    the card: one launch of each kernel on the path, the equalizer's
+    decisions and the frames equal to the CPU's."""
+    x = torch.from_numpy(_captures(b=3, n_frames=6))
+    x = channel.multipath(x, (1.0, 0, 0, 0, 0, 0, 0, 0.45))
+    kernels = (xcorr_rowstats, xcorr_hits, sd.attempt_manchester, sd.spec_walk)
+    before = [f.launches for f in kernels]
+    eq, info = equalizer.equalize_capture(CFG, x.to(cuda))
+    res, ok = sd.decode_capture_spec(CFG, eq, 2, max_frames=10)
+    assert [f.launches - b for f, b in zip(kernels, before)] == [1, 1, 1, 1]
+    eq_p, info_p = equalizer.equalize_capture(CFG, x)
+    assert torch.equal(info["anchor"].cpu(), info_p["anchor"])
+    assert bool(info["applied"].all()) and bool(info_p["applied"].all())
+    assert (eq.cpu() - eq_p).abs().max().item() <= 1e-4 * x.abs().max().item()
+    res_p, ok_p = sd.decode_capture_spec(CFG, eq_p, 2, max_frames=10)
+    assert bool(ok.all()) and bool(ok_p.all())
+    for name, g, w in zip(res._fields, res, res_p):
+        if name != "corr":
+            assert torch.equal(g.cpu(), w), name
+    assert res.count.tolist() == [6] * 3
+    numpy_in = equalizer.decode_capture_eq(CFG, x.numpy(), 2, max_frames=10)
+    assert numpy_in.valid.device.type == "cuda"
+    assert numpy_in.count.tolist() == [6] * 3

@@ -2,15 +2,17 @@
 
 It mirrors the JAX package's layout, so each module's counterpart sits at
 the same path under ``trackmaker_tpu/``.  The batch decode of the
-Manchester and 4B5B line codes and the ASK/chirp modem's receiver run on
-an NVIDIA Hopper card through eight hand-written CUDA kernels (``csrc/``),
-built with ``nvcc`` at first use; on CPU tensors every kernel wrapper runs
-its plain PyTorch version.  Importing the package touches no device and
+Manchester and 4B5B line codes, the MMSE equalizer in front of it and the
+ASK/chirp modem's receiver run on an NVIDIA Hopper card through nine
+hand-written CUDA kernel sources (``csrc/``), built with ``nvcc`` at first
+use; on CPU tensors every kernel wrapper runs its plain PyTorch version.  Importing the package touches no device and
 builds nothing.
 
     trackmaker_tpu_torch.core   PhyConfig, bit ops, CRC8, frame codec, block index
-    trackmaker_tpu_torch.dsp    carrier and chirp synthesis, EMA power
-    trackmaker_tpu_torch.sync   correlation sync, the correlation and sliding-dot kernels
+    trackmaker_tpu_torch.dsp    carrier and chirp synthesis, EMA power, the echo
+                                channel, the preamble-trained MMSE equalizer
+    trackmaker_tpu_torch.sync   correlation sync, the correlation, normalized-
+                                correlation, row-stats and sliding-dot kernels
     trackmaker_tpu_torch.phy    line code, encoder, exact and speculative decode;
                                 the ASK modem and its speculative receiver
 """

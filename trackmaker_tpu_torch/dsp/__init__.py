@@ -1,1 +1,3 @@
-"""Oscillators and filters of the ASK modem."""
+"""Oscillators, filters, the echo channel and the MMSE equalizer."""
+
+from trackmaker_tpu_torch.dsp import channel, equalizer, filters, osc  # noqa: F401

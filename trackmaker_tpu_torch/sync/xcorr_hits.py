@@ -27,6 +27,7 @@ import torch
 
 from trackmaker_tpu_torch import _build
 from trackmaker_tpu_torch.sync import correlate
+from trackmaker_tpu_torch.sync.xcorr_norm import normalized_xcorr_dense_plain
 
 BIGI = 2**30
 ROW_LAGS = 128
@@ -53,11 +54,7 @@ def xcorr_hits_plain(x: torch.Tensor, pattern: np.ndarray, threshold: float,
     n_lags = t - l + 1
     n_rows = -(-t // ROW_LAGS)
     dev = x.device
-    inv_pe = 1.0 / correlate.preamble_energy(pattern)
-    dot = correlate.sliding_dot(x, torch.from_numpy(pattern).to(dev))
-    energy = correlate.sliding_energy(x, l)
-    denom = (1.0 / torch.sqrt(energy.clamp(min=1e-30))) * inv_pe
-    corr = torch.where(energy < correlate.EPS, 0.0, dot * denom)
+    corr = normalized_xcorr_dense_plain(x, pattern)
 
     grid = torch.nn.functional.pad(
         corr, (0, n_rows * ROW_LAGS - n_lags), value=-math.inf
