@@ -22,11 +22,22 @@ Phases, each raising on failure (non-zero exit):
    row stats at the equalized_b32 (L=96) and fourb5b_b32 (L=60) shapes and
    the dense normalized correlation at L=440 (the ASK chirp, on the ask_b16
    captures), each against its plain version and, at L <= 128, exactly
-   against the hit kernel's dense corr;
+   against the hit kernel's dense corr; then, at the flagship and
+   fourb5b_b32 shapes, the hit kernel's refine entry (the sync-refine fold)
+   against its plain version, its columns 0..8 against the hit kernel's
+   rows bit for bit and its frame starts against the legacy attempt
+   kernels', and the attempt kernels' fold forms against their plain
+   versions and, given the legacy frame starts, against the legacy
+   kernels; the hit kernel's batch-folded entry against the hit kernel's
+   rows at the flagship shape;
 2. the main paths, each with its kernels' launch counts set to 0 just
    before it and read just after: the flagship and fourb5b_b32 through
    ``decode_capture_fast`` (32 noisy captures of 64 frames of 128-byte
-   payloads, 200-sample gaps, noise sigma 0.05); equalized_b32, the
+   payloads, 200-sample gaps, noise sigma 0.05), then the same captures
+   with the sync-refine fold on (manchester_b32_fold, fourb5b_b32_fold:
+   one launch each of the refine entry, the fold attempt and the walk, none
+   of the hit kernel, and every result equal to the legacy decode's);
+   equalized_b32, the
    flagship's frames through the echo channel (taps 1 and 0.45 at delay 7,
    noise sigma 0.02 from a seeded ``torch.Generator``), through
    ``equalize_capture`` and then ``decode_capture_fast``; ask_b16 through
@@ -44,15 +55,17 @@ Phases, each raising on failure (non-zero exit):
 4. timings with CUDA events (median of 30 runs after warm-up) of each
    kernel against its plain version (the sliding dot and the normalized
    correlation also against ``conv1d``), of the equalizer's steps, of
-   ``decode_capture_spec``, ``equalize_capture`` (alone and before the
-   decode) and ``demodulate_spec`` end to end, and of the exact scan of one
+   ``decode_capture_spec`` (legacy and fold, in turns), ``equalize_capture``
+   (alone and before the decode) and ``demodulate_spec`` end to end, and of
+   the exact scan of one
    row (median of 5), with peak device memory and, for the equalized
    decode, the device's busy share (torch.profiler), each printed beside
    the card's name and power limit.
 
 The line before the last is a JSON object with the kernels' measurements:
 ``launches`` counts each kernel's launches in the main-path runs of
-phase 2 (the three line-coded paths for the shared correlation and walk),
+phase 2 (the line-coded paths for the shared correlation and walk; the
+batch-folded hit rows are on no path and count 0),
 ``ms`` and ``plain_ms`` time it at the shapes of its first path, and
 ``bound_ms`` is the least time the card could take for that work (bytes
 over 3.35 TB/s or operations over 67 TFLOP/s, whichever is larger).  The
@@ -62,6 +75,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
 import statistics
@@ -80,6 +94,7 @@ MAX_FRAMES = N_FRAMES + 8
 N_CAND = 128
 LOCAL_ADDR = 2
 CORR_ATOL = 1e-5    # summation order differs between kernel and plain version
+EDGE_THR = 0.5      # the refine-edge batch's threshold: hits off each preamble's lag
 EQ_TAPS = (1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.45)   # bench.py's equalized row
 EQ_NOISE = 0.02
 RUNS = 30
@@ -93,7 +108,9 @@ F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 KERNEL_NAMES = {"sliding_dot_scaled": "sliding_dot", "dense_fire_candidates": "ask_fire",
                 "normalized_xcorr_dense": "normalized_xcorr"}
 # the source of each kernel, where it is not csrc/<name>.cu
-SOURCES = {"normalized_xcorr": "xcorr_norm", "xcorr_rowstats": "xcorr_norm"}
+SOURCES = {"normalized_xcorr": "xcorr_norm", "xcorr_rowstats": "xcorr_norm",
+           "xcorr_hits_refine": "xcorr_hits", "xcorr_hits_batched": "xcorr_hits",
+           "attempt_manchester_fold": "attempt_manchester", "attempt_4b5b_fold": "attempt_4b5b"}
 
 
 def log(msg: str) -> None:
@@ -204,8 +221,33 @@ def frame_list(res, row: int | None = None):
     return out
 
 
+def compare_rows(torch, rows_k, rows_p, corr_p, thr, what: str) -> tuple[float, int, int]:
+    """Hit rows of a kernel against its plain version's: a lag within
+    CORR_ATOL of the threshold may fall on either side of it, and every
+    other lag must give the same hits, counts and refine deltas, with the
+    corr at each hit within CORR_ATOL.  Returns (hit corr max |err|, lags
+    near the threshold, rows differing there)."""
+    b, n_rows, _ = rows_k.shape
+    near = (corr_p - thr).abs() < CORR_ATOL
+    near_rows = torch.nn.functional.pad(near, (0, n_rows * 128 - near.shape[1]))
+    near_rows = near_rows.reshape(b, n_rows, 128).any(-1)
+    same = (rows_k[..., :5] == rows_p[..., :5]).all(-1) & (rows_k[..., 9:] == rows_p[..., 9:]).all(-1)
+    require(bool((same | near_rows).all()), f"{what} hit rows differ away from the threshold")
+    hit_vals = rows_k[..., 5:9].contiguous().view(torch.float32)
+    hit_vals_p = rows_p[..., 5:9].contiguous().view(torch.float32)
+    val_err = (hit_vals - hit_vals_p)[same].abs().max().item()
+    require(val_err <= CORR_ATOL, f"{what} hit corr differs by {val_err}")
+    return val_err, int(near.sum()), int((~same).sum())
+
+
+def refine_kw(cfg) -> dict:
+    """The sync-refine fold's settings of `cfg`, as the decode sets them."""
+    return dict(sync_off=cfg.preamble_len - cfg.sync_len - cfg.sync_margin,
+                n_pos=2 * cfg.sync_margin + 1, sync_len=cfg.sync_len, fall_off=cfg.preamble_len)
+
+
 def check_xcorr(torch, xcorr_hits, xcorr_hits_plain, x, pre, thr, tag: str):
-    """xcorr_hits against its plain version; returns (max |err|, rows)."""
+    """xcorr_hits against its plain version; returns (max |err|, rows, plain corr)."""
     corr_k, rows_k = xcorr_hits(x, pre, thr, emit_corr=True)
     torch.cuda.synchronize()
     corr_p, rows_p = xcorr_hits_plain(x, pre, thr, emit_corr=True)
@@ -213,30 +255,118 @@ def check_xcorr(torch, xcorr_hits, xcorr_hits_plain, x, pre, thr, tag: str):
     require(err <= CORR_ATOL, f"xcorr_hits ({tag}) corr differs by {err}")
     _, rows_main = xcorr_hits(x, pre, thr)
     require(torch.equal(rows_main, rows_k), f"xcorr_hits ({tag}) rows depend on emit_corr")
-    # a lag within CORR_ATOL of the threshold may fall on either side of it;
-    # every other lag must give the same hits
-    b = x.shape[0]
-    near = (corr_p - thr).abs() < CORR_ATOL
-    n_rows = rows_k.shape[1]
-    near_rows = torch.nn.functional.pad(near, (0, n_rows * 128 - near.shape[1]))
-    near_rows = near_rows.reshape(b, n_rows, 128).any(-1)
-    same = (rows_k[..., :5] == rows_p[..., :5]).all(-1) & (rows_k[..., 9:] == rows_p[..., 9:]).all(-1)
-    require(bool((same | near_rows).all()), f"xcorr_hits ({tag}) hit rows differ away from the threshold")
-    hit_vals = rows_k[..., 5:9].contiguous().view(torch.float32)
-    hit_vals_p = rows_p[..., 5:9].contiguous().view(torch.float32)
-    val_err = (hit_vals - hit_vals_p)[same].abs().max().item()
-    require(val_err <= CORR_ATOL, f"xcorr_hits ({tag}) hit corr differs by {val_err}")
+    val_err, n_near, n_diff = compare_rows(torch, rows_k, rows_p, corr_p, thr, f"xcorr_hits ({tag})")
     log(f"phase 1: xcorr_hits == plain at L={len(pre)} (corr max |err| {err:.3g}, hit corr "
-        f"{val_err:.3g}, {int(near.sum())} lags within {CORR_ATOL} of the threshold, "
-        f"{int((~same).sum())} rows differing there)")
-    return max(err, val_err), rows_k
+        f"{val_err:.3g}, {n_near} lags within {CORR_ATOL} of the threshold, "
+        f"{n_diff} rows differing there)")
+    return max(err, val_err), rows_k, corr_p
+
+
+def check_fold(torch, sd, xh, cfg, x, vlens, thr, corr_p, tag: str) -> tuple[dict, dict]:
+    """Phase 1 for the sync-refine fold at one line code's shapes, at
+    threshold `thr`: the refine entry against its plain version and, in
+    columns 0..8, the hit kernel's rows bit for bit; its frame starts
+    against the legacy attempt kernel's on the same candidates; the fold
+    attempt against its plain version and against the legacy kernel.
+    Returns the max |err| per kernel and the fold's inputs and outputs."""
+    from trackmaker_tpu_torch.phy.line_coding import preamble_waveform
+    from trackmaker_tpu_torch.sync.correlate import preamble_energy
+
+    pre = preamble_waveform(cfg)
+    sync = pre[cfg.preamble_len - cfg.sync_len:]
+    kw = refine_kw(cfg)
+    _, rows_k = xh.xcorr_hits(x, pre, thr)
+    rows_r = xh.xcorr_hits_refine(x, vlens, pre, sync, thr, **kw)
+    torch.cuda.synchronize()
+    rows_rp = xh.xcorr_hits_refine_plain(x, vlens, pre, sync, thr, **kw)
+    val_err, n_near, n_diff = compare_rows(torch, rows_r, rows_rp, corr_p, thr,
+                                           f"xcorr_hits_refine ({tag})")
+    require(torch.equal(rows_r[..., :9], rows_k[..., :9]),
+            f"xcorr_hits_refine ({tag}) columns 0..8 differ from xcorr_hits' rows")
+    cand, _, n_valid, _ = sd.compact_hit_rows(rows_k, N_CAND)
+    cand_r, _, n_valid_r, _, fs_r = sd.compact_hit_rows(rows_r, N_CAND, with_fs=True)
+    require(torch.equal(cand_r, cand) and torch.equal(n_valid_r, n_valid),
+            f"the fold's candidate table ({tag}) differs from the legacy one")
+    if cfg.line_coding == "manchester":
+        attempt, fold, fold_plain = (sd.attempt_manchester, sd.attempt_manchester_fold,
+                                     sd.attempt_manchester_fold_plain)
+    else:
+        attempt, fold, fold_plain = sd.attempt_4b5b, sd.attempt_4b5b_fold, sd.attempt_4b5b_fold_plain
+    legacy = attempt(x, cand, n_valid, vlens, sync, preamble_energy(sync))
+    require(torch.equal(fs_r, legacy[1]),
+            f"the fold's frame starts ({tag}) differ from {attempt.__name__}'s")
+    got = fold(x, fs_r, n_valid)
+    torch.cuda.synchronize()
+    want = fold_plain(x, fs_r, n_valid)
+    fold_err = 0
+    for g, w, l_ in zip(got, want, legacy):
+        require(torch.equal(g, w), f"{fold.__name__} ({tag}) differs from its plain version")
+        require(torch.equal(g, l_), f"{fold.__name__} ({tag}) differs from {attempt.__name__}")
+        fold_err = max(fold_err, (g.int() - w.int()).abs().max().item())
+    live = sd._live(cand, n_valid)
+    hit = rows_r[..., :4] < 2**30
+    deltas = rows_r[..., 9:13][hit]
+    log(f"phase 1: xcorr_hits_refine == plain at L={len(pre)}, W={len(sync)} ({tag}: hit corr "
+        f"{val_err:.3g}, {n_near} lags near the threshold, {n_diff} rows differing there), "
+        f"columns 0..8 == xcorr_hits bit for bit, cand + delta == {attempt.__name__}'s fs on all "
+        f"{int(live.sum())} live candidates ({deltas.numel()} refined hits, deltas "
+        f"{int(deltas.min())}..{int(deltas.max())}); {fold.__name__} == plain and == "
+        f"{attempt.__name__}")
+    return ({"xcorr_hits_refine": val_err, fold.__name__: fold_err},
+            dict(rows=rows_r, hit=hit, fs=fs_r, n_valid=n_valid, kw=kw, sync=sync,
+                 hits=int(hit.sum())))
+
+
+def check_refine_edges(torch, sd, xh, cfg, x, corr_p, tag: str) -> dict:
+    """The fold's checks on a batch where the refine must move and must
+    fall back: the main path's captures at threshold EDGE_THR, which makes
+    hits of the lags around each preamble and in the payload (their sync
+    word lies off the expected position), and valid lengths that, in each
+    even capture r, cut the refine window of one hit, in a block's last row
+    where one lies among the first candidates, to m = r/2 mod (n_pos + 1)
+    valid positions (m = 0: the fallback), and every window past it to
+    none; odd captures keep their full length.
+    Returns the max |err| per kernel."""
+    from trackmaker_tpu_torch.phy.line_coding import preamble_waveform
+
+    kw = refine_kw(cfg)
+    b, t = x.shape
+    _, rows0 = xh.xcorr_hits(x, preamble_waveform(cfg), EDGE_THR)
+    cand0 = sd.compact_hit_rows(rows0, N_CAND)[0][:, 8:N_CAND // 2].cpu().numpy()
+    vlen = np.full(b, t, np.int64)
+    for r in range(0, b, 2):
+        last = cand0[r][(cand0[r] // 128) % 8 == 7]
+        h = int(last[0] if last.size else cand0[r, 0])
+        vlen[r] = h + kw["sync_off"] + kw["sync_len"] - 1 + (r // 2) % (kw["n_pos"] + 1)
+    vlens = torch.from_numpy(vlen.astype(np.int32)).to(x.device)
+    errs, out = check_fold(torch, sd, xh, cfg, x, vlens, EDGE_THR, corr_p, f"{tag} edges")
+    rows, hit = out["rows"], out["hit"]
+    pos = rows[..., :4].long()
+    n_ok = (vlens.long()[:, None, None] - kw["sync_len"] - kw["sync_off"] - pos + 1).clamp(
+        0, kw["n_pos"])                                     # valid refine positions of each hit
+    deltas = rows[..., 9:13]
+    moved = hit & (deltas != kw["fall_off"])
+    last_row = (torch.arange(rows.shape[1], device=x.device) % 8 == 7)[None, :, None]
+    trimmed = hit & (n_ok > 0) & (n_ok < kw["n_pos"])
+    fallback = hit & (n_ok == 0)
+    counts = {"moved": int(moved.sum()), "moved in a block's last row": int((moved & last_row).sum()),
+              "trimmed": int(trimmed.sum()), "fallback": int(fallback.sum())}
+    require(all(counts.values()), f"xcorr_hits_refine ({tag} edges): a case is missing: {counts}")
+    require(bool((deltas[fallback] == kw["fall_off"]).all()),
+            f"xcorr_hits_refine ({tag} edges): a hit with no valid position did not fall back")
+    require(bool((deltas[trimmed] - kw["sync_off"] - kw["sync_len"] < n_ok[trimmed]).all()),
+            f"xcorr_hits_refine ({tag} edges): a trimmed refine chose an invalid position")
+    log(f"phase 1: xcorr_hits_refine ({tag} edges, threshold {EDGE_THR}): {out['hits']} refined "
+        f"hits, {counts}")
+    return errs
 
 
 def run_main_path(torch, decode_capture_fast, decode_capture, sd, cfg, x, frames,
-                  kernels, tag: str, front=None) -> dict[str, int]:
+                  kernels, tag: str, front=None, expect=None) -> dict[str, int]:
     """One main-path run through decode_capture_fast, behind the front-end
     `front` (captures in, captures out) where given, with its gates; returns
-    the launch count of each kernel in `kernels`."""
+    the launch count of each kernel in `kernels`, each of which must be
+    positive, or equal to `expect` where given."""
     b = x.shape[0]
     for k in kernels:
         k.launches = 0
@@ -251,8 +381,10 @@ def run_main_path(torch, decode_capture_fast, decode_capture, sd, cfg, x, frames
     what = "decode_capture_fast" if front is None else f"{front.__name__} + decode_capture_fast"
     log(f"phase 2 ({tag}): {what} took {wall * 1e3:.1f} ms (first call), "
         f"kernel launches {launches}")
+    if expect is not None:
+        require(launches == expect, f"{tag} launches {launches}, expected {expect}")
     for k_name, n in launches.items():
-        require(n > 0, f"the {tag} main path never launched {k_name}")
+        require(n > 0 or expect is not None, f"the {tag} main path never launched {k_name}")
     counts = res.count.cpu().numpy()
     require(bool((counts == N_FRAMES).all()),
             f"{tag} count gate failed: {sorted(set(counts.tolist()))}")
@@ -547,6 +679,7 @@ def main() -> None:
     from trackmaker_tpu_torch.sync import xcorr_norm as xn
     from trackmaker_tpu_torch.sync.correlate import preamble_energy
     from trackmaker_tpu_torch.sync.xcorr_hits import xcorr_hits, xcorr_hits_plain
+    xh = importlib.import_module("trackmaker_tpu_torch.sync.xcorr_hits")   # the module
 
     # --- phase 0: setup ------------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -581,11 +714,20 @@ def main() -> None:
     errs = {}
 
     # --- phase 1: kernels against their plain versions -------------------------
-    errs["xcorr_hits"], rows_k = check_xcorr(
+    errs["xcorr_hits"], rows_k, corr_p = check_xcorr(
         torch, xcorr_hits, xcorr_hits_plain, x, pre, cfg.correlation_threshold, "flagship")
-    err4, rows4 = check_xcorr(
+    err4, rows4, corr_p4 = check_xcorr(
         torch, xcorr_hits, xcorr_hits_plain, x4, pre4, cfg4.correlation_threshold, "4b5b")
     errs["xcorr_hits"] = max(errs["xcorr_hits"], err4)
+    rows_b = xh.xcorr_hits_batched(x, pre, cfg.correlation_threshold)
+    torch.cuda.synchronize()
+    require(torch.equal(rows_b, rows_k), "xcorr_hits_batched differs from xcorr_hits' rows")
+    errs["xcorr_hits_batched"], n_near, n_diff = compare_rows(
+        torch, rows_b, xh.xcorr_hits_batched_plain(x, pre, cfg.correlation_threshold), corr_p,
+        cfg.correlation_threshold, "xcorr_hits_batched")
+    log(f"phase 1: xcorr_hits_batched (8 captures a block) == xcorr_hits' rows bit for bit and "
+        f"== plain at the flagship shape (hit corr {errs['xcorr_hits_batched']:.3g}, {n_near} "
+        f"lags near the threshold, {n_diff} rows differing there)")
 
     cand, _, n_valid, _ = sd.compact_hit_rows(rows_k, N_CAND)
     bytes_k, fs_k = sd.attempt_manchester(x, cand, n_valid, vlens, sync, sync_e)
@@ -612,6 +754,16 @@ def main() -> None:
         f"{int(n_valid4.min())}..{int(n_valid4.max())}, "
         f"{int(((got4[3] < sd.ZERO_SYMBOLS) & sd._live(cand4, n_valid4)).sum())} "
         "with a near-zero level in their 640 symbols)")
+    fold_in = {}
+    for tag, c, xx, vl, cp in (("flagship", cfg, x, vlens, corr_p),
+                                ("fourb5b_b32", cfg4, x4, vlens4, corr_p4)):
+        fold_errs, fold_in[tag] = check_fold(torch, sd, xh, c, xx, vl, c.correlation_threshold,
+                                             cp, tag)
+        for e in (fold_errs, check_refine_edges(torch, sd, xh, c, xx, cp, tag)):
+            for k_name, v in e.items():
+                errs[k_name] = max(errs.get(k_name, 0), v)
+    fold_in, fold_in4 = fold_in["flagship"], fold_in["fourb5b_b32"]
+    del corr_p, corr_p4, cp, rows_b     # the dense corr: keep it out of phase 4's peak memory
 
     rng = np.random.default_rng(args.seed + 17)
     walk_err = 0
@@ -652,10 +804,33 @@ def main() -> None:
     errs["normalized_xcorr"] = check_dense(torch, xn, xcorr_hits, xa, chirp, xe, pre)
 
     # --- phase 2: the main paths -----------------------------------------------
+    xh.xcorr_hits_batched.launches = 0     # no path runs it: it must stay 0
     launches = run_main_path(torch, decode_capture_fast, decode_capture, sd, cfg, x, frames,
                              (xcorr_hits, sd.attempt_manchester, sd.spec_walk), "flagship")
     launches4 = run_main_path(torch, decode_capture_fast, decode_capture, sd, cfg4, x4,
                               frames4, (xcorr_hits, sd.attempt_4b5b, sd.spec_walk), "fourb5b_b32")
+    fold_launches = {}
+    for tag, c, xx, fr, attempt_fold in (
+            ("manchester_b32_fold", cfg, x, frames, sd.attempt_manchester_fold),
+            ("fourb5b_b32_fold", cfg4, x4, frames4, sd.attempt_4b5b_fold)):
+        legacy = sd.decode_capture_spec(c, xx, LOCAL_ADDR, max_frames=MAX_FRAMES, with_cursor=True)
+        kernels = (xh.xcorr_hits_refine, xcorr_hits, attempt_fold, sd.spec_walk)
+        old_fold = sd.SYNC_FOLD
+        sd.SYNC_FOLD = True
+        try:
+            got = run_main_path(torch, decode_capture_fast, decode_capture, sd, c, xx, fr,
+                                kernels, tag, expect={k.__name__: int(k is not xcorr_hits)
+                                                      for k in kernels})
+            fold = sd.decode_capture_spec(c, xx, LOCAL_ADDR, max_frames=MAX_FRAMES,
+                                          with_cursor=True)
+        finally:
+            sd.SYNC_FOLD = old_fold
+        require(all(torch.equal(p, q) for p, q in zip([*fold[0], *fold[1:]],
+                                                      [*legacy[0], *legacy[1:]])),
+                f"{tag}: the fold decode differs from the legacy decode")
+        log(f"phase 2 ({tag}): frames, ok and cursors equal the legacy decode's")
+        for k_name, n in got.items():
+            fold_launches[k_name] = fold_launches.get(k_name, 0) + n
     eq_info = {}
 
     def equalize_capture(xx):
@@ -674,9 +849,10 @@ def main() -> None:
         f"{eq_info['lam'].max().item():.3g}, quality {eq_info['quality'].min().item():.4f}.."
         f"{eq_info['quality'].max().item():.4f}); the stock decode of the same captures finds "
         f"{int(stock_e.min())}..{int(stock_e.max())} of {N_FRAMES} frames per row")
-    for launch_counts in (launches4, launches_e):
+    for launch_counts in (launches4, fold_launches, launches_e):
         for k_name, n in launch_counts.items():
             launches[k_name] = launches.get(k_name, 0) + n
+    launches["xcorr_hits_batched"] = xh.xcorr_hits_batched.launches
     xn.normalized_xcorr_dense.launches = 0
     torch.cuda.synchronize()
     corr_a = auto_xcorr(xa, chirp)
@@ -737,6 +913,22 @@ def main() -> None:
             phase_a.fields, zeros, no_limit, MAX_FRAMES)),
     }
     xcorr4_ms = time_ms(torch, lambda: xcorr_hits(x4, pre4, cfg4.correlation_threshold))
+    thr = cfg.correlation_threshold
+    fold_calls = {
+        "xcorr_hits_refine": (xh.xcorr_hits_refine, xh.xcorr_hits_refine_plain,
+                              (x, vlens, pre, sync, thr), fold_in["kw"]),
+        "xcorr_hits_batched": (xh.xcorr_hits_batched, xh.xcorr_hits_batched_plain,
+                               (x, pre, thr), {}),
+        "attempt_manchester_fold": (sd.attempt_manchester_fold, sd.attempt_manchester_fold_plain,
+                                    (x, fold_in["fs"], n_valid), {}),
+        "attempt_4b5b_fold": (sd.attempt_4b5b_fold, sd.attempt_4b5b_fold_plain,
+                              (x4, fold_in4["fs"], n_valid4), {}),
+    }
+    for k_name, (kernel, plain, call_args, kw) in fold_calls.items():
+        ms[k_name] = time_ms(torch, lambda: kernel(*call_args, **kw))
+        plain_ms[k_name] = time_ms(torch, lambda: plain(*call_args, **kw))
+    refine4_ms = time_ms(torch, lambda: xh.xcorr_hits_refine(
+        x4, vlens4, pre4, sync4, cfg4.correlation_threshold, **fold_in4["kw"]))
     sync_scale = 1.0 / acfg.sync_divisor
     demod_in, k30 = ask_in["demod_in"], ask_in["k30"]
     ask_calls = {
@@ -749,9 +941,9 @@ def main() -> None:
         "ask_walk": (ask_spec.ask_walk, ask_spec.ask_walk_plain,
                      (ask_in["fields"], ASK_MAX_FRAMES)),
     }
-    for k_name, (kernel, plain, args) in ask_calls.items():
-        ms[k_name] = time_ms(torch, lambda: kernel(*args))
-        plain_ms[k_name] = time_ms(torch, lambda: plain(*args))
+    for k_name, (kernel, plain, ask_args) in ask_calls.items():
+        ms[k_name] = time_ms(torch, lambda: kernel(*ask_args))
+        plain_ms[k_name] = time_ms(torch, lambda: plain(*ask_args))
     ms["xcorr_rowstats"] = time_ms(torch, lambda: xn.xcorr_rowstats(xe, pre))
     plain_ms["xcorr_rowstats"] = time_ms(torch, lambda: xn.xcorr_rowstats_plain(xe, pre))
     ms["normalized_xcorr"] = time_ms(torch, lambda: xn.normalized_xcorr_dense(xa, chirp))
@@ -821,6 +1013,22 @@ def main() -> None:
         # ops per slot
         "ask_walk": bound(ask_in["fields"].numel() * 4 + xa.shape[0] * (ASK_MAX_FRAMES * 5 + 1),
                           xa.shape[0] * ASK_MAX_FRAMES * 12),
+        # xcorr_hits' work, and each refined hit (the first four of a row):
+        # 13 positions x 48 taps, a product and a sum for the dot and for
+        # the energy; vlens in
+        "xcorr_hits_refine": bound(x.numel() * 4 + b * 4 + rows_k.numel() * 4,
+                                   b * n_lags * 4 * len(pre)
+                                   + fold_in["hits"] * fold_in["kw"]["n_pos"] * len(sync) * 4),
+        "xcorr_hits_batched": bound(x.numel() * 4 + rows_k.numel() * 4,
+                                    b * n_lags * 4 * len(pre)),
+        # the legacy attempts' work without the refine: fs in for the
+        # candidate table
+        "attempt_manchester_fold": bound(
+            x.numel() * 4 + b * N_CAND * 4 + b * 4 + b * N_CAND * (sd.FRAME_BYTES + 4),
+            live * sd.FRAME_BYTES * 8 * 6),
+        "attempt_4b5b_fold": bound(
+            x4.numel() * 4 + b * N_CAND * 4 + b * 4 + b * N_CAND * (sd.FRAME_BYTES + 12),
+            live4 * sd.ZERO_SYMBOLS * 5 * 4),
         # each lag: len(pre) multiply-adds for the dot and for the energy;
         # a max and a position per 128 lags out
         "xcorr_rowstats": bound(xe.numel() * 4 + b * -(-n_lags_e // 128) * 8,
@@ -836,6 +1044,8 @@ def main() -> None:
             f"bound {bounds[k_name][0]:.4f} ms ({bounds[k_name][1]}) [{card}]")
     log(f"phase 4: xcorr_hits at the fourb5b_b32 shape (L=60): kernel {xcorr4_ms:.4f} ms "
         f"[{card}]")
+    log(f"phase 4: xcorr_hits_refine at the fourb5b_b32 shape (L=60, W=30, 31 positions, "
+        f"{fold_in4['hits']} refined hits): kernel {refine4_ms:.4f} ms [{card}]")
     log(f"phase 4: normalized_xcorr at L=440 vs conv1d dot + conv1d energy: "
         f"{library_ms['normalized_xcorr']:.4f} ms [{card}]")
     log(f"phase 4: sliding_dot at L=440 vs conv1d: {library_ms['sliding_dot']:.4f} ms "
@@ -854,12 +1064,27 @@ def main() -> None:
     }
     for step, v in steps.items():
         log(f"phase 4: step {step}: {v:.4f} ms [{card}]")
+
+    def decode_ms(c, xx, fold: bool) -> float:
+        old_fold = sd.SYNC_FOLD
+        sd.SYNC_FOLD = fold
+        try:
+            return time_ms(torch, lambda: sd.decode_capture_spec(
+                c, xx, LOCAL_ADDR, max_frames=MAX_FRAMES))
+        finally:
+            sd.SYNC_FOLD = old_fold
+
     for tag, c, xx in (("flagship", cfg, x), ("fourb5b_b32", cfg4, x4)):
-        e2e = time_ms(torch, lambda: sd.decode_capture_spec(
-            c, xx, LOCAL_ADDR, max_frames=MAX_FRAMES))
+        e2e = decode_ms(c, xx, False)
         rt = xx.numel() / c.sample_rate / (e2e / 1e3)
         log(f"phase 4: decode_capture_spec {tag} {xx.shape[0]} x {xx.shape[1]}: {e2e:.4f} ms, "
             f"{rt:.1f}x real time [{card}]")
+        # the fold against legacy: four turns each, in the order L F F L L F F L
+        turns = [(fold, decode_ms(c, xx, fold)) for fold in (False, True, True, False) * 2]
+        log(f"phase 4: decode_capture_spec {tag}, legacy and fold in turns (L F F L L F F L): "
+            + ", ".join(f"{v:.4f}" for _, v in turns) + " ms; medians legacy "
+            f"{statistics.median(v for f, v in turns if not f):.4f}, fold "
+            f"{statistics.median(v for f, v in turns if f):.4f} ms [{card}]")
         torch.cuda.reset_peak_memory_stats()
         sd.decode_capture_spec(c, xx, LOCAL_ADDR, max_frames=MAX_FRAMES)
         torch.cuda.synchronize()
@@ -940,6 +1165,11 @@ def main() -> None:
         "ask_walk": "trackmaker_tpu/phy/ask_spec.py:455",
         "xcorr_rowstats": "trackmaker_tpu/sync/pallas_xcorr.py:640",
         "normalized_xcorr": "trackmaker_tpu/sync/pallas_xcorr.py:93",
+        "xcorr_hits_refine": "trackmaker_tpu/sync/pallas_xcorr.py:298",
+        "xcorr_hits_batched": "trackmaker_tpu/sync/pallas_xcorr.py:513",
+        # the fold_sync branches of the attempt kernels
+        "attempt_manchester_fold": "trackmaker_tpu/phy/pallas_decode.py:207",
+        "attempt_4b5b_fold": "trackmaker_tpu/phy/pallas_decode.py:409",
     }
     print(json.dumps({"kernels": [
         {"name": k_name, "route": "cuda",

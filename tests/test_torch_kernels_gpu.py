@@ -20,7 +20,13 @@ order).  The equalized decode on the card: the equalized captures within
 1e-4 of the CPU's, the decoded frames equal.  The ASK
 kernels (sliding dot, fire rule, record chain, walk) equal their plain
 versions exactly: the sliding dot adds its taps in one order in both, the
-others only take maxima, compare and move integers."""
+others only take maxima, compare and move integers.  The hit kernel's
+refine entry and the attempt kernels' fold forms: hit rows as above, the
+refine deltas and everything the attempts return exactly equal (the
+refines add the same way in the kernels and the plain versions); the
+refine entry's columns 0..8 and the batch-folded entry's rows equal the
+hit kernel's bit for bit; the fold decode on the card equals the legacy
+decode in every field."""
 
 import numpy as np
 import pytest
@@ -37,7 +43,14 @@ from trackmaker_tpu_torch.phy.encoder import PhyEncoder
 from trackmaker_tpu_torch.phy.line_coding import preamble_waveform
 from trackmaker_tpu_torch.sync.correlate import preamble_energy
 from trackmaker_tpu_torch.sync.sliding_dot import sliding_dot_scaled, sliding_dot_scaled_plain
-from trackmaker_tpu_torch.sync.xcorr_hits import xcorr_hits, xcorr_hits_plain
+from trackmaker_tpu_torch.sync.xcorr_hits import (
+    xcorr_hits,
+    xcorr_hits_batched,
+    xcorr_hits_batched_plain,
+    xcorr_hits_plain,
+    xcorr_hits_refine,
+    xcorr_hits_refine_plain,
+)
 from trackmaker_tpu_torch.sync.xcorr_norm import (
     normalized_xcorr_dense,
     normalized_xcorr_dense_plain,
@@ -476,3 +489,138 @@ def test_equalized_decode_on_the_card_equals_the_cpu(cuda):
     numpy_in = equalizer.decode_capture_eq(CFG, x.numpy(), 2, max_frames=10)
     assert numpy_in.valid.device.type == "cuda"
     assert numpy_in.count.tolist() == [6] * 3
+
+
+# --- the sync-refine fold and the batch-folded hit rows ----------------------
+
+FOLD_CODES = [(CFG, PRE, SYNC), (CFG4, PRE4, SYNC4)]
+FOLD_IDS = ["manchester", "4b5b"]
+
+
+def _refine_kw(cfg) -> dict:
+    return dict(sync_off=cfg.preamble_len - cfg.sync_len - cfg.sync_margin,
+                n_pos=2 * cfg.sync_margin + 1, sync_len=cfg.sync_len, fall_off=cfg.preamble_len)
+
+
+def _attempts(cfg):
+    if cfg.line_coding == "manchester":
+        return sd.attempt_manchester, sd.attempt_manchester_fold, sd.attempt_manchester_fold_plain
+    return sd.attempt_4b5b, sd.attempt_4b5b_fold, sd.attempt_4b5b_fold_plain
+
+
+def test_cpu_tensors_run_the_plain_fold_kernels():
+    """On CPU tensors the refine and batch-folded entries of the hit kernel
+    and the fold attempts return their plain versions' results and count no
+    launch."""
+    for cfg, pre, sync in FOLD_CODES:
+        x = torch.from_numpy(_captures(b=2, n_frames=3, cfg=cfg))
+        vlen = torch.tensor([x.shape[1], x.shape[1] - 700], dtype=torch.int32)
+        attempt, attempt_fold, attempt_fold_plain = _attempts(cfg)
+        kernels = (xcorr_hits_refine, xcorr_hits_batched, attempt_fold)
+        before = [k.launches for k in kernels]
+        rows = xcorr_hits_refine(x, vlen, pre, sync, THR, **_refine_kw(cfg))
+        assert torch.equal(rows, xcorr_hits_refine_plain(x, vlen, pre, sync, THR,
+                                                         **_refine_kw(cfg)))
+        assert torch.equal(xcorr_hits_batched(x, pre, THR, bc=2),
+                           xcorr_hits_batched_plain(x, pre, THR, bc=2))
+        cand, _, n_valid, _, fs = sd.compact_hit_rows(rows, 128, with_fs=True)
+        args = (x, cand, n_valid, vlen, sync, preamble_energy(sync))
+        got = attempt_fold(x, fs, n_valid)
+        assert all(torch.equal(p, q) for p, q in zip(got, attempt_fold_plain(x, fs, n_valid)))
+        assert all(torch.equal(p, q) for p, q in zip(got, attempt(*args)))
+        assert [k.launches for k in kernels] == before
+        assert n_valid.tolist() == [3, 3]
+
+
+def _edge_captures(cfg, pre, cuda):
+    """Captures with the same bare preamble planted at lag 8192 + 7*128 + 100,
+    in the last row of a block of eight, so that its refine reads past the
+    block's correlation halo; valid lengths that leave all of its refine
+    positions (row 0), none (row 1) and the first four (row 2)."""
+    x = torch.from_numpy(_captures(cfg=cfg))
+    lag = 8 * 1024 + 7 * 128 + 100
+    x[:3, lag - 300:lag + 500] = 0.01 * x[:3, lag - 300:lag + 500]
+    x[:3, lag:lag + len(pre)] += torch.from_numpy(pre)
+    kw = _refine_kw(cfg)
+    first = lag + kw["sync_off"] + kw["sync_len"]
+    vlen = torch.tensor([x.shape[1], first - 1, first + 3, x.shape[1] - 3000],
+                        dtype=torch.int32)
+    return x.to(cuda), vlen.to(cuda), lag
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg,pre,sync", FOLD_CODES, ids=FOLD_IDS)
+def test_xcorr_hits_refine_kernel_matches_plain(cuda, cfg, pre, sync):
+    x, vlen, lag = _edge_captures(cfg, pre, cuda)
+    kw = _refine_kw(cfg)
+    before = xcorr_hits_refine.launches
+    rows = xcorr_hits_refine(x, vlen, pre, sync, THR, **kw)
+    torch.cuda.synchronize()
+    assert xcorr_hits_refine.launches == before + 1
+    rows_p = xcorr_hits_refine_plain(x, vlen, pre, sync, THR, **kw)
+    corr_p = normalized_xcorr_dense_plain(x, pre)
+    near = torch.nn.functional.pad((corr_p - THR).abs() < 1e-5,
+                                   (0, rows.shape[1] * 128 - corr_p.shape[1]))
+    near = near.reshape(rows.shape[0], rows.shape[1], 128).any(-1)
+    same = (rows[..., :5] == rows_p[..., :5]).all(-1)
+    assert bool((same | near).all())
+    assert torch.equal(rows[..., 9:][same], rows_p[..., 9:][same])
+    vals = rows[..., 5:9].contiguous().view(torch.float32)
+    vals_p = rows_p[..., 5:9].contiguous().view(torch.float32)
+    assert (vals - vals_p)[same].abs().max().item() <= 1e-5
+    _, rows_1 = xcorr_hits(x, pre, THR)
+    assert torch.equal(rows[..., :9], rows_1[..., :9])
+    # the planted hit: refined in full, not at all (the fallback) and in part
+    r = lag // 128
+    assert r % 8 == 7 and bool((rows[:3, r, 0] == lag).all())
+    deltas = rows[:3, r, 9].tolist()
+    assert deltas[1] == kw["fall_off"]
+    assert kw["sync_off"] + kw["sync_len"] <= deltas[2] <= kw["sync_off"] + 3 + kw["sync_len"]
+    assert deltas[0] == kw["fall_off"]     # a clean preamble refines to its expected start
+    live = rows[..., :4] < BIGI
+    assert bool((rows[..., 9:13][~live] == kw["fall_off"]).all())
+    assert bool((rows[..., 13:] == 0).all()) and int(live.sum()) >= 40
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bc", [1, 3, 8])
+def test_xcorr_hits_batched_kernel_matches_the_hit_kernel(cuda, bc):
+    x = torch.from_numpy(_captures(b=5)).to(cuda)
+    before = xcorr_hits_batched.launches
+    rows = xcorr_hits_batched(x, PRE, THR, bc=bc)
+    torch.cuda.synchronize()
+    assert xcorr_hits_batched.launches == before + 1
+    assert torch.equal(rows, xcorr_hits(x, PRE, THR)[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg,pre,sync", FOLD_CODES, ids=FOLD_IDS)
+def test_fold_attempt_kernels_match_plain_and_legacy(cuda, cfg, pre, sync):
+    x, vlen, _ = _edge_captures(cfg, pre, cuda)
+    rows = xcorr_hits_refine(x, vlen, pre, sync, THR, **_refine_kw(cfg))
+    cand, _, n_valid, _, fs = sd.compact_hit_rows(rows, 128, with_fs=True)
+    attempt, attempt_fold, attempt_fold_plain = _attempts(cfg)
+    legacy = attempt(x, cand, n_valid, vlen, sync, preamble_energy(sync))
+    assert torch.equal(fs, legacy[1])
+    before = attempt_fold.launches
+    fold = attempt_fold(x, fs, n_valid)
+    torch.cuda.synchronize()
+    assert attempt_fold.launches == before + 1
+    for g, p, w in zip(fold, attempt_fold_plain(x, fs, n_valid), legacy):
+        assert torch.equal(g, p) and torch.equal(g, w)
+    assert int(n_valid.min()) >= 12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg,pre,sync", FOLD_CODES, ids=FOLD_IDS)
+def test_fold_decode_on_the_card_equals_legacy(cuda, monkeypatch, cfg, pre, sync):
+    x, vlen, _ = _edge_captures(cfg, pre, cuda)
+    legacy = sd.decode_capture_spec(cfg, x, 2, max_frames=16, valid_len=vlen, with_cursor=True)
+    monkeypatch.setattr(sd, "SYNC_FOLD", True)
+    kernels = (xcorr_hits_refine, xcorr_hits, _attempts(cfg)[1], sd.spec_walk)
+    before = [k.launches for k in kernels]
+    fold = sd.decode_capture_spec(cfg, x, 2, max_frames=16, valid_len=vlen, with_cursor=True)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 0, 1, 1]
+    for g, w in zip([*fold[0], *fold[1:]], [*legacy[0], *legacy[1:]]):
+        assert torch.equal(g, w)
+    assert int(fold[0].count.sum()) >= 30

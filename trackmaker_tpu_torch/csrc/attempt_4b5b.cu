@@ -1,7 +1,10 @@
 // Per-candidate 4B5B + NRZI frame attempt: sync-word refine + symbol decode.
 //
-// Replaces: trackmaker_tpu/phy/pallas_decode.py:_attempt_kernel_4b5b (the
-// in-kernel refine branch, launched from _spec_phase_a).
+// Replaces: trackmaker_tpu/phy/pallas_decode.py:_attempt_kernel_4b5b,
+// launched from _spec_phase_a: its in-kernel refine branch (tm_attempt_4b5b)
+// and its fold_sync branch (tm_attempt_4b5b_fold), which decodes from the
+// frame starts fs_in int32[B, C] that the correlation kernel's fused refine
+// found (xcorr_hits.cu, tm_xcorr_hits_refine) and skips the refine.
 //
 // For capture b and candidate slot c < min(n_valid[b], C):
 //   i_c  = min(cand[b, c], T),  base = i_c + 15
@@ -19,7 +22,7 @@
 // Samples at or past T read as zero.  Outputs, absolute positions in int32:
 //   bytes      uint8[B, C, 263]  nibble pairs of symbols 0..525, zero from
 //                                the first invalid symbol on
-//   fs         int32[B, C]
+//   fs         int32[B, C]  (the fold form copies fs_in)
 //   first_bad  int32[B, C]  first invalid symbol of 0..525, else 526
 //   first_zero int32[B, C]  first of symbols 0..639 with a near-zero level,
 //                           else 640 (the window the JAX epilogue searches)
@@ -46,7 +49,8 @@
 // first maximum by shuffle; then each thread decodes one symbol from its
 // 15 samples and the 3 before them, the block takes the first invalid and
 // the first near-zero symbol by shared-memory atomicMin, and pairs of
-// neighbouring threads pack their nibbles into a byte.
+// neighbouring threads pack their nibbles into a byte.  The fold form is
+// the same template without the refine.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -81,11 +85,13 @@ __device__ __forceinline__ float level_at(const float* xb, int t, int s) {
                    sample(xb, t, s + 2));
 }
 
+template <bool kFold>
 __global__ void attempt_4b5b_kernel(
     const float* __restrict__ x, const int* __restrict__ cand,
     const int* __restrict__ n_valid, const int* __restrict__ vlen,
     const float* __restrict__ sync, int t, int n_cand, float sync_e,
-    uint8_t* __restrict__ bytes, int* __restrict__ fs_out,
+    const int* __restrict__ fs_in, uint8_t* __restrict__ bytes,
+    int* __restrict__ fs_out,
     int* __restrict__ first_bad_out, int* __restrict__ first_zero_out) {
   __shared__ int fs_shared;
   __shared__ int first_bad;
@@ -108,40 +114,49 @@ __global__ void attempt_4b5b_kernel(
   }
 
   const float* xb = x + static_cast<int64_t>(b) * t;
-  const int i_c = min(cand[slot], t);
-  const int base = i_c + kBaseOffset;
-
-  if (tid < 32) {
-    float cc = -INFINITY;
-    if (tid < kPositions) {
-      float dot = 0.0f, en = 0.0f;
-      for (int j = 0; j < kSyncLen; ++j) {
-        const float v = sample(xb, t, base + tid + j);
-        dot = __fadd_rn(dot, __fmul_rn(v, sync[j]));
-        en = __fadd_rn(en, __fmul_rn(v, v));
-      }
-      const float val = en > kRefineEps ? dot / (sqrtf(en) * sync_e) : 0.0f;
-      cc = base + tid <= vlen[b] - kSyncLen ? val : -INFINITY;
-    }
-    // first maximum: the larger value wins, a tie goes to the lower index
-    int best = tid;
-    for (int off = 16; off > 0; off >>= 1) {
-      const float o_cc = __shfl_down_sync(0xffffffffu, cc, off);
-      const int o_best = __shfl_down_sync(0xffffffffu, best, off);
-      if (o_cc > cc || (o_cc == cc && o_best < best)) {
-        cc = o_cc;
-        best = o_best;
-      }
-    }
+  int fs;
+  if constexpr (kFold) {
     if (tid == 0) {
-      fs_shared = (cc > -1.0f ? base + best : i_c + kFallback) + kSyncLen;
       first_bad = kFrameSymbols;
       first_zero = kSymbols;
     }
-  }
-  __syncthreads();
+    fs = fs_in[slot];
+    __syncthreads();
+  } else {
+    const int i_c = min(cand[slot], t);
+    const int base = i_c + kBaseOffset;
 
-  const int fs = fs_shared;
+    if (tid < 32) {
+      float cc = -INFINITY;
+      if (tid < kPositions) {
+        float dot = 0.0f, en = 0.0f;
+        for (int j = 0; j < kSyncLen; ++j) {
+          const float v = sample(xb, t, base + tid + j);
+          dot = __fadd_rn(dot, __fmul_rn(v, sync[j]));
+          en = __fadd_rn(en, __fmul_rn(v, v));
+        }
+        const float val = en > kRefineEps ? dot / (sqrtf(en) * sync_e) : 0.0f;
+        cc = base + tid <= vlen[b] - kSyncLen ? val : -INFINITY;
+      }
+      // first maximum: the larger value wins, a tie goes to the lower index
+      int best = tid;
+      for (int off = 16; off > 0; off >>= 1) {
+        const float o_cc = __shfl_down_sync(0xffffffffu, cc, off);
+        const int o_best = __shfl_down_sync(0xffffffffu, best, off);
+        if (o_cc > cc || (o_cc == cc && o_best < best)) {
+          cc = o_cc;
+          best = o_best;
+        }
+      }
+      if (tid == 0) {
+        fs_shared = (cc > -1.0f ? base + best : i_c + kFallback) + kSyncLen;
+        first_bad = kFrameSymbols;
+        first_zero = kSymbols;
+      }
+    }
+    __syncthreads();
+    fs = fs_shared;
+  }
   const int s0 = fs + tid * kSymbolSamples;
   float prev = tid == 0 ? 1.0f : level_at(xb, t, s0 - kLevelSamples);
   int sym = 0;
@@ -181,8 +196,23 @@ extern "C" int tm_attempt_4b5b(const float* x, const int* cand,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   dim3 grid(n_cand, batch);
-  attempt_4b5b_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, cand, n_valid, vlen, sync, t, n_cand, sync_e, bytes, fs, first_bad,
+  attempt_4b5b_kernel<false><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, cand, n_valid, vlen, sync, t, n_cand, sync_e, nullptr, bytes, fs, first_bad,
       first_zero);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tm_attempt_4b5b_fold(const float* x, const int* fs_in,
+                                    const int* n_valid, int batch, int t,
+                                    int n_cand, uint8_t* bytes, int* fs,
+                                    int* first_bad, int* first_zero,
+                                    void* stream) {
+  if (batch < 1 || n_cand < 1 || t < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  dim3 grid(n_cand, batch);
+  attempt_4b5b_kernel<true><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, nullptr, n_valid, nullptr, nullptr, t, n_cand, 0.0f, fs_in, bytes, fs,
+      first_bad, first_zero);
   return static_cast<int>(cudaGetLastError());
 }

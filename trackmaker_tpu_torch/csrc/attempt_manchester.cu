@@ -1,7 +1,10 @@
 // Per-candidate Manchester frame attempt: sync-word refine + frame decode.
 //
-// Replaces: trackmaker_tpu/phy/pallas_decode.py:_attempt_kernel (the
-// in-kernel refine branch, launched from _spec_phase_a).
+// Replaces: trackmaker_tpu/phy/pallas_decode.py:_attempt_kernel, launched
+// from _spec_phase_a: its in-kernel refine branch (tm_attempt_manchester)
+// and its fold_sync branch (tm_attempt_manchester_fold), which decodes from
+// the frame starts fs_in int32[B, C] that the correlation kernel's fused
+// refine found (xcorr_hits.cu, tm_xcorr_hits_refine) and skips the refine.
 //
 // For capture b and candidate slot c < min(n_valid[b], C):
 //   i_c  = min(cand[b, c], T),  base = i_c + 42
@@ -16,7 +19,7 @@
 //     (a silent gap gives exactly 0 and decodes as 1); 263 bytes, MSB first.
 // Samples at or past T read as zero.  Slots c >= min(n_valid[b], C) get
 // zero bytes and fs = 0.  Outputs: bytes uint8[B, C, 263] and fs int32[B, C],
-// an absolute position.
+// an absolute position (the fold form copies fs_in to it).
 //
 // The constants are those of the spl=3 Manchester configuration that the
 // Python wrapper admits (preamble 96 samples, sync word 48, margin 6,
@@ -29,7 +32,9 @@
 // 13 refine windows, one lane each, and lane 0 takes the first maximum; then
 // each warp decodes 32 consecutive bits per step, one bit per lane, so a
 // warp's loads cover 768 contiguous bytes, and packs them with one ballot:
-// the ballot, bit-reversed, holds the warp's four bytes MSB first.
+// the ballot, bit-reversed, holds the warp's four bytes MSB first.  The
+// fold form is the same template without the refine: every thread reads
+// its slot's fs_in.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -50,11 +55,13 @@ __device__ __forceinline__ float sample(const float* xb, int t, int idx) {
   return idx < t ? xb[idx] : 0.0f;
 }
 
+template <bool kFold>
 __global__ void attempt_manchester_kernel(
     const float* __restrict__ x, const int* __restrict__ cand,
     const int* __restrict__ n_valid, const int* __restrict__ vlen,
     const float* __restrict__ sync, int t, int n_cand, float sync_e,
-    uint8_t* __restrict__ bytes, int* __restrict__ fs_out) {
+    const int* __restrict__ fs_in, uint8_t* __restrict__ bytes,
+    int* __restrict__ fs_out) {
   __shared__ float cc[kPositions];
   __shared__ int fs_shared;
 
@@ -73,40 +80,46 @@ __global__ void attempt_manchester_kernel(
   }
 
   const float* xb = x + static_cast<int64_t>(b) * t;
-  const int i_c = min(cand[slot], t);
-  const int base = i_c + kBaseOffset;
+  int fs;
+  if constexpr (kFold) {
+    fs = fs_in[slot];
+    if (tid == 0) fs_out[slot] = fs;
+  } else {
+    const int i_c = min(cand[slot], t);
+    const int base = i_c + kBaseOffset;
 
-  if (warp == 0) {
-    if (lane < kPositions) {
-      float dot = 0.0f, en = 0.0f;
-      // rounded products and sums, never fused, in tap order: the plain
-      // version adds the same way, so the first maximum matches it exactly
-      for (int j = 0; j < kSyncLen; ++j) {
-        const float v = sample(xb, t, base + lane + j);
-        dot = __fadd_rn(dot, __fmul_rn(v, sync[j]));
-        en = __fadd_rn(en, __fmul_rn(v, v));
-      }
-      const float val = en > 1e-6f ? dot / (sqrtf(en) * sync_e) : 0.0f;
-      cc[lane] = base + lane <= vlen[b] - kSyncLen ? val : -INFINITY;
-    }
-    __syncwarp();
-    if (lane == 0) {
-      int best = 0;
-      float top = cc[0];
-      for (int k = 1; k < kPositions; ++k) {
-        if (cc[k] > top) {
-          top = cc[k];
-          best = k;
+    if (warp == 0) {
+      if (lane < kPositions) {
+        float dot = 0.0f, en = 0.0f;
+        // rounded products and sums, never fused, in tap order: the plain
+        // version adds the same way, so the first maximum matches it exactly
+        for (int j = 0; j < kSyncLen; ++j) {
+          const float v = sample(xb, t, base + lane + j);
+          dot = __fadd_rn(dot, __fmul_rn(v, sync[j]));
+          en = __fadd_rn(en, __fmul_rn(v, v));
         }
+        const float val = en > 1e-6f ? dot / (sqrtf(en) * sync_e) : 0.0f;
+        cc[lane] = base + lane <= vlen[b] - kSyncLen ? val : -INFINITY;
       }
-      const int fs = (top > -1.0f ? base + best : i_c + kFallback) + kSyncLen;
-      fs_shared = fs;
-      fs_out[slot] = fs;
+      __syncwarp();
+      if (lane == 0) {
+        int best = 0;
+        float top = cc[0];
+        for (int k = 1; k < kPositions; ++k) {
+          if (cc[k] > top) {
+            top = cc[k];
+            best = k;
+          }
+        }
+        const int start = (top > -1.0f ? base + best : i_c + kFallback) + kSyncLen;
+        fs_shared = start;
+        fs_out[slot] = start;
+      }
     }
+    __syncthreads();
+    fs = fs_shared;
   }
-  __syncthreads();
 
-  const int fs = fs_shared;
   for (int bit0 = warp * 32; bit0 < kFrameBits; bit0 += kThreads) {
     const int s = fs + (bit0 + lane) * kBitSamples;
     const float first = sample(xb, t, s) + sample(xb, t, s + 1) +
@@ -132,8 +145,22 @@ extern "C" int tm_attempt_manchester(const float* x, const int* cand,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   dim3 grid(n_cand, batch);
-  attempt_manchester_kernel<<<grid, kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      x, cand, n_valid, vlen, sync, t, n_cand, sync_e, bytes, fs);
+  attempt_manchester_kernel<false><<<grid, kThreads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      x, cand, n_valid, vlen, sync, t, n_cand, sync_e, nullptr, bytes, fs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tm_attempt_manchester_fold(const float* x, const int* fs_in,
+                                          const int* n_valid, int batch, int t,
+                                          int n_cand, uint8_t* bytes, int* fs,
+                                          void* stream) {
+  if (batch < 1 || n_cand < 1 || t < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  dim3 grid(n_cand, batch);
+  attempt_manchester_kernel<true><<<grid, kThreads, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      x, nullptr, n_valid, nullptr, nullptr, t, n_cand, 0.0f, fs_in, bytes, fs);
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,11 +20,19 @@ decode_capture_fast`` does this) only when its table overflowed, or, for
 kernel reads each transition against the level just before, while the
 receiver skips near-zero levels.  Each kernel wrapper runs its ``*_plain``
 version on CPU tensors.
+
+With the sync-refine fold on (``SYNC_FOLD``, from the environment variable
+``TM_SYNC_FOLD``), step 1 runs ``xcorr_hits_refine``, which also refines
+the frame start of each hit, step 2 carries those starts, and step 3 runs
+the attempt kernels' fold forms, which decode from them and skip their own
+refine.  Both modes make the same decisions: the two refines add the same
+way.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -42,7 +50,13 @@ from trackmaker_tpu_torch.core.config import (
 from trackmaker_tpu_torch.phy import line_coding
 from trackmaker_tpu_torch.phy.decoder import DecodedFrames
 from trackmaker_tpu_torch.sync.correlate import preamble_energy
-from trackmaker_tpu_torch.sync.xcorr_hits import BIGI, HIT_SLOTS, xcorr_hits
+from trackmaker_tpu_torch.sync.xcorr_hits import (
+    BIGI,
+    HIT_SLOTS,
+    refine_deltas_plain,
+    xcorr_hits,
+    xcorr_hits_refine,
+)
 
 GROUP_ROWS = 32     # hit rows per first-stage compaction group
 GROUP_SLOTS = 16    # hits a group may hold before the table overflows
@@ -59,6 +73,16 @@ SYMBOL_SAMPLES = 15                 # 5 levels x 3 samples
 HEADER_SYMBOLS = 2 * PHY_HEADER_BYTES
 MIN_HEADER_SYMBOLS = -(-line_coding.MIN_HEADER_BITS // 4)   # 13 nibbles
 LEVEL_NEAR_ZERO = 4e-6              # |3-sample level sum| at most this is near zero
+
+# The sync-refine fold: "1" refines in the correlation kernel, "0" and
+# "auto" in the attempt kernels (legacy); a bool set here is honoured.
+SYNC_FOLD = os.environ.get("TM_SYNC_FOLD", "auto")
+
+
+def _resolve_fold() -> bool:
+    if isinstance(SYNC_FOLD, bool):
+        return SYNC_FOLD
+    return SYNC_FOLD == "1"
 
 
 def spec_supported_cfg(cfg: PhyConfig) -> bool:
@@ -89,14 +113,19 @@ def _per_row(value, b: int, device: torch.device) -> torch.Tensor:
 
 def _compact(vals: torch.Tensor, valid: torch.Tensor, n_out: int, fill):
     """Pack the valid entries of vals[..., N] in order into n_out slots."""
+    return _compact_all([(vals, fill)], valid, n_out)[0]
+
+
+def _compact_all(arrays, valid: torch.Tensor, n_out: int) -> list[torch.Tensor]:
+    """_compact of each (vals, fill) in `arrays`, all under one `valid`."""
     rank = valid.cumsum(-1) - 1
     slot = torch.where(valid & (rank < n_out), rank, n_out)   # n_out = sink
-    out = torch.full((*vals.shape[:-1], n_out + 1), fill, dtype=vals.dtype,
-                     device=vals.device)
-    return out.scatter_(-1, slot, vals)[..., :n_out].contiguous()
+    return [torch.full((*vals.shape[:-1], n_out + 1), fill, dtype=vals.dtype,
+                       device=vals.device).scatter_(-1, slot, vals)[..., :n_out].contiguous()
+            for vals, fill in arrays]
 
 
-def compact_hit_rows(rows: torch.Tensor, n_cand: int):
+def compact_hit_rows(rows: torch.Tensor, n_cand: int, with_fs: bool = False):
     """(cand, corr, n_valid, overflow) from hit rows int32[B, R, 16].
 
     cand int32[B, n_cand] holds every extracted hit position, ascending,
@@ -106,30 +135,41 @@ def compact_hit_rows(rows: torch.Tensor, n_cand: int):
     slots, then globally.  The table overflows when a row holds more than
     four hits, a group more than 16, or the capture more than `n_cand`; an
     overflowed capture must be decoded by the exact scan.
+
+    ``with_fs=True`` reads rows of ``xcorr_hits_refine``, carries each
+    hit's refine delta (columns 9..12) along and returns a fifth result,
+    the frame start fs int32[B, n_cand] = cand + delta of each slot c <
+    min(n_valid, n_cand), and 0, as the attempt kernels report it, elsewhere.
     """
     b, r, _ = rows.shape
-    starts = rows[..., :HIT_SLOTS]
-    cvals = rows[..., HIT_SLOTS + 1:2 * HIT_SLOTS + 1].contiguous().view(torch.float32)
     counts = rows[..., HIT_SLOTS]
+    # the starts, the corr bits (moved as int32) and, with fs, the deltas
+    arrays = [rows[..., :HIT_SLOTS], rows[..., HIT_SLOTS + 1:2 * HIT_SLOTS + 1]]
+    fills = [BIGI, 0]
+    if with_fs:
+        arrays.append(rows[..., 2 * HIT_SLOTS + 1:3 * HIT_SLOTS + 1])
+        fills.append(0)
     ng = -(-r // GROUP_ROWS)
     pad = ng * GROUP_ROWS - r
     if pad:
-        starts = torch.nn.functional.pad(starts, (0, 0, 0, pad), value=BIGI)
-        cvals = torch.nn.functional.pad(cvals, (0, 0, 0, pad))
-    sg = starts.reshape(b, ng, GROUP_ROWS * HIT_SLOTS)
-    cg = cvals.reshape(b, ng, GROUP_ROWS * HIT_SLOTS)
-    vg = sg < BIGI
+        arrays = [torch.nn.functional.pad(a, (0, 0, 0, pad), value=f)
+                  for a, f in zip(arrays, fills)]
+    grouped = [a.reshape(b, ng, GROUP_ROWS * HIT_SLOTS) for a in arrays]
+    vg = grouped[0] < BIGI
     grp_n = vg.sum(-1)
-    s_c = _compact(sg, vg, GROUP_SLOTS, BIGI).reshape(b, ng * GROUP_SLOTS)
-    c_c = _compact(cg, vg, GROUP_SLOTS, 0.0).reshape(b, ng * GROUP_SLOTS)
+    stage1 = [a.reshape(b, ng * GROUP_SLOTS)
+              for a in _compact_all(zip(grouped, fills), vg, GROUP_SLOTS)]
 
-    valid = s_c < BIGI
-    cand = _compact(s_c, valid, n_cand, BIGI)
-    corr = _compact(c_c, valid, n_cand, 0.0)
+    valid = stage1[0] < BIGI
+    cand, corr_bits, *delta = _compact_all(zip(stage1, fills), valid, n_cand)
+    corr = corr_bits.view(torch.float32)
     n_valid = valid.sum(-1, dtype=torch.int32)
     overflow = ((counts > HIT_SLOTS).any(-1) | (grp_n > GROUP_SLOTS).any(-1)
                 | (counts.sum(-1) > n_cand))
-    return cand, corr, n_valid, overflow
+    if not with_fs:
+        return cand, corr, n_valid, overflow
+    fs = torch.where(cand < BIGI, cand + delta[0], 0).to(torch.int32)   # live slots hold a hit
+    return cand, corr, n_valid, overflow, fs
 
 
 # --- step 3: the attempt kernels -----------------------------------------------
@@ -155,55 +195,58 @@ def _refine_plain(x: torch.Tensor, i_c: torch.Tensor, vlen: torch.Tensor,
                   n_pos: int) -> torch.Tensor:
     """The sync refine of every slot: the frame start int32[B, C] behind
     the best of `n_pos` sync-word positions from i_c + base_offset, as the
-    attempt kernels compute it."""
-    dev = x.device
-    sync_len = len(sync)
-    base = i_c + base_offset
-    k = torch.arange(n_pos, device=dev)
-    win = _windows(x, base, (k[:, None] + torch.arange(sync_len, device=dev)).reshape(-1))
-    win = win.reshape(*base.shape, n_pos, sync_len)
-    s = torch.from_numpy(np.asarray(sync, np.float32)).to(dev)
-    # tap by tap, a rounded product then a rounded sum, as the kernels add
-    # them: equal cc values keep a near-tie's first maximum the kernel's
-    dot = torch.zeros(win.shape[:-1], dtype=torch.float32, device=dev)
-    en = torch.zeros_like(dot)
-    for j in range(sync_len):
-        v = win[..., j]
-        dot = dot + v * s[j]
-        en = en + v * v
-    cc = torch.where(en > 1e-6, dot / (torch.sqrt(en) * sync_e), 0.0)
-    ok_k = (base[..., None] + k) <= (vlen[:, None, None] - sync_len)
-    cc = torch.where(ok_k, cc, -torch.inf)
-    best = cc.argmax(-1).to(torch.int32)
-    fallback = i_c + (base_offset + (n_pos - 1) // 2)   # the expected position
-    return (torch.where(cc.amax(-1) > -1.0, base + best, fallback) + sync_len).to(torch.int32)
+    attempt kernels compute it; with no valid position, the expected one."""
+    b, n_cand = i_c.shape
+    row = torch.arange(b, device=x.device).repeat_interleave(n_cand)
+    delta = refine_deltas_plain(x, row, i_c.reshape(-1), vlen[row], sync, sync_e,
+                                base_offset, n_pos,
+                                base_offset + (n_pos - 1) // 2 + len(sync))
+    return (i_c + delta.reshape(b, n_cand)).to(torch.int32)
+
+
+def _require(*specs) -> None:
+    """Each (name, tensor, shape, dtype) must be a contiguous tensor of that
+    shape and type."""
+    for name, tensor, shape, dtype in specs:
+        if (tuple(tensor.shape) != shape or tensor.dtype != dtype
+                or not tensor.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {dtype}{list(shape)}")
 
 
 def _check_attempt_args(x, cand, n_valid, vlen, sync, sync_len: int) -> None:
     b, t = x.shape
     n_cand = cand.shape[1]
-    for name, tensor, shape, dtype in (("x", x, (b, t), torch.float32),
-                                       ("cand", cand, (b, n_cand), torch.int32),
-                                       ("n_valid", n_valid, (b,), torch.int32),
-                                       ("vlen", vlen, (b,), torch.int32)):
-        if (tuple(tensor.shape) != shape or tensor.dtype != dtype
-                or not tensor.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous {dtype}{list(shape)}")
+    _require(("x", x, (b, t), torch.float32), ("cand", cand, (b, n_cand), torch.int32),
+             ("n_valid", n_valid, (b,), torch.int32), ("vlen", vlen, (b,), torch.int32))
     if len(sync) != sync_len:
         raise ValueError(f"the sync word must hold {sync_len} samples")
+
+
+def _check_fold_args(x, fs, n_valid) -> None:
+    b, t = x.shape
+    _require(("x", x, (b, t), torch.float32), ("fs", fs, (b, fs.shape[-1]), torch.int32),
+             ("n_valid", n_valid, (b,), torch.int32))
+
+
+def _clamped(cand: torch.Tensor, t: int) -> torch.Tensor:
+    return torch.minimum(cand, torch.tensor(t, dtype=cand.dtype, device=cand.device))
 
 
 def attempt_manchester_plain(x: torch.Tensor, cand: torch.Tensor,
                              n_valid: torch.Tensor, vlen: torch.Tensor,
                              sync: np.ndarray, sync_e: float):
     """Plain PyTorch version of :func:`attempt_manchester`."""
-    b, t = x.shape
-    n_cand = cand.shape[1]
+    fs = _refine_plain(x, _clamped(cand, x.shape[1]), vlen, sync, sync_e,
+                       base_offset=42, n_pos=SYNC_POSITIONS)
+    return attempt_manchester_fold_plain(x, fs, n_valid)
+
+
+def attempt_manchester_fold_plain(x: torch.Tensor, fs: torch.Tensor, n_valid: torch.Tensor):
+    """Plain PyTorch version of :func:`attempt_manchester_fold`."""
+    b, _ = x.shape
+    n_cand = fs.shape[1]
     dev = x.device
-    live = _live(cand, n_valid)
-    i_c = torch.minimum(cand, torch.tensor(t, dtype=cand.dtype, device=dev))
-    fs = _refine_plain(x, i_c, vlen, sync, sync_e, base_offset=42,
-                       n_pos=SYNC_POSITIONS)
+    live = _live(fs, n_valid)
     body = _windows(x, fs, torch.arange(FRAME_BYTES * 8 * BIT_SAMPLES, device=dev))
     w = body.reshape(b, n_cand, FRAME_BYTES * 8, BIT_SAMPLES)
     d = (w[..., 0] + w[..., 1] + w[..., 2]) - (w[..., 3] + w[..., 4] + w[..., 5])
@@ -248,17 +291,44 @@ def attempt_manchester(x: torch.Tensor, cand: torch.Tensor,
 
 attempt_manchester.launches = 0
 
+_FOLD_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+
+
+def attempt_manchester_fold(x: torch.Tensor, fs: torch.Tensor, n_valid: torch.Tensor):
+    """The frame decode of :func:`attempt_manchester` from given frame
+    starts fs int32[B, C] (the sync-refine fold): bytes uint8[B, C, 263]
+    and fs, each zero at slots c >= min(n_valid, C)."""
+    if not _build.on_cuda(x, fs, n_valid):
+        return attempt_manchester_fold_plain(x, fs, n_valid)
+    _check_fold_args(x, fs, n_valid)
+    b, t = x.shape
+    n_cand = fs.shape[1]
+    byts = torch.empty((b, n_cand, FRAME_BYTES), dtype=torch.uint8, device=x.device)
+    fs_out = torch.empty((b, n_cand), dtype=torch.int32, device=x.device)
+    fn = _build.entry("attempt_manchester", "tm_attempt_manchester_fold", _FOLD_ARGTYPES)
+    err = fn(x.data_ptr(), fs.data_ptr(), n_valid.data_ptr(), b, t, n_cand,
+             byts.data_ptr(), fs_out.data_ptr(), _build.stream_ptr(x))
+    _build.check(err, "attempt_manchester_fold")
+    attempt_manchester_fold.launches += 1
+    return byts, fs_out
+
+
+attempt_manchester_fold.launches = 0
+
 
 def attempt_4b5b_plain(x: torch.Tensor, cand: torch.Tensor,
                        n_valid: torch.Tensor, vlen: torch.Tensor,
                        sync: np.ndarray, sync_e: float):
     """Plain PyTorch version of :func:`attempt_4b5b`."""
-    b, t = x.shape
+    fs = _refine_plain(x, _clamped(cand, x.shape[1]), vlen, sync, sync_e,
+                       base_offset=15, n_pos=SYNC_POSITIONS_4B5B)
+    return attempt_4b5b_fold_plain(x, fs, n_valid)
+
+
+def attempt_4b5b_fold_plain(x: torch.Tensor, fs: torch.Tensor, n_valid: torch.Tensor):
+    """Plain PyTorch version of :func:`attempt_4b5b_fold`."""
     dev = x.device
-    live = _live(cand, n_valid)
-    i_c = torch.minimum(cand, torch.tensor(t, dtype=cand.dtype, device=dev))
-    fs = _refine_plain(x, i_c, vlen, sync, sync_e, base_offset=15,
-                       n_pos=SYNC_POSITIONS_4B5B)
+    live = _live(fs, n_valid)
     body = _windows(x, fs, torch.arange(ZERO_SYMBOLS * SYMBOL_SAMPLES, device=dev))
     w = body.reshape(*fs.shape, ZERO_SYMBOLS * 5, 3)
     level = (w[..., 0] + w[..., 1]) + w[..., 2]          # the kernel's order
@@ -326,6 +396,32 @@ def attempt_4b5b(x: torch.Tensor, cand: torch.Tensor,
 
 attempt_4b5b.launches = 0
 
+_FOLD_4B5B_ARGTYPES = _FOLD_ARGTYPES + [ctypes.c_void_p] * 2   # + first_bad, first_zero
+
+
+def attempt_4b5b_fold(x: torch.Tensor, fs: torch.Tensor, n_valid: torch.Tensor):
+    """The decode of :func:`attempt_4b5b` from given frame starts fs
+    int32[B, C] (the sync-refine fold): (bytes, fs, first_bad, first_zero),
+    each zero at slots c >= min(n_valid, C)."""
+    if not _build.on_cuda(x, fs, n_valid):
+        return attempt_4b5b_fold_plain(x, fs, n_valid)
+    _check_fold_args(x, fs, n_valid)
+    b, t = x.shape
+    n_cand = fs.shape[1]
+    byts = torch.empty((b, n_cand, FRAME_BYTES), dtype=torch.uint8, device=x.device)
+    fs_out, first_bad, first_zero = (
+        torch.empty((b, n_cand), dtype=torch.int32, device=x.device) for _ in range(3))
+    fn = _build.entry("attempt_4b5b", "tm_attempt_4b5b_fold", _FOLD_4B5B_ARGTYPES)
+    err = fn(x.data_ptr(), fs.data_ptr(), n_valid.data_ptr(), b, t, n_cand,
+             byts.data_ptr(), fs_out.data_ptr(), first_bad.data_ptr(), first_zero.data_ptr(),
+             _build.stream_ptr(x))
+    _build.check(err, "attempt_4b5b_fold")
+    attempt_4b5b_fold.launches += 1
+    return byts, fs_out, first_bad, first_zero
+
+
+attempt_4b5b_fold.launches = 0
+
 
 # --- step 4 -----------------------------------------------------------------
 
@@ -350,14 +446,24 @@ def spec_phase_a(cfg: PhyConfig, x: torch.Tensor, local_addr: int,
     """Steps 1-4 for captures x f32[B, T] with true lengths vlens int32[B]."""
     pre = line_coding.preamble_waveform(cfg)
     sync = pre[cfg.preamble_len - cfg.sync_len:]
-    _, rows = xcorr_hits(x, pre, cfg.correlation_threshold)
-    cand, corr, n_valid, overflow = compact_hit_rows(rows, n_cand)
-    if cfg.line_coding == MANCHESTER:
-        byts, fs = attempt_manchester(x, cand, n_valid, vlens, sync,
-                                      preamble_energy(sync))
+    if _resolve_fold():
+        rows = xcorr_hits_refine(
+            x, vlens, pre, sync, cfg.correlation_threshold,
+            sync_off=cfg.preamble_len - cfg.sync_len - cfg.sync_margin,
+            n_pos=2 * cfg.sync_margin + 1, sync_len=cfg.sync_len, fall_off=cfg.preamble_len)
+        cand, corr, n_valid, overflow, fs = compact_hit_rows(rows, n_cand, with_fs=True)
+        if cfg.line_coding == MANCHESTER:
+            byts, fs = attempt_manchester_fold(x, fs, n_valid)
+        else:
+            byts, fs, first_bad, first_zero = attempt_4b5b_fold(x, fs, n_valid)
     else:
-        byts, fs, first_bad, first_zero = attempt_4b5b(
-            x, cand, n_valid, vlens, sync, preamble_energy(sync))
+        _, rows = xcorr_hits(x, pre, cfg.correlation_threshold)
+        cand, corr, n_valid, overflow = compact_hit_rows(rows, n_cand)
+        if cfg.line_coding == MANCHESTER:
+            byts, fs = attempt_manchester(x, cand, n_valid, vlens, sync, preamble_energy(sync))
+        else:
+            byts, fs, first_bad, first_zero = attempt_4b5b(
+                x, cand, n_valid, vlens, sync, preamble_energy(sync))
 
     hdr = framing.parse_header(byts)
     dlen, ftype, dst = hdr["length"], hdr["frame_type"], hdr["dst"]
