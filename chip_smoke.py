@@ -29,7 +29,12 @@ Phases, each raising on failure (non-zero exit):
    kernels', and the attempt kernels' fold forms against their plain
    versions and, given the legacy frame starts, against the legacy
    kernels; the hit kernel's batch-folded entry against the hit kernel's
-   rows at the flagship shape;
+   rows at the flagship shape; the attempt kernels' shared-capture forms
+   (legacy and fold) against their plain versions on two long captures
+   split into blocks: blocked_600s (Manchester, 600 s, 64 blocks,
+   candidates past 2^24) and a 60 s 4B5B capture in 8 blocks with a frame
+   across every seam, each with live candidates that read past their
+   block's end;
 2. the main paths, each with its kernels' launch counts set to 0 just
    before it and read just after: the flagship and fourb5b_b32 through
    ``decode_capture_fast`` (32 noisy captures of 64 frames of 128-byte
@@ -45,13 +50,24 @@ Phases, each raising on failure (non-zero exit):
    brown fox", ``build_track`` seeds 7-22, no noise); and ``auto_xcorr``
    at L=440 once.  Each decode has a payload gate, every row ``ok``,
    agreement with the exact scan on two rows, and each kernel of its path
-   launched (equalized_b32: each exactly once);
+   launched (equalized_b32: each exactly once).  Then the long-capture
+   blocked decode through ``decode_blocked_single_chip``: blocked_600s
+   (bench.py's row: 48 frames of bytes([i]) * 64 at (i + 1) * (t // 49) in
+   28.8 M samples of noise sigma 0.05, 64 blocks, 8 frames per block, 128
+   candidates) and the 4B5B seam capture, each legacy and with the fold
+   on: every frame once with its exact start and payload, the speculative
+   route ok, one launch of the correlation kernel (or its refine entry)
+   and of the shared attempt, one walk per fixpoint turn, and the fold's
+   frames equal to the legacy decode's;
 3. the fallbacks: a Manchester capture that overflows the candidate table,
    a 4B5B capture with a zeroed level inside an attempted frame, and an
    ASK capture of 150 back-to-back chirps before three frames (more fire
    candidates than its table holds) go to the exact scan on the card, and
    each merged batch equals the exact scan; a noise-only batch passes the
-   equalizer bit for bit;
+   equalizer bit for bit; the 4B5B seam capture with a level zeroed in the
+   frame across seam 1 makes the blocked decode's speculative route not
+   ok, and decode_blocked_single_chip returns the exact blocked route's
+   frames, equal to the sequential exact scan's;
 4. timings with CUDA events (median of 30 runs after warm-up) of each
    kernel against its plain version (the sliding dot and the normalized
    correlation also against ``conv1d``), of the equalizer's steps, of
@@ -59,13 +75,17 @@ Phases, each raising on failure (non-zero exit):
    (alone and before the decode) and ``demodulate_spec`` end to end, and of
    the exact scan of one
    row (median of 5), with peak device memory and, for the equalized
-   decode, the device's busy share (torch.profiler), each printed beside
-   the card's name and power limit.
+   decode, the device's busy share (torch.profiler); at blocked_600s,
+   ``decode_blocked_single_chip`` end to end (median of 30, and its
+   real-time multiple), its steps (phase A, the fixpoint's walks, the
+   compaction), its peak memory and busy share, each shared-capture attempt
+   against its plain version and its bound, and one call of the exact
+   blocked route; each printed beside the card's name and power limit.
 
 The line before the last is a JSON object with the kernels' measurements:
 ``launches`` counts each kernel's launches in the main-path runs of
-phase 2 (the line-coded paths for the shared correlation and walk; the
-batch-folded hit rows are on no path and count 0),
+phase 2 (the line-coded paths and the blocked runs for the shared
+correlation and walk; the batch-folded hit rows are on no path and count 0),
 ``ms`` and ``plain_ms`` time it at the shapes of its first path, and
 ``bound_ms`` is the least time the card could take for that work (bytes
 over 3.35 TB/s or operations over 67 TFLOP/s, whichever is larger).  The
@@ -102,6 +122,13 @@ ASK_BATCH = 16
 ASK_FRAMES = 64
 ASK_TEXT = b"the quick brown fox"
 ASK_MAX_FRAMES = ASK_FRAMES + 8
+BLOCKED_SECONDS = 600       # bench.py's blocked_600s row: one 600 s capture
+BLOCKED_BLOCKS = 64
+BLOCKED_FRAMES = 48
+BLOCKED_PAYLOAD = 64
+BLOCKED_MFPB = 8            # max_frames_per_block
+SEAM_SECONDS = 60           # the 4B5B seam capture: a frame across every seam
+SEAM_BLOCKS = 8
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 # the kernel each wrapper launches, where the two names differ
@@ -110,7 +137,10 @@ KERNEL_NAMES = {"sliding_dot_scaled": "sliding_dot", "dense_fire_candidates": "a
 # the source of each kernel, where it is not csrc/<name>.cu
 SOURCES = {"normalized_xcorr": "xcorr_norm", "xcorr_rowstats": "xcorr_norm",
            "xcorr_hits_refine": "xcorr_hits", "xcorr_hits_batched": "xcorr_hits",
-           "attempt_manchester_fold": "attempt_manchester", "attempt_4b5b_fold": "attempt_4b5b"}
+           "attempt_manchester_fold": "attempt_manchester", "attempt_4b5b_fold": "attempt_4b5b",
+           "attempt_manchester_shared": "attempt_manchester",
+           "attempt_manchester_fold_shared": "attempt_manchester",
+           "attempt_4b5b_shared": "attempt_4b5b", "attempt_4b5b_fold_shared": "attempt_4b5b"}
 
 
 def log(msg: str) -> None:
@@ -163,6 +193,19 @@ def busy_share(torch, fn, calls: int = 5) -> float | None:
     busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA)
     return busy_us / wall_us if busy_us > 0 else None
+
+
+def peak_memory(torch, fn) -> str:
+    """The peak device memory of one call of `fn`, and how far it rose above
+    what was resident before it (the inputs of every phase so far)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return (f"{peak / 2**20:.1f} MiB ({(peak - resident) / 2**20:.1f} MiB above the "
+            f"{resident / 2**20:.1f} MiB resident before the call)")
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -653,6 +696,209 @@ def check_equalizer_noise(torch, equalizer, cfg, dev, seed: int) -> None:
         f"{info['quality'].max().item():.3f} < 0.5, output bit-identical)")
 
 
+def planted_capture(torch, cfg, frames, starts, t: int, seed: int, dev):
+    """`frames` at `starts` in t samples of noise (sigma NOISE, a seeded
+    numpy generator), as bench.py builds its long capture, on `dev`."""
+    from trackmaker_tpu_torch.phy.encoder import PhyEncoder
+
+    enc = PhyEncoder(cfg, device=dev)
+    x = torch.from_numpy(np.random.default_rng(seed).normal(0, NOISE, t).astype(np.float32)).to(dev)
+    for s, f in zip(starts, frames):
+        w = enc.encode_frame(f)
+        x[s:s + w.shape[0]] += w
+    return x
+
+
+def blocked_input(torch, cfg, seed: int, dev):
+    """bench.py's blocked_600s input: 48 frames of bytes([i]) * 64 at
+    (i + 1) * (t // 49) in 600 s; returns (frames, starts, capture f32[t])."""
+    from trackmaker_tpu_torch.core.framing import Frame
+
+    t = BLOCKED_SECONDS * cfg.sample_rate
+    frames = [Frame.new_data(i, 1, 2, bytes([i]) * BLOCKED_PAYLOAD) for i in range(BLOCKED_FRAMES)]
+    starts = [(i + 1) * (t // (BLOCKED_FRAMES + 1)) for i in range(BLOCKED_FRAMES)]
+    return frames, starts, planted_capture(torch, cfg, frames, starts, t, seed, dev)
+
+
+def seam_input(torch, stream, cfg, seed: int, dev):
+    """The 4B5B seam capture: 60 s in 8 blocks, a frame starting 1,000
+    samples before each seam and one in the middle of each block."""
+    from trackmaker_tpu_torch.core.framing import Frame
+
+    t = SEAM_SECONDS * cfg.sample_rate
+    block = stream.spec_block(t, SEAM_BLOCKS)
+    starts = sorted([k * block - 1000 for k in range(1, SEAM_BLOCKS)]
+                    + [k * block + block // 2 for k in range(SEAM_BLOCKS)])
+    frames = [Frame.new_data(i, 1, 2, bytes([100 + i]) * BLOCKED_PAYLOAD)
+              for i in range(len(starts))]
+    return frames, starts, planted_capture(torch, cfg, frames, starts, t, seed, dev)
+
+
+def flat_input(torch, stream, x, n_blocks: int):
+    """(flat capture f32[1, n_blocks * block], block, vlens int32[n_blocks]),
+    as decode_blocked_spec pads a capture."""
+    t = x.shape[0]
+    block = stream.spec_block(t, n_blocks)
+    xf = torch.nn.functional.pad(x, (0, n_blocks * block - t))[None].contiguous()
+    return xf, block, torch.full((n_blocks,), t, dtype=torch.int32, device=x.device)
+
+
+def shared_attempts(sd, cfg):
+    """(legacy, fold, legacy plain, fold plain) attempt wrappers of cfg's
+    line code."""
+    if cfg.line_coding == "manchester":
+        return (sd.attempt_manchester, sd.attempt_manchester_fold, sd.attempt_manchester_plain,
+                sd.attempt_manchester_fold_plain)
+    return sd.attempt_4b5b, sd.attempt_4b5b_fold, sd.attempt_4b5b_plain, sd.attempt_4b5b_fold_plain
+
+
+def check_shared(torch, sd, xh, stream, cfg, x, n_blocks: int, tag: str,
+                 need_past_2_24: bool) -> tuple[dict, dict]:
+    """Phase 1 for the shared-capture attempts on one long capture: the
+    legacy and fold forms against their plain versions, the fold's frame
+    starts against the legacy form's; some live candidate must read past
+    its block's end (a kernel reading one block's samples fails there)
+    and, where asked, lie past 2^24.  Returns the max |err| per kernel and
+    the inputs phase 4 times them on."""
+    from trackmaker_tpu_torch.phy.line_coding import preamble_waveform
+    from trackmaker_tpu_torch.sync.correlate import preamble_energy
+
+    pre = preamble_waveform(cfg)
+    sync = pre[cfg.preamble_len - cfg.sync_len:]
+    thr = cfg.correlation_threshold
+    xf, block, vlens = flat_input(torch, stream, x, n_blocks)
+    rows = xh.xcorr_hits(xf, pre, thr)[1][0].reshape(n_blocks, block // 128, -1)
+    rows_r = xh.xcorr_hits_refine(xf, vlens[:1], pre, sync, thr, **refine_kw(cfg))
+    rows_r = rows_r[0].reshape(n_blocks, block // 128, -1)
+    cand, _, n_valid, _ = sd.compact_hit_rows(rows, N_CAND)
+    cand_r, _, n_valid_r, _, fs_r = sd.compact_hit_rows(rows_r, N_CAND, with_fs=True)
+    require(torch.equal(cand_r, cand) and torch.equal(n_valid_r, n_valid),
+            f"the fold's candidate tables ({tag}) differ from the legacy ones")
+    legacy, fold, legacy_plain, fold_plain = shared_attempts(sd, cfg)
+    xe = xf.expand(n_blocks, -1)    # every block reads the one capture: row stride 0
+    calls = {f"{legacy.__name__}_shared": (legacy, legacy_plain,
+                                           (xe, cand, n_valid, vlens, sync, preamble_energy(sync))),
+             f"{fold.__name__}_shared": (fold, fold_plain, (xe, fs_r, n_valid))}
+    errs, outs = {}, {}
+    for k_name, (kernel, plain, args) in calls.items():
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        for g, w in zip(got, want):
+            require(torch.equal(g, w), f"{k_name} ({tag}) differs from its plain version")
+        errs[k_name] = max((g.long() - w.long()).abs().max().item() for g, w in zip(got, want))
+        outs[k_name] = got
+    for g, w in zip(*outs.values()):
+        require(torch.equal(g, w), f"the shared fold attempt ({tag}) differs from the legacy one")
+    live = sd._live(cand, n_valid)
+    fs = outs[f"{legacy.__name__}_shared"][1]
+    body = (sd.FRAME_BYTES * 8 * sd.BIT_SAMPLES if cfg.line_coding == "manchester"
+            else sd.ZERO_SYMBOLS * sd.SYMBOL_SAMPLES)
+    block_end = (torch.arange(n_blocks, device=x.device)[:, None] + 1) * block
+    crossing = int((live & (fs + body > block_end)).sum())
+    past = int((live & (cand >= 2**24)).sum())
+    require(crossing > 0, f"no live candidate of {tag} reads past its block's end")
+    require(past > 0 or not need_past_2_24, f"no live candidate of {tag} lies past 2^24")
+    log(f"phase 1: {' and '.join(calls)} == plain on {tag} ({x.shape[0]} samples, {n_blocks} "
+        f"blocks of {block}): {int(live.sum())} live candidates, {crossing} reading past their "
+        f"block's end, {past} past 2^24; the fold's frame starts and bytes == the legacy form's")
+    return errs, dict(calls=calls, live=int(live.sum()), xf=xf, block=block, vlens=vlens)
+
+
+def frame_set(res):
+    """The valid frames of a flat result as sorted (start, sequence, bytes)."""
+    return sorted((s, q, b) for b, _, _, q, _, _, s in frame_list(res))
+
+
+def run_blocked_path(torch, sd, stream, cfg, x, frames, starts, n_blocks: int, counters,
+                     tag: str, cross_check: bool):
+    """One main-path run of decode_blocked_single_chip with its gates: every
+    frame once, at its start, with its payload; the speculative route ok
+    and equal to the returned frames; each kernel in `counters` (name,
+    wrapper, counter attribute, expected launches or None for one per
+    fixpoint turn) launched as expected.  With `cross_check`, the plain
+    walk's fixpoint on the same candidate tables must take as many turns,
+    and more than one.  Returns (the launches, the frames)."""
+    for _, fn, attr, _ in counters:
+        setattr(fn, attr, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = stream.decode_blocked_single_chip(cfg, x, LOCAL_ADDR, n_blocks, BLOCKED_MFPB, N_CAND)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: getattr(fn, attr) for name, fn, attr, _ in counters}
+    log(f"phase 2 ({tag}): decode_blocked_single_chip took {wall * 1e3:.1f} ms (first call), "
+        f"kernel launches {launches}")
+    spec_res, ok, turns = stream.decode_blocked_spec(cfg, x, LOCAL_ADDR, n_blocks, BLOCKED_MFPB,
+                                                     N_CAND)
+    require(bool(ok), f"the {tag} speculative route is not ok")
+    require(all(torch.equal(p, q) for p, q in zip(spec_res, res)),
+            f"{tag}: decode_blocked_single_chip differs from its speculative route")
+    expect = {name: turns if n is None else n for name, _, _, n in counters}
+    require(launches == expect, f"{tag} launches {launches}, expected {expect}")
+    if cross_check:
+        xf, block, vlens = flat_input(torch, stream, x, n_blocks)
+        a = sd.spec_phase_a(cfg, xf[0], LOCAL_ADDR, N_CAND, vlens, flat_blocks=(n_blocks, block))
+        block_starts = torch.arange(n_blocks, dtype=torch.int32, device=x.device) * block
+        _, plain_turns = stream.seam_fixpoint(sd.spec_walk_plain, a.fields, block_starts,
+                                              block_starts + block, BLOCKED_MFPB)
+        require(plain_turns == turns > 1, f"{tag}: the fixpoint took {turns} turn(s), the "
+                f"plain walk's {plain_turns}; more than one expected")
+    got = frame_set(res)
+    want = sorted((s, f.sequence, f.to_bytes()) for s, f in zip(starts, frames))
+    require([q for _, q, _ in got] == [q for _, q, _ in want] and got == want,
+            f"{tag} payload gate failed: {len(got)} of {len(frames)} frames, sequences "
+            f"{[q for _, q, _ in got]}")
+    log(f"phase 2 ({tag}): payload gate passed ({len(frames)} frames, starts up to "
+        f"{max(starts)}, each exact), ok, {turns} fixpoint turn(s), one walk each")
+    return launches, res
+
+
+def check_blocked_fallback(torch, stream, decode_capture, cfg, x, starts) -> None:
+    """The 4B5B seam capture with a level zeroed inside the frame across
+    seam 1 (a near-zero level the attempt kernel reads otherwise than the
+    receiver): the speculative route is not ok, decode_blocked_single_chip
+    returns the exact route's frames, and they equal the sequential exact
+    scan's."""
+    seam = stream.spec_block(x.shape[0], SEAM_BLOCKS)
+    require(seam - 1000 in starts, "no frame across seam 1 of the seam capture")
+    zeroed = x.clone()
+    level0 = seam - 1000 + cfg.preamble_len + 20 * 15 + 3
+    zeroed[level0:level0 + 3] = 0.0
+    _, ok, _ = stream.decode_blocked_spec(cfg, zeroed, LOCAL_ADDR, SEAM_BLOCKS, BLOCKED_MFPB, N_CAND)
+    require(not bool(ok), "the zeroed level did not make the speculative route not ok")
+    got = stream.decode_blocked_single_chip(cfg, zeroed, LOCAL_ADDR, SEAM_BLOCKS, BLOCKED_MFPB,
+                                            N_CAND)
+    exact = stream.decode_blocked_exact(cfg, zeroed, LOCAL_ADDR, SEAM_BLOCKS, BLOCKED_MFPB)
+    require(all(torch.equal(p, q) for p, q in zip(got, exact)),
+            "decode_blocked_single_chip did not return the exact route's frames")
+    seq = decode_capture(cfg, zeroed, LOCAL_ADDR, max_frames=len(starts) + 8)
+    require(frame_set(got) == frame_set(seq), "the exact blocked route differs from the exact scan")
+    log(f"phase 3 (blocked 4b5b): a zeroed level across seam 1 makes the speculative route not "
+        f"ok; decode_blocked_single_chip returned the exact route's {len(frame_set(got))} frames "
+        f"(of {len(starts)} planted), equal to the sequential exact scan's")
+
+
+def shared_bound(sd, cfg, k_name: str, info: dict) -> tuple[float, str]:
+    """The least time of a shared-capture attempt: the samples its live
+    candidates need (at most the whole capture) and its small inputs read,
+    its outputs written; the refine taps (legacy forms) and the decode's
+    operations of each live candidate."""
+    slots = info["vlens"].numel() * N_CAND
+    fold = "_fold" in k_name
+    if cfg.line_coding == "manchester":
+        body, out_per_slot = sd.FRAME_BYTES * 8 * sd.BIT_SAMPLES, sd.FRAME_BYTES + 4
+        refine, decode_ops = (13 + 47, 13 * 48 * 4), sd.FRAME_BYTES * 8 * 6
+    else:
+        body, out_per_slot = sd.ZERO_SYMBOLS * sd.SYMBOL_SAMPLES, sd.FRAME_BYTES + 12
+        refine, decode_ops = (31 + 29, 31 * 30 * 4), sd.ZERO_SYMBOLS * 5 * 4
+    window = body + (0 if fold else refine[0])
+    reads = min(info["xf"].numel(), info["live"] * window) * 4
+    small = slots * 4 + info["vlens"].numel() * 4 * (1 if fold else 2)
+    return bound(reads + small + slots * out_per_slot,
+                 info["live"] * (decode_ops + (0 if fold else refine[1])))
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -668,6 +914,7 @@ def main() -> None:
         raise SystemExit(f"chip_smoke.py must run from a checkout of the repository: {exc}")
     from trackmaker_tpu_torch.core.framing import Frame
     from trackmaker_tpu_torch.dsp import equalizer
+    from trackmaker_tpu_torch.parallel import stream
     from trackmaker_tpu_torch.phy import ask, ask_spec
     from trackmaker_tpu_torch.phy import spec_decode as sd
     from trackmaker_tpu_torch.phy.decoder import (
@@ -702,9 +949,13 @@ def main() -> None:
     t4 = x4.shape[1]
     acfg = ask.AskConfig()
     frames_a, xa = ask_captures(torch, ask, acfg, dev)
+    frames_b, starts_b, xb = blocked_input(torch, cfg, args.seed + 3, dev)
+    frames_s, starts_s, xs = seam_input(torch, stream, cfg4, args.seed + 4, dev)
     log(f"flagship input: {b} x {t} samples; fourb5b_b32 input: {b} x {t4} samples; "
         f"equalized_b32 input: {b} x {xe.shape[1]} samples; {N_FRAMES} frames per capture; "
-        f"ask_b16 input: {xa.shape[0]} x {xa.shape[1]} samples, {ASK_FRAMES} frames per capture")
+        f"ask_b16 input: {xa.shape[0]} x {xa.shape[1]} samples, {ASK_FRAMES} frames per capture; "
+        f"blocked_600s input: {xb.shape[0]} samples, {len(frames_b)} frames; 4B5B seam input: "
+        f"{xs.shape[0]} samples, {len(frames_s)} frames")
     pre, pre4 = preamble_waveform(cfg), preamble_waveform(cfg4)
     sync = pre[cfg.preamble_len - cfg.sync_len:]
     sync4 = pre4[cfg4.preamble_len - cfg4.sync_len:]
@@ -763,6 +1014,12 @@ def main() -> None:
             for k_name, v in e.items():
                 errs[k_name] = max(errs.get(k_name, 0), v)
     fold_in, fold_in4 = fold_in["flagship"], fold_in["fourb5b_b32"]
+    shared_in = {}
+    for tag, c, xx, n_blocks, past in (("blocked_600s", cfg, xb, BLOCKED_BLOCKS, True),
+                                       ("the 4B5B seam capture", cfg4, xs, SEAM_BLOCKS, False)):
+        shared_errs, shared_in[c.line_coding] = check_shared(torch, sd, xh, stream, c, xx,
+                                                             n_blocks, tag, past)
+        errs.update(shared_errs)
     del corr_p, corr_p4, cp, rows_b     # the dense corr: keep it out of phase 4's peak memory
 
     rng = np.random.default_rng(args.seed + 17)
@@ -869,6 +1126,32 @@ def main() -> None:
     ask_kernels = (sdot.sliding_dot_scaled, ask_spec.dense_fire_candidates, ask.ask_chain,
                    ask_spec.ask_walk)
     launches.update(run_ask_main_path(torch, ask, ask_spec, acfg, xa, frames_a, ask_kernels))
+    blocked = {}
+    for tag, c, xx, fr, st, n_blocks, fold in (
+            ("blocked_600s", cfg, xb, frames_b, starts_b, BLOCKED_BLOCKS, False),
+            ("blocked_600s_fold", cfg, xb, frames_b, starts_b, BLOCKED_BLOCKS, True),
+            ("fourb5b_seam_60s", cfg4, xs, frames_s, starts_s, SEAM_BLOCKS, False),
+            ("fourb5b_seam_60s_fold", cfg4, xs, frames_s, starts_s, SEAM_BLOCKS, True)):
+        legacy, fold_fn, _, _ = shared_attempts(sd, c)
+        counters = [("xcorr_hits", xcorr_hits, "launches", int(not fold)),
+                    ("xcorr_hits_refine", xh.xcorr_hits_refine, "launches", int(fold)),
+                    (f"{legacy.__name__}_shared", legacy, "shared_launches", int(not fold)),
+                    (f"{fold_fn.__name__}_shared", fold_fn, "shared_launches", int(fold)),
+                    (legacy.__name__, legacy, "launches", 0),
+                    ("spec_walk", sd.spec_walk, "launches", None)]
+        old_fold = sd.SYNC_FOLD
+        sd.SYNC_FOLD = fold
+        try:
+            got, blocked[tag] = run_blocked_path(torch, sd, stream, c, xx, fr, st, n_blocks,
+                                                 counters, tag, tag == "fourb5b_seam_60s")
+        finally:
+            sd.SYNC_FOLD = old_fold
+        for k_name, n in got.items():
+            launches[k_name] = launches.get(k_name, 0) + n
+        if fold:
+            require(all(torch.equal(p, q) for p, q in zip(blocked[tag], blocked[tag[:-5]])),
+                    f"{tag}: the fold's frames differ from the legacy decode's")
+            log(f"phase 2 ({tag}): every field equals the legacy decode's")
 
     # --- phase 3: the fallbacks ----------------------------------------------
     enc = PhyEncoder(cfg, device=dev)
@@ -891,6 +1174,7 @@ def main() -> None:
                    "a zeroed level inside an attempted frame")
     check_ask_fallback(torch, ask, ask_spec, acfg, dev)
     check_equalizer_noise(torch, equalizer, cfg, dev, args.seed + 23)
+    check_blocked_fallback(torch, stream, decode_capture, cfg4, xs, starts_s)
 
     # --- phase 4: timings ------------------------------------------------------
     ms = {
@@ -1085,11 +1369,9 @@ def main() -> None:
             + ", ".join(f"{v:.4f}" for _, v in turns) + " ms; medians legacy "
             f"{statistics.median(v for f, v in turns if not f):.4f}, fold "
             f"{statistics.median(v for f, v in turns if f):.4f} ms [{card}]")
-        torch.cuda.reset_peak_memory_stats()
-        sd.decode_capture_spec(c, xx, LOCAL_ADDR, max_frames=MAX_FRAMES)
-        torch.cuda.synchronize()
-        log(f"phase 4: decode_capture_spec {tag} peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{card}]")
+        peak = peak_memory(torch, lambda: sd.decode_capture_spec(c, xx, LOCAL_ADDR,
+                                                                 max_frames=MAX_FRAMES))
+        log(f"phase 4: decode_capture_spec {tag} peak device memory {peak} [{card}]")
         scan = time_ms(torch, lambda: decode_capture(c, xx[0], LOCAL_ADDR, MAX_FRAMES), runs=5)
         log(f"phase 4: exact scan {tag}, one row of {N_FRAMES} frames: {scan:.4f} ms [{card}]")
     power_a, sync_a, upd_a = ask.dense_arrays(acfg, xa)
@@ -1111,11 +1393,9 @@ def main() -> None:
     rt = xa.numel() / acfg.sample_rate / (e2e / 1e3)
     log(f"phase 4: demodulate_spec ask_b16 {xa.shape[0]} x {xa.shape[1]}: {e2e:.4f} ms, "
         f"{rt:.1f}x real time [{card}]")
-    torch.cuda.reset_peak_memory_stats()
-    ask_spec.demodulate_spec(acfg, xa, max_frames=ASK_MAX_FRAMES)
-    torch.cuda.synchronize()
-    log(f"phase 4: demodulate_spec ask_b16 peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{card}]")
+    peak = peak_memory(torch, lambda: ask_spec.demodulate_spec(acfg, xa,
+                                                               max_frames=ASK_MAX_FRAMES))
+    log(f"phase 4: demodulate_spec ask_b16 peak device memory {peak} [{card}]")
     scan = time_ms(torch, lambda: ask.demodulate(acfg, xa[0], max_frames=ASK_MAX_FRAMES), runs=5)
     log(f"phase 4: exact scan ask_b16, one row of {ASK_FRAMES} frames: {scan:.4f} ms [{card}]")
 
@@ -1145,14 +1425,63 @@ def main() -> None:
         f"{e2e:.4f} ms, {rt:.1f}x real time [{card}]")
     for what, fn in (("equalize_capture", lambda: equalizer.equalize_capture(cfg, xe)),
                      ("equalize_capture + decode_capture_spec", eq_decode)):
-        torch.cuda.reset_peak_memory_stats()
-        fn()
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() / 2**20
+        peak = peak_memory(torch, fn)
         share = busy_share(torch, fn)
         busy = "not measured (no device events traced)" if share is None else f"{share:.3f}"
-        log(f"phase 4: {what} equalized_b32 peak device memory {peak:.1f} MiB, device busy "
+        log(f"phase 4: {what} equalized_b32 peak device memory {peak}, device busy "
             f"share over 5 calls (torch.profiler) {busy} [{card}]")
+
+    # blocked_600s: end to end, its steps, memory, busy share, the shared
+    # attempts at their captures' shapes, one exact blocked decode
+    def blocked_call():
+        return stream.decode_blocked_single_chip(cfg, xb, LOCAL_ADDR, BLOCKED_BLOCKS,
+                                                 BLOCKED_MFPB, N_CAND)
+
+    e2e = time_ms(torch, blocked_call)
+    log(f"phase 4: decode_blocked_single_chip blocked_600s ({xb.shape[0]} samples, "
+        f"{BLOCKED_BLOCKS} blocks): {e2e:.4f} ms, {BLOCKED_SECONDS / (e2e / 1e3):.1f}x real time "
+        f"[{card}]")
+    info_b = shared_in["manchester"]
+    xbf, block_b, vlens_b = info_b["xf"][0], info_b["block"], info_b["vlens"]
+    a_b = sd.spec_phase_a(cfg, xbf, LOCAL_ADDR, N_CAND, vlens_b,
+                          flat_blocks=(BLOCKED_BLOCKS, block_b))
+    starts_t = torch.arange(BLOCKED_BLOCKS, dtype=torch.int32, device=dev) * block_b
+    walk_b, turns_b = stream.seam_fixpoint(sd.spec_walk, a_b.fields, starts_t, starts_t + block_b,
+                                           BLOCKED_MFPB)
+    blocked_steps = {
+        "spec_phase_a (flat)": lambda: sd.spec_phase_a(cfg, xbf, LOCAL_ADDR, N_CAND, vlens_b,
+                                                       flat_blocks=(BLOCKED_BLOCKS, block_b)),
+        f"seam_fixpoint ({turns_b} walk turn(s))": lambda: stream.seam_fixpoint(
+            sd.spec_walk, a_b.fields, starts_t, starts_t + block_b, BLOCKED_MFPB),
+        "spec_compact": lambda: sd.spec_compact(a_b, walk_b.keep, BLOCKED_MFPB),
+    }
+    for step, fn in blocked_steps.items():
+        log(f"phase 4: blocked_600s step {step}: {time_ms(torch, fn):.4f} ms [{card}]")
+    peak = peak_memory(torch, blocked_call)
+    share = busy_share(torch, blocked_call)
+    busy = "not measured (no device events traced)" if share is None else f"{share:.3f}"
+    log(f"phase 4: decode_blocked_single_chip blocked_600s peak device memory {peak} (the "
+        f"capture itself {xb.numel() * 4 / 2**20:.1f} MiB), device busy share over 5 calls "
+        f"(torch.profiler) {busy} [{card}]")
+    for c in (cfg, cfg4):
+        info = shared_in[c.line_coding]
+        for k_name, (kernel, plain, call_args) in info["calls"].items():
+            ms[k_name] = time_ms(torch, lambda: kernel(*call_args))
+            plain_ms[k_name] = time_ms(torch, lambda: plain(*call_args))
+            bounds[k_name] = shared_bound(sd, c, k_name, info)
+            log(f"phase 4: {k_name}: kernel {ms[k_name]:.4f} ms, plain {plain_ms[k_name]:.4f} ms, "
+                f"bound {bounds[k_name][0]:.6f} ms ({bounds[k_name][1]}) at {info['live']} live "
+                f"of {info['vlens'].numel() * N_CAND} slots [{card}]")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exact_b = stream.decode_blocked_exact(cfg, xb, LOCAL_ADDR, BLOCKED_BLOCKS, BLOCKED_MFPB)
+    torch.cuda.synchronize()
+    exact_s = time.perf_counter() - t0
+    require(frame_set(exact_b) == frame_set(blocked["blocked_600s"]),
+            "blocked_600s: the exact blocked route differs from the speculative one")
+    log(f"phase 4: decode_blocked_exact blocked_600s, one call: {exact_s * 1e3:.1f} ms "
+        f"({BLOCKED_SECONDS / exact_s:.1f}x real time), frames equal the speculative route's "
+        f"[{card}]")
 
     replaces = {
         "xcorr_hits": "trackmaker_tpu/sync/pallas_xcorr.py:148",
@@ -1170,6 +1499,11 @@ def main() -> None:
         # the fold_sync branches of the attempt kernels
         "attempt_manchester_fold": "trackmaker_tpu/phy/pallas_decode.py:207",
         "attempt_4b5b_fold": "trackmaker_tpu/phy/pallas_decode.py:409",
+        # the shared_x branches (bx = 0 if shared_x else b), legacy and fold
+        "attempt_manchester_shared": "trackmaker_tpu/phy/pallas_decode.py:219",
+        "attempt_manchester_fold_shared": "trackmaker_tpu/phy/pallas_decode.py:219",
+        "attempt_4b5b_shared": "trackmaker_tpu/phy/pallas_decode.py:419",
+        "attempt_4b5b_fold_shared": "trackmaker_tpu/phy/pallas_decode.py:419",
     }
     print(json.dumps({"kernels": [
         {"name": k_name, "route": "cuda",

@@ -26,16 +26,20 @@ refine deltas and everything the attempts return exactly equal (the
 refines add the same way in the kernels and the plain versions); the
 refine entry's columns 0..8 and the batch-folded entry's rows equal the
 hit kernel's bit for bit; the fold decode on the card equals the legacy
-decode in every field."""
+decode in every field.  The attempt kernels' shared-capture forms (one flat
+capture read by every block's table) return exactly what their plain
+versions and the per-row kernels on the capture repeated for every block
+return."""
 
 import numpy as np
 import pytest
 import torch
 
-from trackmaker_tpu_torch import PhyConfig, _build
+from trackmaker_tpu_torch import PhyConfig, _build, decode_blocked_exact, decode_blocked_single_chip
 from trackmaker_tpu_torch.core.framing import Frame
 from trackmaker_tpu_torch.dsp import channel, equalizer
 from trackmaker_tpu_torch.dsp.osc import chirp_np
+from trackmaker_tpu_torch.parallel.stream import spec_block
 from trackmaker_tpu_torch.phy import ask, ask_spec
 from trackmaker_tpu_torch.phy import spec_decode as sd
 from trackmaker_tpu_torch.phy.decoder import decode_capture, decode_capture_fast
@@ -249,7 +253,9 @@ def test_walk_kernel_matches_plain(cuda):
 @pytest.mark.gpu
 def test_positions_past_2_24_stay_exact(cuda):
     """Frames past sample 2^24, where float32 no longer holds every
-    integer: starts and frame bytes come out exact."""
+    integer: starts and frame bytes come out exact, in the batch decode and
+    in both routes of the blocked decode, whose one seam (2 blocks of
+    2^24 + 2^19 samples) lies past 2^24 with a frame across it."""
     enc = PhyEncoder(CFG, device="cpu")
     starts = [2**24 + 1001, 2**24 + 9003]
     x = torch.zeros((1, 2**24 + 20_000))
@@ -262,6 +268,22 @@ def test_positions_past_2_24_stay_exact(cuda):
     assert bool(ok.all())
     assert res.start[0, :2].tolist() == starts
     assert [f.data for f in res.to_frames(row=0)] == [f.data for f in frames]
+
+    seam = 2**24 + 2**19
+    starts = [2**24 + 1001, seam - 1000, seam + 5003]
+    frames = [Frame.new_data(i, 1, 2, bytes([9 + i]) * 33) for i in range(3)]
+    long = torch.zeros(2 * seam)
+    for s, f in zip(starts, frames):
+        wave = enc.encode_frame(f)
+        long[s:s + wave.shape[0]] = wave
+    assert starts[1] + wave.shape[0] > seam
+    long = long.to(cuda)
+    before = sd.attempt_manchester.shared_launches
+    for res in (decode_blocked_single_chip(CFG, long, 2, n_blocks=2, max_frames_per_block=4),
+                decode_blocked_exact(CFG, long, 2, 2, 4)):
+        assert res.start[res.valid].tolist() == starts
+        assert [f.data for f in res.to_frames()] == [f.data for f in frames]
+    assert sd.attempt_manchester.shared_launches == before + 1
 
 
 @pytest.mark.gpu
@@ -624,3 +646,68 @@ def test_fold_decode_on_the_card_equals_legacy(cuda, monkeypatch, cfg, pre, sync
     for g, w in zip([*fold[0], *fold[1:]], [*legacy[0], *legacy[1:]]):
         assert torch.equal(g, w)
     assert int(fold[0].count.sum()) >= 30
+
+
+SHARED_FORMS = {
+    "manchester": (CFG, PRE, SYNC, False, sd.attempt_manchester, sd.attempt_manchester_plain),
+    "manchester-fold": (CFG, PRE, SYNC, True, sd.attempt_manchester_fold,
+                        sd.attempt_manchester_fold_plain),
+    "4b5b": (CFG4, PRE4, SYNC4, False, sd.attempt_4b5b, sd.attempt_4b5b_plain),
+    "4b5b-fold": (CFG4, PRE4, SYNC4, True, sd.attempt_4b5b_fold, sd.attempt_4b5b_fold_plain),
+}
+
+
+def _flat_capture(cfg, pre, sync, fold: bool, device, n_blocks: int = 8):
+    """One noisy capture of 12 frames zero-padded to `n_blocks` blocks of
+    whole hit rows, most frames across a block's end, and the shared
+    attempt's arguments after x as the flat blocked decode makes them:
+    (x f32[n_blocks, T], the capture expanded to every block with a row
+    stride of 0, arguments, block)."""
+    wave = _captures(b=1, cfg=cfg)[0]
+    block = spec_block(len(wave), n_blocks)
+    x = torch.zeros((1, n_blocks * block))
+    x[0, :len(wave)] = torch.from_numpy(wave)
+    x = x.to(device)
+    vlens = torch.full((n_blocks,), len(wave), dtype=torch.int32, device=device)
+    if fold:
+        rows = xcorr_hits_refine(x, vlens[:1], pre, sync, THR, **_refine_kw(cfg))
+    else:
+        rows = xcorr_hits(x, pre, THR)[1]
+    rows = rows[0].reshape(n_blocks, block // 128, -1)
+    if fold:
+        _, _, n_valid, _, fs = sd.compact_hit_rows(rows, 32, with_fs=True)
+        return x.expand(n_blocks, -1), (fs, n_valid), block
+    cand, _, n_valid, _ = sd.compact_hit_rows(rows, 32)
+    return x.expand(n_blocks, -1), (cand, n_valid, vlens, sync, preamble_energy(sync)), block
+
+
+def test_cpu_tensors_run_the_plain_shared_attempts():
+    """On CPU tensors the shared-capture attempts return their plain
+    versions' results and count no launch."""
+    for cfg, pre, sync, fold, attempt, plain in SHARED_FORMS.values():
+        x, args, _ = _flat_capture(cfg, pre, sync, fold, "cpu", n_blocks=4)
+        before = (attempt.launches, attempt.shared_launches)
+        got = attempt(x, *args)
+        assert all(torch.equal(p, q) for p, q in zip(got, plain(x, *args)))
+        assert (attempt.launches, attempt.shared_launches) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", list(SHARED_FORMS))
+def test_shared_attempt_kernels_match_plain(cuda, form):
+    cfg, pre, sync, fold, attempt, plain = SHARED_FORMS[form]
+    x, args, block = _flat_capture(cfg, pre, sync, fold, cuda)
+    n_blocks = x.shape[0]
+    before = (attempt.launches, attempt.shared_launches)
+    got = attempt(x, *args)
+    torch.cuda.synchronize()
+    assert (attempt.launches, attempt.shared_launches) == (before[0], before[1] + 1)
+    want = plain(x, *args)
+    per_row = attempt(x.contiguous(), *args)
+    for g, w, r in zip(got, want, per_row):
+        assert torch.equal(g, w) and torch.equal(g, r)
+    fs, live = got[1], sd._live(got[1], args[1])
+    body = (sd.FRAME_BYTES * 8 * sd.BIT_SAMPLES if cfg.line_coding == "manchester"
+            else sd.ZERO_SYMBOLS * sd.SYMBOL_SAMPLES)
+    block_end = (torch.arange(n_blocks, device=cuda)[:, None] + 1) * block
+    assert int((live & (fs + body > block_end)).sum()) >= 4

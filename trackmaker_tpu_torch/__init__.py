@@ -5,8 +5,10 @@ the same path under ``trackmaker_tpu/``.  The batch decode of the
 Manchester and 4B5B line codes, the MMSE equalizer in front of it and the
 ASK/chirp modem's receiver run on an NVIDIA Hopper card through nine
 hand-written CUDA kernel sources (``csrc/``), built with ``nvcc`` at first
-use; on CPU tensors every kernel wrapper runs its plain PyTorch version.  Importing the package touches no device and
-builds nothing.
+use; on CPU tensors every kernel wrapper runs its plain PyTorch version.
+One long recording decodes in blocks of time through
+``decode_blocked_single_chip``.  Importing the package touches no device
+and builds nothing.
 
     trackmaker_tpu_torch.core   PhyConfig, bit ops, CRC8, frame codec, block index
     trackmaker_tpu_torch.dsp    carrier and chirp synthesis, EMA power, the echo
@@ -15,8 +17,14 @@ builds nothing.
                                 correlation, row-stats and sliding-dot kernels
     trackmaker_tpu_torch.phy    line code, encoder, exact and speculative decode;
                                 the ASK modem and its speculative receiver
+    trackmaker_tpu_torch.parallel  the blocked decode of one long capture
 """
 
 __version__ = "0.1.0"
 
 from trackmaker_tpu_torch.core.config import PhyConfig  # noqa: F401
+from trackmaker_tpu_torch.parallel.stream import (  # noqa: F401
+    decode_blocked_exact,
+    decode_blocked_single_chip,
+    decode_blocked_spec,
+)

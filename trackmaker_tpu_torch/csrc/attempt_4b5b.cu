@@ -28,6 +28,12 @@
 //                           else 640 (the window the JAX epilogue searches)
 // Slots c >= min(n_valid[b], C) get zeros everywhere.
 //
+// Row b of the tables reads x + b * x_stride.  A row stride of 0 is the
+// kernel's shared_x branch (the long-capture blocked decode): every row,
+// one block of one flat capture of T samples, reads that capture, so a
+// frame near a block's end reads the samples that follow it; T is then the
+// padded flat length and vlen[b] the capture's true length.
+//
 // The constants are those of the spl=3 4B5B configuration that the Python
 // wrapper admits (preamble 60 samples, sync word 30, margin 15, at most 263
 // frame bytes = 526 symbols).  The receiver reads each transition against
@@ -87,7 +93,7 @@ __device__ __forceinline__ float level_at(const float* xb, int t, int s) {
 
 template <bool kFold>
 __global__ void attempt_4b5b_kernel(
-    const float* __restrict__ x, const int* __restrict__ cand,
+    const float* __restrict__ x, int64_t x_stride, const int* __restrict__ cand,
     const int* __restrict__ n_valid, const int* __restrict__ vlen,
     const float* __restrict__ sync, int t, int n_cand, float sync_e,
     const int* __restrict__ fs_in, uint8_t* __restrict__ bytes,
@@ -113,7 +119,7 @@ __global__ void attempt_4b5b_kernel(
     return;
   }
 
-  const float* xb = x + static_cast<int64_t>(b) * t;
+  const float* xb = x + b * x_stride;
   int fs;
   if constexpr (kFold) {
     if (tid == 0) {
@@ -187,7 +193,7 @@ __global__ void attempt_4b5b_kernel(
 
 }  // namespace
 
-extern "C" int tm_attempt_4b5b(const float* x, const int* cand,
+extern "C" int tm_attempt_4b5b(const float* x, int64_t x_stride, const int* cand,
                                const int* n_valid, const int* vlen,
                                const float* sync, int batch, int t, int n_cand,
                                float sync_e, uint8_t* bytes, int* fs,
@@ -197,22 +203,22 @@ extern "C" int tm_attempt_4b5b(const float* x, const int* cand,
   }
   dim3 grid(n_cand, batch);
   attempt_4b5b_kernel<false><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, cand, n_valid, vlen, sync, t, n_cand, sync_e, nullptr, bytes, fs, first_bad,
-      first_zero);
+      x, x_stride, cand, n_valid, vlen, sync, t, n_cand, sync_e, nullptr, bytes, fs,
+      first_bad, first_zero);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int tm_attempt_4b5b_fold(const float* x, const int* fs_in,
-                                    const int* n_valid, int batch, int t,
-                                    int n_cand, uint8_t* bytes, int* fs,
-                                    int* first_bad, int* first_zero,
+extern "C" int tm_attempt_4b5b_fold(const float* x, int64_t x_stride,
+                                    const int* fs_in, const int* n_valid,
+                                    int batch, int t, int n_cand, uint8_t* bytes,
+                                    int* fs, int* first_bad, int* first_zero,
                                     void* stream) {
   if (batch < 1 || n_cand < 1 || t < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   dim3 grid(n_cand, batch);
   attempt_4b5b_kernel<true><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, nullptr, n_valid, nullptr, nullptr, t, n_cand, 0.0f, fs_in, bytes, fs,
-      first_bad, first_zero);
+      x, x_stride, nullptr, n_valid, nullptr, nullptr, t, n_cand, 0.0f, fs_in, bytes,
+      fs, first_bad, first_zero);
   return static_cast<int>(cudaGetLastError());
 }

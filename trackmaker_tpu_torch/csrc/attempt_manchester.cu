@@ -21,6 +21,12 @@
 // zero bytes and fs = 0.  Outputs: bytes uint8[B, C, 263] and fs int32[B, C],
 // an absolute position (the fold form copies fs_in to it).
 //
+// Row b of the tables reads x + b * x_stride.  A row stride of 0 is the
+// kernel's shared_x branch (the long-capture blocked decode): every row,
+// one block of one flat capture of T samples, reads that capture, so a
+// frame near a block's end reads the samples that follow it; T is then the
+// padded flat length and vlen[b] the capture's true length.
+//
 // The constants are those of the spl=3 Manchester configuration that the
 // Python wrapper admits (preamble 96 samples, sync word 48, margin 6,
 // header 336, at most 263 frame bytes).
@@ -57,7 +63,7 @@ __device__ __forceinline__ float sample(const float* xb, int t, int idx) {
 
 template <bool kFold>
 __global__ void attempt_manchester_kernel(
-    const float* __restrict__ x, const int* __restrict__ cand,
+    const float* __restrict__ x, int64_t x_stride, const int* __restrict__ cand,
     const int* __restrict__ n_valid, const int* __restrict__ vlen,
     const float* __restrict__ sync, int t, int n_cand, float sync_e,
     const int* __restrict__ fs_in, uint8_t* __restrict__ bytes,
@@ -79,7 +85,7 @@ __global__ void attempt_manchester_kernel(
     return;
   }
 
-  const float* xb = x + static_cast<int64_t>(b) * t;
+  const float* xb = x + b * x_stride;
   int fs;
   if constexpr (kFold) {
     fs = fs_in[slot];
@@ -136,24 +142,26 @@ __global__ void attempt_manchester_kernel(
 
 }  // namespace
 
-extern "C" int tm_attempt_manchester(const float* x, const int* cand,
-                                     const int* n_valid, const int* vlen,
-                                     const float* sync, int batch, int t,
-                                     int n_cand, float sync_e, uint8_t* bytes,
-                                     int* fs, void* stream) {
+extern "C" int tm_attempt_manchester(const float* x, int64_t x_stride,
+                                     const int* cand, const int* n_valid,
+                                     const int* vlen, const float* sync,
+                                     int batch, int t, int n_cand, float sync_e,
+                                     uint8_t* bytes, int* fs, void* stream) {
   if (batch < 1 || n_cand < 1 || t < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   dim3 grid(n_cand, batch);
   attempt_manchester_kernel<false><<<grid, kThreads, 0,
                                      static_cast<cudaStream_t>(stream)>>>(
-      x, cand, n_valid, vlen, sync, t, n_cand, sync_e, nullptr, bytes, fs);
+      x, x_stride, cand, n_valid, vlen, sync, t, n_cand, sync_e, nullptr, bytes,
+      fs);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int tm_attempt_manchester_fold(const float* x, const int* fs_in,
-                                          const int* n_valid, int batch, int t,
-                                          int n_cand, uint8_t* bytes, int* fs,
+extern "C" int tm_attempt_manchester_fold(const float* x, int64_t x_stride,
+                                          const int* fs_in, const int* n_valid,
+                                          int batch, int t, int n_cand,
+                                          uint8_t* bytes, int* fs,
                                           void* stream) {
   if (batch < 1 || n_cand < 1 || t < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -161,6 +169,7 @@ extern "C" int tm_attempt_manchester_fold(const float* x, const int* fs_in,
   dim3 grid(n_cand, batch);
   attempt_manchester_kernel<true><<<grid, kThreads, 0,
                                     static_cast<cudaStream_t>(stream)>>>(
-      x, nullptr, n_valid, nullptr, nullptr, t, n_cand, 0.0f, fs_in, bytes, fs);
+      x, x_stride, nullptr, n_valid, nullptr, nullptr, t, n_cand, 0.0f, fs_in,
+      bytes, fs);
   return static_cast<int>(cudaGetLastError());
 }

@@ -53,6 +53,7 @@ from trackmaker_tpu_torch.sync.correlate import preamble_energy
 from trackmaker_tpu_torch.sync.xcorr_hits import (
     BIGI,
     HIT_SLOTS,
+    ROW_LAGS,
     refine_deltas_plain,
     xcorr_hits,
     xcorr_hits_refine,
@@ -181,11 +182,19 @@ def _live(cand: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
     return torch.arange(n_cand, device=cand.device) < n_valid.clamp(max=n_cand)[:, None]
 
 
+def _one_capture(x: torch.Tensor) -> torch.Tensor:
+    """x f32[B, T] itself or, when its rows are one capture (row stride 0,
+    as ``x.expand(B, -1)`` makes it), that capture f32[1, T], so a plain
+    version reads it once."""
+    return x[:1] if x.stride(0) == 0 else x
+
+
 def _windows(x: torch.Tensor, start: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
     """x[b, start[b, ...] + offsets] for x f32[B, T]; samples at or past T
     read as zero."""
     b, t = x.shape
-    xz = torch.nn.functional.pad(x, (0, 1))       # column t reads as zero
+    # column t reads as zero
+    xz = torch.nn.functional.pad(_one_capture(x), (0, 1)).expand(b, -1)
     idx = (start[..., None].to(torch.int64) + offsets).clamp(max=t)
     return xz.gather(1, idx.reshape(b, -1)).reshape(idx.shape)
 
@@ -197,8 +206,9 @@ def _refine_plain(x: torch.Tensor, i_c: torch.Tensor, vlen: torch.Tensor,
     the best of `n_pos` sync-word positions from i_c + base_offset, as the
     attempt kernels compute it; with no valid position, the expected one."""
     b, n_cand = i_c.shape
-    row = torch.arange(b, device=x.device).repeat_interleave(n_cand)
-    delta = refine_deltas_plain(x, row, i_c.reshape(-1), vlen[row], sync, sync_e,
+    xs = _one_capture(x)
+    blk = torch.arange(b, device=x.device).repeat_interleave(n_cand)
+    delta = refine_deltas_plain(xs, blk % xs.shape[0], i_c.reshape(-1), vlen[blk], sync, sync_e,
                                 base_offset, n_pos,
                                 base_offset + (n_pos - 1) // 2 + len(sync))
     return (i_c + delta.reshape(b, n_cand)).to(torch.int32)
@@ -213,19 +223,28 @@ def _require(*specs) -> None:
             raise ValueError(f"{name} must be a contiguous {dtype}{list(shape)}")
 
 
+def _check_x(x, b: int) -> None:
+    """x must be f32[b, T], contiguous or with rows that are one contiguous
+    capture (row stride 0)."""
+    if (x.ndim != 2 or x.shape[0] != b or x.dtype != torch.float32
+            or not (x.is_contiguous() or (x.stride(0) == 0 and x[0].is_contiguous()))):
+        raise ValueError(f"x must be a contiguous torch.float32[{b}, T], or one capture "
+                         "expanded to those rows")
+
+
 def _check_attempt_args(x, cand, n_valid, vlen, sync, sync_len: int) -> None:
-    b, t = x.shape
-    n_cand = cand.shape[1]
-    _require(("x", x, (b, t), torch.float32), ("cand", cand, (b, n_cand), torch.int32),
+    b, n_cand = cand.shape
+    _check_x(x, b)
+    _require(("cand", cand, (b, n_cand), torch.int32),
              ("n_valid", n_valid, (b,), torch.int32), ("vlen", vlen, (b,), torch.int32))
     if len(sync) != sync_len:
         raise ValueError(f"the sync word must hold {sync_len} samples")
 
 
 def _check_fold_args(x, fs, n_valid) -> None:
-    b, t = x.shape
-    _require(("x", x, (b, t), torch.float32), ("fs", fs, (b, fs.shape[-1]), torch.int32),
-             ("n_valid", n_valid, (b,), torch.int32))
+    b, n_cand = fs.shape
+    _check_x(x, b)
+    _require(("fs", fs, (b, n_cand), torch.int32), ("n_valid", n_valid, (b,), torch.int32))
 
 
 def _clamped(cand: torch.Tensor, t: int) -> torch.Tensor:
@@ -256,8 +275,19 @@ def attempt_manchester_fold_plain(x: torch.Tensor, fs: torch.Tensor, n_valid: to
     return byts, fs
 
 
-_ATTEMPT_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-    ctypes.c_float] + [ctypes.c_void_p] * 3
+# x, its row stride, then the tables, sizes and outputs
+_ATTEMPT_ARGTYPES = [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 4 + [
+    ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_void_p] * 3
+
+
+def _count(wrapper, x: torch.Tensor) -> None:
+    """One more launch on the wrapper's counter: ``shared_launches`` when
+    the rows of x are one capture (row stride 0, the kernel's shared-capture
+    form), else ``launches``."""
+    if x.stride(0) == 0:
+        wrapper.shared_launches += 1
+    else:
+        wrapper.launches += 1
 
 
 def attempt_manchester(x: torch.Tensor, cand: torch.Tensor,
@@ -269,7 +299,10 @@ def attempt_manchester(x: torch.Tensor, cand: torch.Tensor,
     is the 48-sample sync word and `sync_e` its norm.  Returns the frame
     bytes uint8[B, C, 263] and the refined frame start fs int32[B, C] of
     each slot c < min(n_valid, C), zeros elsewhere (see the kernel's note
-    in ``csrc/attempt_manchester.cu``).
+    in ``csrc/attempt_manchester.cu``).  x may be one capture expanded to
+    every row (``x.expand(B, -1)``, row stride 0): every row of the tables
+    then reads that capture (the long-capture blocked decode), counted in
+    ``shared_launches``.
     """
     if not _build.on_cuda(x, cand, n_valid, vlen):
         return attempt_manchester_plain(x, cand, n_valid, vlen, sync, sync_e)
@@ -281,23 +314,26 @@ def attempt_manchester(x: torch.Tensor, cand: torch.Tensor,
     fs = torch.empty((b, n_cand), dtype=torch.int32, device=x.device)
     fn = _build.entry("attempt_manchester", "tm_attempt_manchester",
                       _ATTEMPT_ARGTYPES)
-    err = fn(x.data_ptr(), cand.data_ptr(), n_valid.data_ptr(), vlen.data_ptr(),
+    err = fn(x.data_ptr(), x.stride(0), cand.data_ptr(), n_valid.data_ptr(), vlen.data_ptr(),
              s.data_ptr(), b, t, n_cand, sync_e, byts.data_ptr(), fs.data_ptr(),
              _build.stream_ptr(x))
     _build.check(err, "attempt_manchester")
-    attempt_manchester.launches += 1
+    _count(attempt_manchester, x)
     return byts, fs
 
 
 attempt_manchester.launches = 0
+attempt_manchester.shared_launches = 0
 
-_FOLD_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+_FOLD_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                  + [ctypes.c_void_p] * 3)
 
 
 def attempt_manchester_fold(x: torch.Tensor, fs: torch.Tensor, n_valid: torch.Tensor):
     """The frame decode of :func:`attempt_manchester` from given frame
     starts fs int32[B, C] (the sync-refine fold): bytes uint8[B, C, 263]
-    and fs, each zero at slots c >= min(n_valid, C)."""
+    and fs, each zero at slots c >= min(n_valid, C).  x as for
+    :func:`attempt_manchester`."""
     if not _build.on_cuda(x, fs, n_valid):
         return attempt_manchester_fold_plain(x, fs, n_valid)
     _check_fold_args(x, fs, n_valid)
@@ -306,14 +342,15 @@ def attempt_manchester_fold(x: torch.Tensor, fs: torch.Tensor, n_valid: torch.Te
     byts = torch.empty((b, n_cand, FRAME_BYTES), dtype=torch.uint8, device=x.device)
     fs_out = torch.empty((b, n_cand), dtype=torch.int32, device=x.device)
     fn = _build.entry("attempt_manchester", "tm_attempt_manchester_fold", _FOLD_ARGTYPES)
-    err = fn(x.data_ptr(), fs.data_ptr(), n_valid.data_ptr(), b, t, n_cand,
+    err = fn(x.data_ptr(), x.stride(0), fs.data_ptr(), n_valid.data_ptr(), b, t, n_cand,
              byts.data_ptr(), fs_out.data_ptr(), _build.stream_ptr(x))
     _build.check(err, "attempt_manchester_fold")
-    attempt_manchester_fold.launches += 1
+    _count(attempt_manchester_fold, x)
     return byts, fs_out
 
 
 attempt_manchester_fold.launches = 0
+attempt_manchester_fold.shared_launches = 0
 
 
 def attempt_4b5b_plain(x: torch.Tensor, cand: torch.Tensor,
@@ -374,7 +411,8 @@ def attempt_4b5b(x: torch.Tensor, cand: torch.Tensor,
       near-zero level sum, 640 if none.
 
     Each transition is read against the level just before it (see the
-    kernel's note in ``csrc/attempt_4b5b.cu``).
+    kernel's note in ``csrc/attempt_4b5b.cu``).  x may be one capture
+    expanded to every row, as for :func:`attempt_manchester`.
     """
     if not _build.on_cuda(x, cand, n_valid, vlen):
         return attempt_4b5b_plain(x, cand, n_valid, vlen, sync, sync_e)
@@ -386,15 +424,16 @@ def attempt_4b5b(x: torch.Tensor, cand: torch.Tensor,
     fs, first_bad, first_zero = (
         torch.empty((b, n_cand), dtype=torch.int32, device=x.device) for _ in range(3))
     fn = _build.entry("attempt_4b5b", "tm_attempt_4b5b", _ATTEMPT_4B5B_ARGTYPES)
-    err = fn(x.data_ptr(), cand.data_ptr(), n_valid.data_ptr(), vlen.data_ptr(),
+    err = fn(x.data_ptr(), x.stride(0), cand.data_ptr(), n_valid.data_ptr(), vlen.data_ptr(),
              s.data_ptr(), b, t, n_cand, sync_e, byts.data_ptr(), fs.data_ptr(),
              first_bad.data_ptr(), first_zero.data_ptr(), _build.stream_ptr(x))
     _build.check(err, "attempt_4b5b")
-    attempt_4b5b.launches += 1
+    _count(attempt_4b5b, x)
     return byts, fs, first_bad, first_zero
 
 
 attempt_4b5b.launches = 0
+attempt_4b5b.shared_launches = 0
 
 _FOLD_4B5B_ARGTYPES = _FOLD_ARGTYPES + [ctypes.c_void_p] * 2   # + first_bad, first_zero
 
@@ -402,7 +441,8 @@ _FOLD_4B5B_ARGTYPES = _FOLD_ARGTYPES + [ctypes.c_void_p] * 2   # + first_bad, fi
 def attempt_4b5b_fold(x: torch.Tensor, fs: torch.Tensor, n_valid: torch.Tensor):
     """The decode of :func:`attempt_4b5b` from given frame starts fs
     int32[B, C] (the sync-refine fold): (bytes, fs, first_bad, first_zero),
-    each zero at slots c >= min(n_valid, C)."""
+    each zero at slots c >= min(n_valid, C).  x as for
+    :func:`attempt_manchester`."""
     if not _build.on_cuda(x, fs, n_valid):
         return attempt_4b5b_fold_plain(x, fs, n_valid)
     _check_fold_args(x, fs, n_valid)
@@ -412,15 +452,16 @@ def attempt_4b5b_fold(x: torch.Tensor, fs: torch.Tensor, n_valid: torch.Tensor):
     fs_out, first_bad, first_zero = (
         torch.empty((b, n_cand), dtype=torch.int32, device=x.device) for _ in range(3))
     fn = _build.entry("attempt_4b5b", "tm_attempt_4b5b_fold", _FOLD_4B5B_ARGTYPES)
-    err = fn(x.data_ptr(), fs.data_ptr(), n_valid.data_ptr(), b, t, n_cand,
+    err = fn(x.data_ptr(), x.stride(0), fs.data_ptr(), n_valid.data_ptr(), b, t, n_cand,
              byts.data_ptr(), fs_out.data_ptr(), first_bad.data_ptr(), first_zero.data_ptr(),
              _build.stream_ptr(x))
     _build.check(err, "attempt_4b5b_fold")
-    attempt_4b5b_fold.launches += 1
+    _count(attempt_4b5b_fold, x)
     return byts, fs_out, first_bad, first_zero
 
 
 attempt_4b5b_fold.launches = 0
+attempt_4b5b_fold.shared_launches = 0
 
 
 # --- step 4 -----------------------------------------------------------------
@@ -442,22 +483,47 @@ class SpecFields(NamedTuple):
 
 
 def spec_phase_a(cfg: PhyConfig, x: torch.Tensor, local_addr: int,
-                 n_cand: int, vlens: torch.Tensor) -> SpecFields:
-    """Steps 1-4 for captures x f32[B, T] with true lengths vlens int32[B]."""
+                 n_cand: int, vlens: torch.Tensor,
+                 flat_blocks: tuple[int, int] | None = None) -> SpecFields:
+    """Steps 1-4 for captures x f32[B, T] with true lengths vlens int32[B].
+
+    ``flat_blocks=(n_blocks, block)`` is the long-capture mode: x is one
+    flat capture f32[n_blocks * block], zero-padded past its true length,
+    with ``block % 128 == 0``.  It is correlated once; its hit rows split
+    into one candidate table per block of `block` samples, with positions
+    in the whole capture; and the attempt kernels' shared-capture forms
+    decode every block's candidates from the one capture (expanded to the
+    blocks, a row stride of 0), so a frame near a block's end reads the
+    samples that follow it.  vlens int32[n_blocks] then holds the capture's
+    true length for every block.
+    """
     pre = line_coding.preamble_waveform(cfg)
     sync = pre[cfg.preamble_len - cfg.sync_len:]
-    if _resolve_fold():
+    fold = _resolve_fold()
+    if flat_blocks is not None:
+        n_blocks, block = flat_blocks
+        if x.ndim != 1 or block % ROW_LAGS or x.shape[0] != n_blocks * block:
+            raise ValueError("flat_blocks needs x f32[n_blocks * block] with block % 128 == 0")
+        x = x[None]
+    if fold:
         rows = xcorr_hits_refine(
-            x, vlens, pre, sync, cfg.correlation_threshold,
+            x, vlens[:x.shape[0]], pre, sync, cfg.correlation_threshold,
             sync_off=cfg.preamble_len - cfg.sync_len - cfg.sync_margin,
             n_pos=2 * cfg.sync_margin + 1, sync_len=cfg.sync_len, fall_off=cfg.preamble_len)
+    else:
+        _, rows = xcorr_hits(x, pre, cfg.correlation_threshold)
+    if flat_blocks is not None:
+        # block b's hit rows are the flat capture's rows b * block/128 on;
+        # compact_hit_rows groups rows within each block, never across one
+        rows = rows[0].reshape(n_blocks, block // ROW_LAGS, rows.shape[-1])
+        x = x.expand(n_blocks, -1)
+    if fold:
         cand, corr, n_valid, overflow, fs = compact_hit_rows(rows, n_cand, with_fs=True)
         if cfg.line_coding == MANCHESTER:
             byts, fs = attempt_manchester_fold(x, fs, n_valid)
         else:
             byts, fs, first_bad, first_zero = attempt_4b5b_fold(x, fs, n_valid)
     else:
-        _, rows = xcorr_hits(x, pre, cfg.correlation_threshold)
         cand, corr, n_valid, overflow = compact_hit_rows(rows, n_cand)
         if cfg.line_coding == MANCHESTER:
             byts, fs = attempt_manchester(x, cand, n_valid, vlens, sync, preamble_energy(sync))
