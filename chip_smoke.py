@@ -9,7 +9,9 @@ PyTorch built for CUDA and the CUDA toolkit (``nvcc``):
 Phases, each raising on failure (non-zero exit):
 
 0. setup: TF32 off, the card's name and power limit, the kernels built
-   from ``trackmaker_tpu_torch/csrc`` (one nvcc per source, in parallel);
+   from ``trackmaker_tpu_torch/csrc`` (one nvcc per source, in parallel),
+   and the window health probe ``tools.health.health`` on the card (its
+   path: 1,201 launches of the probe kernel), printed with the card;
 1. each kernel against its plain PyTorch version on the card: the
    Manchester kernels at the flagship shapes (32 captures x 433,464
    samples, 128 candidates), then the correlation at the 60-sample 4B5B
@@ -34,7 +36,13 @@ Phases, each raising on failure (non-zero exit):
    split into blocks: blocked_600s (Manchester, 600 s, 64 blocks,
    candidates past 2^24) and a 60 s 4B5B capture in 8 blocks with a frame
    across every seam, each with live candidates that read past their
-   block's end;
+   block's end; then the tools' kernels: the probe kernel against its
+   plain version, the two-stream correlation (``tools.exp_xcorr_streams``)
+   against its plain version and, bit for bit, against the hit kernel's
+   rows, its noep form against its plain version and the truncation of the
+   hit kernel's dense corr, on the flagship captures and on the tool's
+   noise corpus (32 x 433,464, L=96, threshold 0.5), and the profiler's
+   attempt-only stage, fold off and on, against the plain attempts;
 2. the main paths, each with its kernels' launch counts set to 0 just
    before it and read just after: the flagship and fourb5b_b32 through
    ``decode_capture_fast`` (32 noisy captures of 64 frames of 128-byte
@@ -58,7 +66,11 @@ Phases, each raising on failure (non-zero exit):
    on: every frame once with its exact start and payload, the speculative
    route ok, one launch of the correlation kernel (or its refine entry)
    and of the shared attempt, one walk per fixpoint turn, and the fold's
-   frames equal to the legacy decode's;
+   frames equal to the legacy decode's.  Then the profiler path
+   (``tools.prof_fused``): every stage on the flagship captures, the
+   full-decode stage through the payload gate, the attempt-only stage fold
+   off and on each launching one correlation entry, one attempt and no
+   walk, and the two-stream experiment's row check;
 3. the fallbacks: a Manchester capture that overflows the candidate table,
    a 4B5B capture with a zeroed level inside an attempted frame, and an
    ASK capture of 150 back-to-back chirps before three frames (more fire
@@ -80,12 +92,17 @@ Phases, each raising on failure (non-zero exit):
    real-time multiple), its steps (phase A, the fixpoint's walks, the
    compaction), its peak memory and busy share, each shared-capture attempt
    against its plain version and its bound, and one call of the exact
-   blocked route; each printed beside the card's name and power limit.
+   blocked route; the launch floor, the two-stream experiment's times
+   beside the hit kernel's at the tool's shapes with their bound, the
+   tools' kernels against their plain versions, and the profiler's stage
+   table (min and median of 3 runs of 10 calls); each printed beside the
+   card's name and power limit.
 
 The line before the last is a JSON object with the kernels' measurements:
 ``launches`` counts each kernel's launches in the main-path runs of
-phase 2 (the line-coded paths and the blocked runs for the shared
-correlation and walk; the batch-folded hit rows are on no path and count 0),
+phase 2 (the line-coded paths, the blocked runs and the profiler path; the
+probe's in phase 0's health run; the batch-folded hit rows are on no path
+and count 0),
 ``ms`` and ``plain_ms`` time it at the shapes of its first path, and
 ``bound_ms`` is the least time the card could take for that work (bytes
 over 3.35 TB/s or operations over 67 TFLOP/s, whichever is larger).  The
@@ -99,7 +116,6 @@ import importlib
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -136,6 +152,7 @@ KERNEL_NAMES = {"sliding_dot_scaled": "sliding_dot", "dense_fire_candidates": "a
                 "normalized_xcorr_dense": "normalized_xcorr"}
 # the source of each kernel, where it is not csrc/<name>.cu
 SOURCES = {"normalized_xcorr": "xcorr_norm", "xcorr_rowstats": "xcorr_norm",
+           "xcorr_hits_2s": "xcorr_streams", "attempt_sum": "attempt_manchester",
            "xcorr_hits_refine": "xcorr_hits", "xcorr_hits_batched": "xcorr_hits",
            "attempt_manchester_fold": "attempt_manchester", "attempt_4b5b_fold": "attempt_4b5b",
            "attempt_manchester_shared": "attempt_manchester",
@@ -145,13 +162,6 @@ SOURCES = {"normalized_xcorr": "xcorr_norm", "xcorr_rowstats": "xcorr_norm",
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def require(cond: bool, what: str) -> None:
@@ -899,6 +909,133 @@ def shared_bound(sd, cfg, k_name: str, info: dict) -> tuple[float, str]:
                  info["live"] * (decode_ops + (0 if fold else refine[1])))
 
 
+def check_tools(torch, hp, exs, pf, sd, xh, xn, cfg, x, vlens, corr_p, tool) -> dict:
+    """Phase 1 for the tools' kernels: the probe against its plain version
+    (exact); the two-stream rows against their plain version and, bit for
+    bit, against kernel #1's rows, and the noep form against its plain
+    version and, bit for bit, against the truncation of kernel #1's dense
+    corr, on the flagship captures and on the tool's noise corpus; the
+    attempt-only stage, fold off and on, against the plain attempts on its
+    compacted candidates.  Returns the max |err| per kernel."""
+    from trackmaker_tpu_torch.phy.line_coding import preamble_waveform
+    from trackmaker_tpu_torch.sync.correlate import preamble_energy
+
+    xk = torch.from_numpy(np.random.default_rng(5).normal(0, 100, (8, 128)).astype(np.float32))
+    xk = xk.to(x.device)
+    got = hp.seq_probe(xk)
+    torch.cuda.synchronize()
+    want = hp.seq_probe_plain(xk)
+    require(torch.equal(got, want), "seq_probe differs from its plain version")
+    errs = {"seq_probe": (got - want).abs().max().item(), "xcorr_hits_2s": 0.0}
+    log("phase 1: seq_probe == plain (32 blocks x 128 stores of x + c; every block x + 127)")
+    pre = preamble_waveform(cfg)
+    xt, pat_t = tool
+    for tag, xx, pattern, thr, cp in (
+            ("flagship", x, pre, cfg.correlation_threshold, corr_p),
+            ("the tool's noise", xt, pat_t, exs.THR, xn.normalized_xcorr_dense_plain(xt, pat_t))):
+        rows = exs.xcorr_hits_2s(xx, pattern, thr)
+        torch.cuda.synchronize()
+        require(torch.equal(rows, xh.xcorr_hits(xx, pattern, thr)[1]),
+                f"xcorr_hits_2s ({tag}) rows differ from kernel #1's")
+        val_err, n_near, n_diff = compare_rows(torch, rows, exs.xcorr_hits_2s_plain(
+            xx, pattern, thr), cp, thr, f"xcorr_hits_2s ({tag})")
+        errs["xcorr_hits_2s"] = max(errs["xcorr_hits_2s"], val_err)
+        noep = exs.xcorr_hits_2s(xx, pattern, thr, epilogue=False)
+        torch.cuda.synchronize()
+        edge = exs.noep_plain(((cp.abs() - 1.0).abs() < CORR_ATOL).float(), rows.shape[1]) > 0
+        require(bool(((noep == exs.xcorr_hits_2s_plain(xx, pattern, thr, epilogue=False))
+                      | edge).all()), f"xcorr_hits_2s noep ({tag}) differs from its plain version")
+        dense, _ = xh.xcorr_hits(xx, pattern, thr, emit_corr=True)
+        require(torch.equal(noep, exs.noep_plain(dense, rows.shape[1])),
+                f"xcorr_hits_2s noep ({tag}) differs from the truncation of kernel #1's corr")
+        log(f"phase 1: xcorr_hits_2s == kernel #1's rows bit for bit and == plain on {tag} "
+            f"({xx.shape[0]} x {xx.shape[1]}, L={len(pattern)}, threshold {thr}: "
+            f"{int(rows[..., 4].sum())} hits, hit corr {val_err:.3g}, {n_near} lags near the "
+            f"threshold, {n_diff} rows differing there); noep == plain and == int(kernel #1's "
+            f"corr) bit for bit ({int((noep != 0).sum())} nonzero lanes)")
+    # exact +-1 copies of the preamble in silence correlate to +-1 (integer
+    # sums): the noep form's nonzero lanes
+    xe = torch.zeros((2, 40_000), dtype=torch.float32, device=x.device)
+    pre_t = torch.from_numpy(pre).to(x.device)
+    copies = [(0, 128 * 3 + 2, 1.0), (0, 128 * 100 + 15, -1.0), (1, 128 * 7, 1.0)]
+    for r, lag, sign in copies:
+        xe[r, lag:lag + len(pre)] = sign * pre_t
+    noep = exs.xcorr_hits_2s(xe, pre, cfg.correlation_threshold, epilogue=False)
+    torch.cuda.synchronize()
+    dense, _ = xh.xcorr_hits(xe, pre, cfg.correlation_threshold, emit_corr=True)
+    require(torch.equal(noep, exs.noep_plain(dense, noep.shape[1])),
+            "xcorr_hits_2s noep (exact copies) differs from the truncation of kernel #1's corr")
+    require([int(noep[r, lag // 128, lag % 128]) for r, lag, _ in copies]
+            == [int(sg) for _, _, sg in copies] and int((noep != 0).sum()) == len(copies),
+            "xcorr_hits_2s noep (exact copies): the +-1 lanes are not where the copies are")
+    log(f"phase 1: xcorr_hits_2s noep on {len(copies)} exact +-1 preamble copies in silence == "
+        "int(kernel #1's corr) bit for bit, +-1 at each copy's lane and 0 elsewhere")
+    sync = pre[cfg.preamble_len - cfg.sync_len:]
+    thr = cfg.correlation_threshold
+    legacy = pf.attempt_sum(cfg, x, vlens, False)
+    fold = pf.attempt_sum(cfg, x, vlens, True)
+    torch.cuda.synchronize()
+    cand, _, n_valid, _ = sd.compact_hit_rows(xh.xcorr_hits(x, pre, thr)[1], N_CAND)
+    _, _, _, _, fs = sd.compact_hit_rows(xh.xcorr_hits_refine(x, vlens, pre, sync, thr,
+                                                              **refine_kw(cfg)),
+                                         N_CAND, with_fs=True)
+    for got, want, what in (
+            (legacy, sd.attempt_manchester_plain(x, cand, n_valid, vlens, sync,
+                                                 preamble_energy(sync)), "fold off"),
+            (fold, sd.attempt_manchester_fold_plain(x, fs, n_valid), "fold on"),
+            (fold, legacy, "fold on against fold off")):
+        require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                f"attempt_sum ({what}) differs from the plain attempt")
+    errs["attempt_sum"] = 0
+    log(f"phase 1: attempt_sum == the plain attempts on its {int(n_valid.sum())} compacted "
+        "candidates, fold off and on, and the two equal")
+    return errs
+
+
+def run_profiler_path(torch, pf, exs, cfg, x, frames, vlens, tool, kernels) -> dict[str, int]:
+    """The profiler path: every stage of ``prof_fused.stages`` on the
+    flagship captures, the full-decode stage through the payload gate; the
+    attempt-only stage fold off and on, each call launching one
+    correlation entry, one attempt and no walk; the two-stream experiment's
+    row check.  Returns the launches of `kernels` (name -> wrapper)."""
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = {name: fn(x) for name, fn in pf.stages(cfg, x, vlens).items()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res, ok = outs["full spec decode"]
+    require(bool(ok.all()), "a row of the profiler's full-decode stage is not ok")
+    counts = res.count.cpu().numpy()
+    require(bool((counts == N_FRAMES).all()),
+            f"the profiler's full-decode count gate failed: {sorted(set(counts.tolist()))}")
+    fb, valid = res.frame_bytes.cpu().numpy(), res.valid.cpu().numpy()
+    for r in range(x.shape[0]):
+        for k, f in zip(np.nonzero(valid[r])[0], frames):
+            require(fb[r, k, 7:7 + PAYLOAD].tobytes() == f.data,
+                    f"the profiler's full-decode payload gate failed at row {r} slot {k}")
+    for fold in (False, True):
+        before = {n: k.launches for n, k in kernels.items()}
+        pf.attempt_sum(cfg, x, vlens, fold)
+        torch.cuda.synchronize()
+        delta = {n: k.launches - before[n] for n, k in kernels.items() if n != "xcorr_hits_2s"}
+        expect = {"xcorr_hits": int(not fold), "xcorr_hits_refine": int(fold),
+                  "attempt_manchester": int(not fold), "attempt_manchester_fold": int(fold),
+                  "spec_walk": 0}
+        require(delta == expect, f"attempt_sum (fold {fold}) launched {delta}, expected {expect}")
+    exs.check_streams(*tool, exs.THR)
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in kernels.items()}
+    for k_name, n in launches.items():
+        require(n > 0, f"the profiler path never launched {k_name}")
+    log(f"phase 2 (profiler): {len(outs)} stages of prof_fused.stages took {wall * 1e3:.1f} ms "
+        f"(first calls); full-decode payload gate passed ({x.shape[0]} rows x {N_FRAMES} frames), "
+        "every row ok; attempt_sum fold off and on each launched one correlation entry, one "
+        f"attempt and no walk; exp_xcorr_streams' 2stream rows == current; launches {launches}")
+    return launches
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -926,12 +1063,15 @@ def main() -> None:
     from trackmaker_tpu_torch.sync import xcorr_norm as xn
     from trackmaker_tpu_torch.sync.correlate import preamble_energy
     from trackmaker_tpu_torch.sync.xcorr_hits import xcorr_hits, xcorr_hits_plain
+    from trackmaker_tpu_torch.tools import exp_xcorr_streams as exs
+    from trackmaker_tpu_torch.tools import health as hp
+    from trackmaker_tpu_torch.tools import prof_fused as pf
     xh = importlib.import_module("trackmaker_tpu_torch.sync.xcorr_hits")   # the module
 
     # --- phase 0: setup ------------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
+    card = hp.card_line()
     log(card)
     name = torch.cuda.get_device_name(0)
     dev = torch.device("cuda", 0)
@@ -939,6 +1079,18 @@ def main() -> None:
     for path in _build.build_all():
         log(f"built {path.name}")
     log(f"phase 0: kernels built in {time.perf_counter() - t0:.1f} s")
+    hp.seq_probe.launches = 0
+    torch.cuda.synchronize()
+    snap = hp.health(dev)
+    torch.cuda.synchronize()
+    probe_launches = hp.seq_probe.launches
+    require(probe_launches == 1 + hp.LAUNCHES * hp.REPEATS,
+            f"the health probe launched seq_probe {probe_launches} times")
+    require(all(np.isfinite(snap[k]) and snap[k] > 0
+                for k in ("rtt_ms", "noop_kernel_us", "stream_gbps")), f"health gave {snap}")
+    log(f"phase 0: health: rtt_ms {snap['rtt_ms']:.4f}, noop_kernel_us "
+        f"{snap['noop_kernel_us']:.4f}, stream_gbps {snap['stream_gbps']:.1f} "
+        f"({probe_launches} seq_probe launches) [{card}]")
 
     cfg = PhyConfig()
     cfg4 = PhyConfig(line_coding="4b5b")
@@ -1020,6 +1172,8 @@ def main() -> None:
         shared_errs, shared_in[c.line_coding] = check_shared(torch, sd, xh, stream, c, xx,
                                                              n_blocks, tag, past)
         errs.update(shared_errs)
+    tool = exs.tool_input(dev)
+    errs.update(check_tools(torch, hp, exs, pf, sd, xh, xn, cfg, x, vlens, corr_p, tool))
     del corr_p, corr_p4, cp, rows_b     # the dense corr: keep it out of phase 4's peak memory
 
     rng = np.random.default_rng(args.seed + 17)
@@ -1152,6 +1306,18 @@ def main() -> None:
             require(all(torch.equal(p, q) for p, q in zip(blocked[tag], blocked[tag[:-5]])),
                     f"{tag}: the fold's frames differ from the legacy decode's")
             log(f"phase 2 ({tag}): every field equals the legacy decode's")
+
+    prof_kernels = {"xcorr_hits": xcorr_hits, "xcorr_hits_refine": xh.xcorr_hits_refine,
+                    "attempt_manchester": sd.attempt_manchester,
+                    "attempt_manchester_fold": sd.attempt_manchester_fold,
+                    "spec_walk": sd.spec_walk, "xcorr_hits_2s": exs.xcorr_hits_2s}
+    prof = run_profiler_path(torch, pf, exs, cfg, x, frames, vlens, tool, prof_kernels)
+    for k_name in ("xcorr_hits", "xcorr_hits_refine", "attempt_manchester",
+                   "attempt_manchester_fold", "spec_walk"):
+        launches[k_name] = launches.get(k_name, 0) + prof[k_name]
+    launches["xcorr_hits_2s"] = prof["xcorr_hits_2s"]
+    launches["attempt_sum"] = prof["attempt_manchester"] + prof["attempt_manchester_fold"]
+    launches["seq_probe"] = probe_launches
 
     # --- phase 3: the fallbacks ----------------------------------------------
     enc = PhyEncoder(cfg, device=dev)
@@ -1483,7 +1649,59 @@ def main() -> None:
         f"({BLOCKED_SECONDS / exact_s:.1f}x real time), frames equal the speculative route's "
         f"[{card}]")
 
+    # the tools: the launch floor, the two-stream experiment beside kernel
+    # #1 at the tool's shapes, the profiler's stage table
+    log(f"phase 4: launch floor noop_kernel_us {snap['noop_kernel_us']:.4f} us (health: "
+        f"{hp.LAUNCHES} seq_probe launches back to back, median of {hp.REPEATS}) [{card}]")
+    xt, pat_t = tool
+    n_lags_t = xt.shape[1] - len(pat_t) + 1
+    n_rows_t = -(-xt.shape[1] // 128)
+    n_tiles_t = -(-n_rows_t // 8)
+    # each lag: L multiply-adds for the dot and for the energy; the captures
+    # and the halo of the second stream in, the rows out
+    bounds["xcorr_hits_2s"] = bound(xt.numel() * 4 + xt.shape[0] * n_tiles_t * 128 * 4
+                                    + xt.shape[0] * n_rows_t * 16 * 4,
+                                    xt.shape[0] * n_lags_t * 4 * len(pat_t))
+    for form, (mn, med) in exs.experiment(xt, pat_t, exs.THR, iters=50).items():
+        log(f"phase 4: exp_xcorr_streams {form}: min {mn:.4f} ms, median {med:.4f} ms a call "
+            f"(50 back to back, 3 repeats) [{card}]")
+    log(f"phase 4: exp_xcorr_streams bound (current, 2stream, 2stream_noep): "
+        f"{bounds['xcorr_hits_2s'][0]:.4f} ms ({bounds['xcorr_hits_2s'][1]}) [{card}]")
+    streams_t = exs.two_streams(xt)
+    ms["xcorr_hits_2s"] = time_ms(torch, lambda: exs.xcorr_hits_2s(xt, pat_t, exs.THR,
+                                                                   streams=streams_t))
+    plain_ms["xcorr_hits_2s"] = time_ms(torch, lambda: exs.xcorr_hits_2s_plain(xt, pat_t, exs.THR))
+    noep_ms = time_ms(torch, lambda: exs.xcorr_hits_2s(xt, pat_t, exs.THR, False, streams_t))
+    xcorr_t_ms = time_ms(torch, lambda: xcorr_hits(xt, pat_t, exs.THR))
+    log(f"phase 4: at the tool's shapes ({xt.shape[0]} x {xt.shape[1]}, L={len(pat_t)}), median "
+        f"of {RUNS}: xcorr_hits_2s {ms['xcorr_hits_2s']:.4f} ms, noep {noep_ms:.4f} ms, kernel #1 "
+        f"{xcorr_t_ms:.4f} ms, plain {plain_ms['xcorr_hits_2s']:.4f} ms; bound "
+        f"{bounds['xcorr_hits_2s'][0]:.4f} ms ({bounds['xcorr_hits_2s'][1]}) [{card}]")
+    xk = torch.ones((8, 128), dtype=torch.float32, device=dev)
+    ms["seq_probe"] = time_ms(torch, lambda: hp.seq_probe(xk))
+    plain_ms["seq_probe"] = time_ms(torch, lambda: hp.seq_probe_plain(xk))
+    # 128 stores of the 128 KiB output and the input read once; an add per
+    # store
+    bounds["seq_probe"] = bound(128 * 256 * 128 * 4 + 8 * 128 * 4, 128 * 256 * 128)
+    ms["attempt_sum"] = time_ms(torch, lambda: sd.attempt_manchester(
+        x, cand, n_valid, vlens, sync, sync_e))
+    plain_ms["attempt_sum"] = time_ms(torch, lambda: sd.attempt_manchester_plain(
+        x, cand, n_valid, vlens, sync, sync_e))
+    bounds["attempt_sum"] = bounds["attempt_manchester"]
+    for k_name in ("seq_probe", "xcorr_hits_2s", "attempt_sum"):
+        log(f"phase 4: {k_name}: kernel {ms[k_name]:.4f} ms, plain {plain_ms[k_name]:.4f} ms, "
+            f"bound {bounds[k_name][0]:.6f} ms ({bounds[k_name][1]}) [{card}]")
+    stage_fns = pf.stages(cfg, x, vlens)
+    stage_fns["xcorr+extract+attempt (fold on)"] = lambda xx: pf.attempt_sum(cfg, xx, vlens, True)
+    for stage, fn in stage_fns.items():
+        mn, med = pf.time_stage(fn, x, pf.ITERS)
+        log(f"phase 4: profiler manchester_b32 {stage:32s} min {mn:.4f} ms, median {med:.4f} ms "
+            f"({pf.ITERS} calls back to back, 3 repeats) [{card}]")
+
     replaces = {
+        "seq_probe": "bench.py:200",
+        "xcorr_hits_2s": "tools/exp_xcorr_streams.py:50",
+        "attempt_sum": "tools/prof_fused.py:123",
         "xcorr_hits": "trackmaker_tpu/sync/pallas_xcorr.py:148",
         "attempt_manchester": "trackmaker_tpu/phy/pallas_decode.py:207",
         "attempt_4b5b": "trackmaker_tpu/phy/pallas_decode.py:409",

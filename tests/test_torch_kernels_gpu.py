@@ -61,6 +61,8 @@ from trackmaker_tpu_torch.sync.xcorr_norm import (
     xcorr_rowstats,
     xcorr_rowstats_plain,
 )
+from trackmaker_tpu_torch.tools import exp_xcorr_streams as ex
+from trackmaker_tpu_torch.tools import health, prof_fused
 
 CFG = PhyConfig()
 PRE = preamble_waveform(CFG)
@@ -711,3 +713,133 @@ def test_shared_attempt_kernels_match_plain(cuda, form):
             else sd.ZERO_SYMBOLS * sd.SYMBOL_SAMPLES)
     block_end = (torch.arange(n_blocks, device=cuda)[:, None] + 1) * block
     assert int((live & (fs + body > block_end)).sum()) >= 4
+
+
+# --- the tools' kernels: the window probe and the two-stream correlation -------
+
+
+def _near_rows(corr_p, thr, n_rows):
+    """bool[B, n_rows]: rows holding a lag within 1e-5 of thr."""
+    near = torch.nn.functional.pad((corr_p - thr).abs() < 1e-5, (0, n_rows * 128 - corr_p.shape[1]))
+    return near.reshape(corr_p.shape[0], n_rows, 128).any(-1)
+
+
+def test_cpu_tensors_run_the_plain_tool_kernels():
+    x = torch.from_numpy(_captures(b=2, n_frames=3))
+    xk = torch.ones((8, 128))
+    before = (health.seq_probe.launches, ex.xcorr_hits_2s.launches)
+    assert torch.equal(health.seq_probe(xk), health.seq_probe_plain(xk))
+    for epilogue in (True, False):
+        assert torch.equal(ex.xcorr_hits_2s(x, PRE, THR, epilogue),
+                           ex.xcorr_hits_2s_plain(x, PRE, THR, epilogue))
+    assert (health.seq_probe.launches, ex.xcorr_hits_2s.launches) == before
+
+
+@pytest.mark.gpu
+def test_seq_probe_kernel_matches_plain(cuda):
+    x = torch.from_numpy(np.random.default_rng(8).normal(0, 100, (8, 128)).astype(np.float32))
+    x = x.to(cuda)
+    before = health.seq_probe.launches
+    got = health.seq_probe(x)
+    torch.cuda.synchronize()
+    assert health.seq_probe.launches == before + 1
+    assert torch.equal(got, health.seq_probe_plain(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("corpus", ["flagship", "tool"])
+def test_xcorr_hits_2s_kernel_equals_the_hit_kernel(cuda, corpus):
+    """At the flagship shape (32 x 433,464): the two-stream rows equal
+    kernel #1's bit for bit, and its plain version's away from the
+    threshold."""
+    if corpus == "flagship":
+        x = prof_fused.build_corpus(CFG, cuda)[1]
+        pattern, thr = PRE, THR
+    else:
+        x, pattern = ex.tool_input(cuda)
+        thr = ex.THR
+    before = ex.xcorr_hits_2s.launches
+    rows = ex.xcorr_hits_2s(x, pattern, thr)
+    torch.cuda.synchronize()
+    assert ex.xcorr_hits_2s.launches == before + 1
+    assert torch.equal(rows, xcorr_hits(x, pattern, thr)[1])
+    rows_p = ex.xcorr_hits_2s_plain(x, pattern, thr)
+    corr_p = normalized_xcorr_dense_plain(x, pattern)
+    same = (rows[..., :5] == rows_p[..., :5]).all(-1)
+    assert bool((same | _near_rows(corr_p, thr, rows.shape[1])).all())
+    assert torch.equal(ex.xcorr_hits_2s(x, pattern, thr, streams=ex.two_streams(x)), rows)
+
+
+@pytest.mark.gpu
+def test_xcorr_hits_2s_kernel_at_129_taps_matches_plain(cuda):
+    """L = 129, past kernel #1's 128 taps: the rows against the plain
+    version's (positions and counts equal away from the threshold, corr at
+    the hits within 1e-5), the noep form equal away from |corr| = 1."""
+    rng = np.random.default_rng(12)
+    pattern = np.sign(rng.normal(size=129)).astype(np.float32)
+    x = rng.normal(0, 0.3, (4, 30_011)).astype(np.float32)
+    for r in range(4):
+        for s in (200 + 97 * r, 9_000, 30_011 - 129):
+            x[r, s:s + 129] += pattern
+    x = torch.from_numpy(x).to(cuda)
+    rows = ex.xcorr_hits_2s(x, pattern, THR)
+    torch.cuda.synchronize()
+    rows_p = ex.xcorr_hits_2s_plain(x, pattern, THR)
+    corr_p = normalized_xcorr_dense_plain(x, pattern)
+    same = (rows[..., :5] == rows_p[..., :5]).all(-1) & (rows[..., 9:] == rows_p[..., 9:]).all(-1)
+    assert bool((same | _near_rows(corr_p, THR, rows.shape[1])).all())
+    vals = rows[..., 5:9].contiguous().view(torch.float32)
+    vals_p = rows_p[..., 5:9].contiguous().view(torch.float32)
+    assert (vals - vals_p)[same].abs().max().item() <= 1e-5
+    assert int(rows[..., 4].sum()) >= 12
+    noep = ex.xcorr_hits_2s(x, pattern, THR, epilogue=False)
+    noep_p = ex.xcorr_hits_2s_plain(x, pattern, THR, epilogue=False)
+    edge = ex.noep_plain(((corr_p.abs() - 1.0).abs() < 1e-5).float(), rows.shape[1]) > 0
+    assert bool(((noep == noep_p) | edge).all())
+
+
+@pytest.mark.gpu
+def test_noep_kernel_truncates_the_hit_kernel_s_corr(cuda):
+    """The noep form equals the truncation of kernel #1's dense corr bit
+    for bit (the same sums), exact +-1 copies of the pattern in silence
+    giving +-1 in lanes 0..15 of their rows."""
+    x = torch.from_numpy(_captures(b=3)).to(cuda)
+    x[2] = 0.0
+    pre = torch.from_numpy(PRE).to(cuda)
+    for lag, sign in ((128 * 5 + 3, 1.0), (128 * 20 + 15, -1.0), (128 * 33, 1.0)):
+        x[2, lag:lag + len(PRE)] = sign * pre
+    noep = ex.xcorr_hits_2s(x, PRE, THR, epilogue=False)
+    torch.cuda.synchronize()
+    corr, _ = xcorr_hits(x, PRE, THR, emit_corr=True)
+    assert torch.equal(noep, ex.noep_plain(corr, noep.shape[1]))
+    assert noep[2, 5, 3] == 1 and noep[2, 20, 15] == -1 and noep[2, 33, 0] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fold", [False, True])
+def test_attempt_sum_launches_one_correlation_and_one_attempt(cuda, fold):
+    x = torch.from_numpy(_captures()).to(cuda)
+    vlens = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32, device=cuda)
+    kernels = (xcorr_hits, xcorr_hits_refine, sd.attempt_manchester, sd.attempt_manchester_fold,
+               sd.spec_walk)
+    before = [k.launches for k in kernels]
+    got = prof_fused.attempt_sum(CFG, x, vlens, fold)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == (
+        [0, 1, 0, 1, 0] if fold else [1, 0, 1, 0, 0])
+    want = prof_fused.attempt_sum(CFG, x.cpu(), vlens.cpu(), fold)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_tools_run_on_the_card(cuda):
+    before = health.seq_probe.launches
+    got = health.health(cuda)
+    assert health.seq_probe.launches - before == 1 + health.LAUNCHES * health.REPEATS
+    for key in ("rtt_ms", "noop_kernel_us", "stream_gbps"):
+        assert np.isfinite(got[key]) and got[key] > 0, key
+    x = torch.from_numpy(_captures()).to(cuda)
+    vlens = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32, device=cuda)
+    for name, fn in prof_fused.stages(CFG, x, vlens).items():
+        mn, med = prof_fused.time_stage(fn, x, iters=2, repeats=2)
+        assert 0 < mn <= med, name

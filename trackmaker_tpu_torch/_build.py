@@ -26,7 +26,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "trackmaker_tpu_t
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 KERNELS = ("xcorr_hits", "attempt_manchester", "attempt_4b5b", "spec_walk",
-           "sliding_dot", "ask_fire", "ask_chain", "ask_walk", "xcorr_norm")
+           "sliding_dot", "ask_fire", "ask_chain", "ask_walk", "xcorr_norm",
+           "seq_probe", "xcorr_streams")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -62,12 +62,16 @@ def xcorr_hits_plain(x: torch.Tensor, pattern: np.ndarray, threshold: float,
                      emit_corr: bool = False):
     """Plain PyTorch version of :func:`xcorr_hits`."""
     pattern = np.asarray(pattern, np.float32)
-    b, t, l = _shapes(x, pattern)
-    n_lags = t - l + 1
-    n_rows = -(-t // ROW_LAGS)
-    dev = x.device
+    _, t, _ = _shapes(x, pattern)
     corr = normalized_xcorr_dense_plain(x, pattern)
+    return (corr if emit_corr else None), hit_rows_plain(corr, -(-t // ROW_LAGS), threshold)
 
+
+def hit_rows_plain(corr: torch.Tensor, n_rows: int, threshold: float) -> torch.Tensor:
+    """The hit rows int32[B, n_rows, 16] of the correlation corr f32[B, N]
+    (see the module docstring); lags at or past N are never hits."""
+    b, n_lags = corr.shape
+    dev = corr.device
     grid = torch.nn.functional.pad(
         corr, (0, n_rows * ROW_LAGS - n_lags), value=-math.inf
     ).reshape(b, n_rows, ROW_LAGS)
@@ -80,14 +84,13 @@ def xcorr_hits_plain(x: torch.Tensor, pattern: np.ndarray, threshold: float,
                         device=dev).scatter_(-1, slot, lag)[..., :HIT_SLOTS]
     vals = torch.zeros((b, n_rows, HIT_SLOTS + 1), dtype=torch.float32,
                        device=dev).scatter_(-1, slot, grid)[..., :HIT_SLOTS]
-    rows = torch.cat([
+    return torch.cat([
         starts,
         hit.sum(-1, dtype=torch.int32)[..., None],
         vals.view(torch.int32),
         torch.zeros((b, n_rows, ROW_COLS - 2 * HIT_SLOTS - 1), dtype=torch.int32,
                     device=dev),
     ], dim=-1)
-    return (corr if emit_corr else None), rows
 
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
