@@ -42,7 +42,17 @@ Phases, each raising on failure (non-zero exit):
    rows, its noep form against its plain version and the truncation of the
    hit kernel's dense corr, on the flagship captures and on the tool's
    noise corpus (32 x 433,464, L=96, threshold 0.5), and the profiler's
-   attempt-only stage, fold off and on, against the plain attempts;
+   attempt-only stage, fold off and on, against the plain attempts; the
+   threshold tie (the 4B5B preamble's first 39, 48 or 57 samples before a
+   frame: lag 0 correlates to 0.9 in exact arithmetic), kernel #1's corr
+   there against its plain version bit for bit and the frame found by the
+   fast decode and the exact scan; the experiments' kernels: every
+   attempt-tile variant (``tools.exp_attempt_tiles``) and base's _nodma,
+   _nostore and _u5 against the plain version bit for bit on the tool's
+   corpus (32 captures) and an integer-valued copy, a ring deeper than a
+   block's shared memory refused, and the three offset-add forms
+   (``tools.exp_offset_add``) against their plain versions and the NumPy
+   oracles, bit for bit;
 2. the main paths, each with its kernels' launch counts set to 0 just
    before it and read just after: the flagship and fourb5b_b32 through
    ``decode_capture_fast`` (32 noisy captures of 64 frames of 128-byte
@@ -70,7 +80,9 @@ Phases, each raising on failure (non-zero exit):
    (``tools.prof_fused``): every stage on the flagship captures, the
    full-decode stage through the payload gate, the attempt-only stage fold
    off and on each launching one correlation entry, one attempt and no
-   walk, and the two-stream experiment's row check;
+   walk, and the two-stream experiment's row check; then both
+   experiments' ``main()`` (the attempt tiles' six default variants, 5
+   calls a repeat, and the three offset-add forms against their oracles);
 3. the fallbacks: a Manchester capture that overflows the candidate table,
    a 4B5B capture with a zeroed level inside an attempted frame, and an
    ASK capture of 150 back-to-back chirps before three frames (more fire
@@ -95,8 +107,11 @@ Phases, each raising on failure (non-zero exit):
    blocked route; the launch floor, the two-stream experiment's times
    beside the hit kernel's at the tool's shapes with their bound, the
    tools' kernels against their plain versions, and the profiler's stage
-   table (min and median of 3 runs of 10 calls); each printed beside the
-   card's name and power limit.
+   table (min and median of 3 runs of 10 calls); every attempt-tile
+   variant of phase 1 and every offset-add form against its plain version
+   and its bound, beside torch.bmm of the body products and torch.matmul
+   with the sliced add; each printed beside the card's name and power
+   limit.
 
 The line before the last is a JSON object with the kernels' measurements:
 ``launches`` counts each kernel's launches in the main-path runs of
@@ -105,7 +120,10 @@ probe's in phase 0's health run; the batch-folded hit rows are on no path
 and count 0),
 ``ms`` and ``plain_ms`` time it at the shapes of its first path, and
 ``bound_ms`` is the least time the card could take for that work (bytes
-over 3.35 TB/s or operations over 67 TFLOP/s, whichever is larger).  The
+over 3.35 TB/s or operations over 67 TFLOP/s, the attempt tiles' bf16
+body over 989 TFLOP/s, whichever is larger).  ``attempt_tiles`` and
+``offset_add`` give the base variant's and form A's numbers, and count the
+launches of the experiments' main() runs.  The
 last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -147,6 +165,7 @@ SEAM_SECONDS = 60           # the 4B5B seam capture: a frame across every seam
 SEAM_BLOCKS = 8
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16 on the tensor cores, dense
 # the kernel each wrapper launches, where the two names differ
 KERNEL_NAMES = {"sliding_dot_scaled": "sliding_dot", "dense_fire_candidates": "ask_fire",
                 "normalized_xcorr_dense": "normalized_xcorr"}
@@ -953,22 +972,25 @@ def check_tools(torch, hp, exs, pf, sd, xh, xn, cfg, x, vlens, corr_p, tool) -> 
             f"{int(rows[..., 4].sum())} hits, hit corr {val_err:.3g}, {n_near} lags near the "
             f"threshold, {n_diff} rows differing there); noep == plain and == int(kernel #1's "
             f"corr) bit for bit ({int((noep != 0).sum())} nonzero lanes)")
-    # exact +-1 copies of the preamble in silence correlate to +-1 (integer
-    # sums): the noep form's nonzero lanes
+    # exact +-1 copies of the preamble's first 64 samples in silence
+    # correlate to +-1 (integer sums, and sqrt(64) is exact in f32, so the
+    # division gives exactly +-1): the noep form's nonzero lanes
+    pre64 = pre[:64]
     xe = torch.zeros((2, 40_000), dtype=torch.float32, device=x.device)
-    pre_t = torch.from_numpy(pre).to(x.device)
+    pre_t = torch.from_numpy(pre64).to(x.device)
     copies = [(0, 128 * 3 + 2, 1.0), (0, 128 * 100 + 15, -1.0), (1, 128 * 7, 1.0)]
     for r, lag, sign in copies:
-        xe[r, lag:lag + len(pre)] = sign * pre_t
-    noep = exs.xcorr_hits_2s(xe, pre, cfg.correlation_threshold, epilogue=False)
+        xe[r, lag:lag + len(pre64)] = sign * pre_t
+    noep = exs.xcorr_hits_2s(xe, pre64, cfg.correlation_threshold, epilogue=False)
     torch.cuda.synchronize()
-    dense, _ = xh.xcorr_hits(xe, pre, cfg.correlation_threshold, emit_corr=True)
+    dense, _ = xh.xcorr_hits(xe, pre64, cfg.correlation_threshold, emit_corr=True)
     require(torch.equal(noep, exs.noep_plain(dense, noep.shape[1])),
             "xcorr_hits_2s noep (exact copies) differs from the truncation of kernel #1's corr")
     require([int(noep[r, lag // 128, lag % 128]) for r, lag, _ in copies]
             == [int(sg) for _, _, sg in copies] and int((noep != 0).sum()) == len(copies),
             "xcorr_hits_2s noep (exact copies): the +-1 lanes are not where the copies are")
-    log(f"phase 1: xcorr_hits_2s noep on {len(copies)} exact +-1 preamble copies in silence == "
+    log(f"phase 1: xcorr_hits_2s noep on {len(copies)} exact +-1 copies of the preamble's first "
+        "64 samples in silence == "
         "int(kernel #1's corr) bit for bit, +-1 at each copy's lane and 0 elsewhere")
     sync = pre[cfg.preamble_len - cfg.sync_len:]
     thr = cfg.correlation_threshold
@@ -1036,6 +1058,147 @@ def run_profiler_path(torch, pf, exs, cfg, x, frames, vlens, tool, kernels) -> d
     return launches
 
 
+def tiles_bound(et, variant: str, inputs) -> tuple[float, str]:
+    """(least ms, what sets it) of one attempt-tile call on `inputs`: the
+    output written once (zero-filled), the rows of x each candidate reads,
+    the table rows this run's candidates read (sync slices from q, body
+    slices from the sync's best), each once, and w; every multiply-add of
+    the sync, the body and the pack, the body's at the bf16 tensor-core
+    rate for bf16b and all others at the f32 rate."""
+    spec = et.parse_variant(variant)
+    x, ts, tsc, tb, tbn, w, wn = inputs
+    b, n = x.shape[0], spec.n_cand
+    out_bytes = b * et.NV * et.BROWS * et.LANES * 4
+    if spec.kind == "noop":          # x01[0, 0:8] of the 8 slabs, an add each
+        return bound(b * 8 * 8 * 4 + out_bytes, b * n * 8)
+    best = et.sync_plain(spec, x, ts, tsc)[3].cpu().numpy()
+    c = np.arange(n)
+    q = 37 * c % et.DROW
+    o2 = (53 * c + best) % et.DROW                     # [b, n]
+    rows = {}                                          # table -> rows read, as v * 768 + row
+    for table, starts in ((tsc if spec.merged else ts, q), (tbn if spec.n128 else tb, o2)):
+        key = (table.data_ptr(), table.shape[-1])
+        first = (starts % 8) * et.TROWS + starts - starts % 8
+        rows.setdefault(key, set()).update(np.unique(first.reshape(-1)[:, None]
+                                                     + np.arange(et.DROW)).tolist())
+    table_bytes = sum(len(r) * width * 4 for (_, width), r in rows.items())
+    half, bits = (64, 64) if spec.n128 else (128, 128)
+    body = 2 * et.BROWS * half * et.DROW * 2 * b * n                 # flops
+    rest = (et.BROWS * et.LANES * bits + et.SYNC_LANES * 4 * et.DROW) * 2 * b * n
+    x_bytes = b * (9 * 7 + et.STAGE_ROWS) * et.DROW * 4
+    by_bytes = (out_bytes + x_bytes + table_bytes + (wn if spec.n128 else w).numel() * 4) \
+        / HBM_BYTES_PER_S * 1e3
+    by_ops = (body / (BF16_OPS_PER_S if spec.kind == "bf16b" else F32_OPS_PER_S)
+              + rest / F32_OPS_PER_S) * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def offset_bound(form: str) -> tuple[float, str]:
+    """(least ms, what sets it) of one offset-add form: the rows of x and
+    the columns of t it reads, the output, and its multiply-adds."""
+    x_rows, t_cols, sums = {"A": (33, 256, 32 * 128 * 768), "B": (2, 256, 128 * 768),
+                            "C": (33, 128, 32 * 128 * 384)}[form]
+    return bound((x_rows * 384 + 384 * t_cols + 32 * 128) * 4, 2 * sums)
+
+
+def check_threshold_tie(torch, xh, decode_capture_fast, decode_capture, cfg4, pre4, dev) -> None:
+    """The 4B5B preamble's first n samples before a frame, on the card: lag
+    0 correlates to 54/60 = 0.9 in exact arithmetic and, dividing as the
+    reference does, to 0.8999999 in f32.  Kernel #1's corr at lag 0 must
+    equal the plain version's bit for bit, below the threshold, and the
+    fast decode and the exact scan must find the frame at n."""
+    from trackmaker_tpu_torch.core.framing import Frame
+    from trackmaker_tpu_torch.phy.encoder import PhyEncoder
+
+    wave = PhyEncoder(cfg4, device=dev).encode_frames([Frame.new_data(5, 1, 2, b"hello")],
+                                                      gap_samples=0)
+    thr = cfg4.correlation_threshold
+    for n in (39, 48, 57):
+        x = torch.cat([torch.from_numpy(pre4[:n]).to(dev), wave])[None].contiguous()
+        corr, _ = xh.xcorr_hits(x, pre4, thr, emit_corr=True)
+        torch.cuda.synchronize()
+        corr_p, _ = xh.xcorr_hits_plain(x, pre4, thr, emit_corr=True)
+        c0, p0 = corr[0, 0].item(), corr_p[0, 0].item()
+        require(c0 == p0 and c0 < thr and abs(c0 - thr) < 1e-6,
+                f"threshold tie (n={n}): corr at lag 0 {c0!r}, plain {p0!r}")
+        for res in (decode_capture_fast(cfg4, x, LOCAL_ADDR, max_frames=4),
+                    decode_capture(cfg4, x[0], LOCAL_ADDR, 4)):
+            valid = res.valid.reshape(-1)
+            require(int(valid.sum()) == 1 and int(res.start.reshape(-1)[valid].item()) == n,
+                    f"threshold tie (n={n}): the frame at {n} was not found alone")
+    log(f"phase 1: threshold tie (4B5B preamble's first 39/48/57 samples before a frame): "
+        f"kernel #1's corr at lag 0 == plain bit for bit ({c0!r} < {thr}), decode_capture_fast "
+        "and the exact scan find the frame at its start")
+
+
+TILE_CHECKS = ("noop", "base", "n128", "sync1", "both", "bf16b", "base_nodma", "base_nostore",
+               "base_u5")
+
+
+def check_experiments(torch, et, eo, dev) -> tuple[dict, dict]:
+    """Phase 1 for the two experiments' kernels: every attempt-tile variant,
+    and base's _nodma, _nostore and _u5, against the plain version on the
+    tool's corpus and on an integer-valued copy (x of integers -2..2), bit
+    for bit both (the products are exact and both sum in k order); a ring
+    deeper than a block's shared memory refused; the three offset-add forms
+    against their plain versions and the NumPy oracles, bit for bit.
+    Returns (max |err| per kernel, the inputs phase 4 times them on)."""
+    errs = {"attempt_tiles": 0.0, "offset_add": 0.0}
+    corpora = {"normal": et.tool_input(dev), "integer": et.tool_input(dev, integer=True)}
+    for tag, inputs in corpora.items():
+        for variant in TILE_CHECKS:
+            got = et.attempt_tiles(variant, *inputs)
+            torch.cuda.synchronize()
+            want = et.attempt_tiles_plain(variant, *inputs)
+            n_diff = int((got != want).sum())
+            errs["attempt_tiles"] = max(errs["attempt_tiles"], (got - want).abs().max().item())
+            require(n_diff == 0, f"attempt_tiles {variant} ({tag} corpus): {n_diff} values differ "
+                    "from the plain version")
+            require(bool(torch.isfinite(got).all()), f"attempt_tiles {variant}: not finite")
+        log(f"phase 1: attempt_tiles == plain bit for bit on the tool's {tag} corpus "
+            f"({inputs[0].shape[0]} x {et.NV} candidates) for {', '.join(TILE_CHECKS)}")
+    launches = et.attempt_tiles.launches
+    try:
+        et.attempt_tiles("base", *corpora["normal"], pipe=5)
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused and et.attempt_tiles.launches == launches,
+            "attempt_tiles took a ring of 5 stages, which does not fit a block")
+    log(f"phase 1: attempt_tiles refuses a ring of 5 stages ({5 * et.STAGE_BYTES} B), runs 4 "
+        f"({et.stage_smem(et.parse_variant('base'), 4)} B of {et.SMEM_PER_BLOCK})")
+    x, t = eo.tool_input(dev)
+    for form in eo.FORMS:
+        got = eo.offset_add(form, x, t)
+        torch.cuda.synchronize()
+        require(torch.equal(got, eo.offset_add_plain(form, x, t)),
+                f"offset_add {form} differs from its plain version")
+        max_abs, max_rel = eo.errors(form, got, x, t)
+        errs["offset_add"] = max(errs["offset_add"], max_abs)
+        require(max_abs == 0.0, f"offset_add {form} differs from its oracle by {max_abs}")
+    log(f"phase 1: offset_add A, B, C == plain and == the NumPy oracles bit for bit "
+        f"(lane shift {eo.lane_shift(x)} from a sum of {int(x[0, :8].sum())})")
+    return errs, {"tiles": corpora["normal"], "offset": (x, t)}
+
+
+def run_experiments(torch, et, eo) -> dict[str, int]:
+    """Phase 2 for the experiments: both tools' main(), the attempt tiles'
+    over its default variants (5 calls a repeat), with the launch counts
+    set to 0 just before and read just after."""
+    et.attempt_tiles.launches = eo.offset_add.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    et.main(["5"])
+    eo.main([])
+    torch.cuda.synchronize()
+    launches = {"attempt_tiles": et.attempt_tiles.launches, "offset_add": eo.offset_add.launches}
+    require(launches == {"attempt_tiles": len(et.VARIANTS) * (1 + 3 * 5), "offset_add": 3},
+            f"the experiments' main() launched {launches}")
+    log(f"phase 2 (experiments): exp_attempt_tiles.main and exp_offset_add.main took "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms; launches {launches}")
+    return launches
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1063,6 +1226,8 @@ def main() -> None:
     from trackmaker_tpu_torch.sync import xcorr_norm as xn
     from trackmaker_tpu_torch.sync.correlate import preamble_energy
     from trackmaker_tpu_torch.sync.xcorr_hits import xcorr_hits, xcorr_hits_plain
+    from trackmaker_tpu_torch.tools import exp_attempt_tiles as et
+    from trackmaker_tpu_torch.tools import exp_offset_add as eo
     from trackmaker_tpu_torch.tools import exp_xcorr_streams as exs
     from trackmaker_tpu_torch.tools import health as hp
     from trackmaker_tpu_torch.tools import prof_fused as pf
@@ -1174,6 +1339,9 @@ def main() -> None:
         errs.update(shared_errs)
     tool = exs.tool_input(dev)
     errs.update(check_tools(torch, hp, exs, pf, sd, xh, xn, cfg, x, vlens, corr_p, tool))
+    check_threshold_tie(torch, xh, decode_capture_fast, decode_capture, cfg4, pre4, dev)
+    exp_errs, exp_in = check_experiments(torch, et, eo, dev)
+    errs.update(exp_errs)
     del corr_p, corr_p4, cp, rows_b     # the dense corr: keep it out of phase 4's peak memory
 
     rng = np.random.default_rng(args.seed + 17)
@@ -1318,6 +1486,7 @@ def main() -> None:
     launches["xcorr_hits_2s"] = prof["xcorr_hits_2s"]
     launches["attempt_sum"] = prof["attempt_manchester"] + prof["attempt_manchester_fold"]
     launches["seq_probe"] = probe_launches
+    launches.update(run_experiments(torch, et, eo))
 
     # --- phase 3: the fallbacks ----------------------------------------------
     enc = PhyEncoder(cfg, device=dev)
@@ -1698,8 +1867,55 @@ def main() -> None:
         log(f"phase 4: profiler manchester_b32 {stage:32s} min {mn:.4f} ms, median {med:.4f} ms "
             f"({pf.ITERS} calls back to back, 3 repeats) [{card}]")
 
+    # the experiments: every attempt-tile variant checked in phase 1 and
+    # every offset-add form against its plain version and its bound; beside
+    # them, torch.bmm of the attempt tiles' body products and, for offset
+    # add, torch.matmul and the sliced add (two calls)
+    xt13, *tables13 = exp_in["tiles"]
+    for variant in TILE_CHECKS:
+        k_ms = time_ms(torch, lambda: et.attempt_tiles(variant, xt13, *tables13), runs=10)
+        p_ms = time_ms(torch, lambda: et.attempt_tiles_plain(variant, xt13, *tables13), runs=3)
+        bnd = tiles_bound(et, variant, exp_in["tiles"])
+        log(f"phase 4: attempt_tiles {variant}: kernel {k_ms:.4f} ms "
+            f"({k_ms * 1e3 / (xt13.shape[0] * et.NV):.3f} us a candidate), plain {p_ms:.4f} ms, "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]}) [{card}]")
+        if variant == "base":
+            ms["attempt_tiles"], plain_ms["attempt_tiles"], bounds["attempt_tiles"] = k_ms, p_ms, bnd
+    spec13 = et.parse_variant("base")
+    best13 = et.sync_plain(spec13, *exp_in["tiles"][:3])[3]
+    c13 = torch.arange(et.NV, device=dev)
+    rows13 = (9 * (c13 % 8) + c13 % 2)[:, None] + torch.arange(et.BROWS + 1, device=dev)
+    lhs = xt13[:, rows13].reshape(-1, et.BROWS + 1, et.DROW)
+    o2 = (53 * c13 + best13) % et.DROW
+    rhs = tables13[2][(o2 % 8)[..., None], (o2 - o2 % 8)[..., None] + torch.arange(
+        et.DROW, device=dev)].reshape(-1, et.DROW, 256)
+    bmm_ms = time_ms(torch, lambda: torch.bmm(lhs, rhs), runs=10)
+    log(f"phase 4: attempt_tiles yardstick: torch.bmm of the base body products "
+        f"({lhs.shape[0]} x [{et.BROWS + 1}, {et.DROW}] @ [{et.DROW}, 256], TF32 off) "
+        f"{bmm_ms:.4f} ms [{card}]")
+    del lhs, rhs
+    xo, to = exp_in["offset"]
+    for form in eo.FORMS:
+        k_ms = time_ms(torch, lambda: eo.offset_add(form, xo, to))
+        p_ms = time_ms(torch, lambda: eo.offset_add_plain(form, xo, to))
+        bnd = offset_bound(form)
+        log(f"phase 4: offset_add {form}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+            f"{bnd[0]:.6f} ms ({bnd[1]}) [{card}]")
+        if form == "A":
+            ms["offset_add"], plain_ms["offset_add"], bounds["offset_add"] = k_ms, p_ms, bnd
+
+    def matmul_add():
+        o = xo @ to
+        return o[0:32, :128] + o[1:33, 128:]
+
+    library_ms["offset_add"] = time_ms(torch, matmul_add)
+    log(f"phase 4: offset_add A yardstick: torch.matmul + the sliced add (two calls, TF32 off) "
+        f"{library_ms['offset_add']:.4f} ms [{card}]")
+
     replaces = {
         "seq_probe": "bench.py:200",
+        "attempt_tiles": "tools/exp_attempt_tiles.py:35",
+        "offset_add": "tools/exp_offset_add.py:24/30/41",
         "xcorr_hits_2s": "tools/exp_xcorr_streams.py:50",
         "attempt_sum": "tools/prof_fused.py:123",
         "xcorr_hits": "trackmaker_tpu/sync/pallas_xcorr.py:148",
@@ -1731,7 +1947,8 @@ def main() -> None:
          "bound_ms": bounds[k_name][0], "bound_by": bounds[k_name][1],
          # the sliding dot has one PyTorch call computing the same function
          # (conv1d), the normalized correlation two (conv1d for the dot and
-         # for the energy); none computes any of the others
+         # for the energy), offset add two (matmul and the sliced add); none
+         # computes any of the others
          "library_ms": library_ms.get(k_name)}
         for k_name in ms]}))
     print(json.dumps({"ok": True, "device": {

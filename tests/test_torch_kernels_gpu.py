@@ -29,7 +29,11 @@ hit kernel's bit for bit; the fold decode on the card equals the legacy
 decode in every field.  The attempt kernels' shared-capture forms (one flat
 capture read by every block's table) return exactly what their plain
 versions and the per-row kernels on the capture repeated for every block
-return."""
+return.  The experiments' kernels (attempt tiles, offset add) equal their
+plain versions exactly: both sum in k order, and the tools' inputs make
+every product exact (ternary and 0/1 tables, small integers).  The hit
+kernel's corr at a lag that ties the threshold equals the plain version's
+bit for bit (both divide, and the sums are exact integers there)."""
 
 import numpy as np
 import pytest
@@ -61,6 +65,8 @@ from trackmaker_tpu_torch.sync.xcorr_norm import (
     xcorr_rowstats,
     xcorr_rowstats_plain,
 )
+from trackmaker_tpu_torch.tools import exp_attempt_tiles as et
+from trackmaker_tpu_torch.tools import exp_offset_add as eo
 from trackmaker_tpu_torch.tools import exp_xcorr_streams as ex
 from trackmaker_tpu_torch.tools import health, prof_fused
 
@@ -237,6 +243,27 @@ def test_4b5b_decode_on_the_card_equals_the_cpu(cuda):
     exact = decode_capture(CFG4, x[3].to(cuda), 2, max_frames=16)
     assert all(torch.equal(f[3], e) for f, e in zip(fast, exact))
     assert fast.count.tolist()[:3] == [12] * 3
+
+
+@pytest.mark.gpu
+def test_threshold_tie_on_the_card(cuda):
+    """The 4B5B preamble's first n samples before a frame: lag 0 correlates
+    to 54/60 = 0.9 in exact arithmetic.  The hit kernel divides as its plain
+    version does, so its corr at lag 0 equals the plain version's bit for
+    bit, just below the threshold, and the decodes find the frame at n."""
+    frame = Frame.new_data(5, 1, 2, b"hello")
+    wave = PhyEncoder(CFG4, device="cpu").encode_frames([frame], gap_samples=0)
+    for n in (39, 48, 57):
+        x = torch.cat([torch.from_numpy(PRE4[:n]), wave])[None].to(cuda)
+        corr, _ = xcorr_hits(x, PRE4, THR, emit_corr=True)
+        corr_p, _ = xcorr_hits_plain(x.cpu(), PRE4, THR, emit_corr=True)
+        assert corr[0, 0].item() == corr_p[0, 0].item() < THR
+        assert abs(corr[0, 0].item() - THR) < 1e-6
+        for res in (decode_capture_fast(CFG4, x, 2, max_frames=4),
+                    decode_capture(CFG4, x[0], 2, max_frames=4)):
+            valid = res.valid.reshape(-1)
+            assert int(valid.sum()) == 1 and int(res.start.reshape(-1)[valid].item()) == n
+            assert res.to_frames(0 if res.valid.ndim == 2 else None)[0].data == b"hello"
 
 
 @pytest.mark.gpu
@@ -801,16 +828,19 @@ def test_xcorr_hits_2s_kernel_at_129_taps_matches_plain(cuda):
 @pytest.mark.gpu
 def test_noep_kernel_truncates_the_hit_kernel_s_corr(cuda):
     """The noep form equals the truncation of kernel #1's dense corr bit
-    for bit (the same sums), exact +-1 copies of the pattern in silence
-    giving +-1 in lanes 0..15 of their rows."""
+    for bit (the same sums), exact +-1 copies of a 64-sample pattern in
+    silence giving +-1 in lanes 0..15 of their rows (sqrt(64) is exact in
+    f32, so the division gives exactly +-1; at 96 samples it gives
+    0.99999994)."""
+    pattern = PRE[:64]
     x = torch.from_numpy(_captures(b=3)).to(cuda)
     x[2] = 0.0
-    pre = torch.from_numpy(PRE).to(cuda)
+    p = torch.from_numpy(pattern).to(cuda)
     for lag, sign in ((128 * 5 + 3, 1.0), (128 * 20 + 15, -1.0), (128 * 33, 1.0)):
-        x[2, lag:lag + len(PRE)] = sign * pre
-    noep = ex.xcorr_hits_2s(x, PRE, THR, epilogue=False)
+        x[2, lag:lag + len(pattern)] = sign * p
+    noep = ex.xcorr_hits_2s(x, pattern, THR, epilogue=False)
     torch.cuda.synchronize()
-    corr, _ = xcorr_hits(x, PRE, THR, emit_corr=True)
+    corr, _ = xcorr_hits(x, pattern, THR, emit_corr=True)
     assert torch.equal(noep, ex.noep_plain(corr, noep.shape[1]))
     assert noep[2, 5, 3] == 1 and noep[2, 20, 15] == -1 and noep[2, 33, 0] == 1
 
@@ -843,3 +873,55 @@ def test_tools_run_on_the_card(cuda):
     for name, fn in prof_fused.stages(CFG, x, vlens).items():
         mn, med = prof_fused.time_stage(fn, x, iters=2, repeats=2)
         assert 0 < mn <= med, name
+
+
+# --- the experiments: attempt tiles (#13) and offset add (#14) ---------------
+
+TILE_VARIANTS = ("noop", "base", "n128", "sync1", "both", "bf16b", "base_nodma", "base_nostore",
+                 "base_u5", "both_nodma_nostore_u2")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("corpus", ["normal", "integer"])
+def test_attempt_tiles_kernel_matches_plain(cuda, corpus):
+    """Every variant, and rings of 1 to 4 stages, equal the plain version
+    bit for bit: both sum in k order, and the tool's tables make every
+    product exact."""
+    inputs = et.tool_input(cuda, b=4, integer=corpus == "integer")
+    for variant in TILE_VARIANTS:
+        before = et.attempt_tiles.launches
+        got = et.attempt_tiles(variant, *inputs)
+        torch.cuda.synchronize()
+        assert et.attempt_tiles.launches == before + 1
+        assert torch.equal(got, et.attempt_tiles_plain(variant, *inputs)), variant
+    want = et.attempt_tiles_plain("base", *inputs)
+    for pipe in (1, 2, 3):
+        assert torch.equal(et.attempt_tiles("base", *inputs, pipe=pipe), want), pipe
+
+
+@pytest.mark.gpu
+def test_attempt_tiles_refuses_a_ring_that_does_not_fit(cuda):
+    inputs = et.tool_input(cuda, b=1)
+    before = et.attempt_tiles.launches
+    with pytest.raises(ValueError):
+        et.attempt_tiles("base", *inputs, pipe=5)
+    assert et.attempt_tiles.launches == before
+    got = et.attempt_tiles("base_nodma", *inputs, pipe=5)    # no ring: any depth
+    assert torch.equal(got, et.attempt_tiles_plain("base", *inputs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head", [None, [20, 20, 20, 10, 0, 0, 0, 0],
+                                  [-20, -20, -20, -10, 0, 0, 0, 0],
+                                  [2.5, -2.5, 1.5, -1.5, 0.5, -0.5, 30.5, 33.5]])
+def test_offset_add_kernel_matches_plain_and_oracles(cuda, head):
+    x, t = eo.tool_input(cuda)
+    if head is not None:
+        x[0, :8] = torch.tensor(head, dtype=torch.float32, device=cuda)
+    for form in eo.FORMS:
+        before = eo.offset_add.launches
+        got = eo.offset_add(form, x, t)
+        torch.cuda.synchronize()
+        assert eo.offset_add.launches == before + 1
+        assert torch.equal(got, eo.offset_add_plain(form, x, t)), form
+        assert eo.errors(form, got, x, t) == (0.0, 0.0), form

@@ -27,6 +27,7 @@ from jax.experimental import pallas as pl
 
 from trackmaker_tpu.core.config import PhyConfig as JaxPhyConfig
 from trackmaker_tpu.phy import pallas_decode as pd
+from trackmaker_tpu.sync import correlate as jcorrelate
 from trackmaker_tpu.sync.pallas_xcorr import pallas_xcorr_hits
 from trackmaker_tpu_torch import PhyConfig
 from trackmaker_tpu_torch.phy import line_coding
@@ -193,17 +194,25 @@ def test_xcorr_hits_2s_noep_plain_truncates_kernel_1s_corr(streams_ref, name):
 
 
 def test_noep_plain_places_and_truncates_each_lane():
-    """Exact copies of a +-1 pattern in silence correlate to +-1 (integer
-    sums): lanes 0..15 of their rows hold +-1, lanes past the last lag 0."""
-    pattern = np.sign(np.random.default_rng(3).normal(size=96)).astype(np.float32)
-    x = np.zeros((1, 2020), np.float32)
-    x[0, 128 * 2 + 5:128 * 2 + 5 + 96] = pattern
-    x[0, 128 * 9 + 15:128 * 9 + 15 + 96] = -pattern
-    got = ex.xcorr_hits_2s_plain(torch.from_numpy(x), pattern, THR, epilogue=False).numpy()[0]
-    assert got[2, 5] == 1 and got[9, 15] == -1
-    got[2, 5] = got[9, 15] = 0
-    assert not got.any()
-    assert (2020 - 96 + 1) % 128 == 5     # the last row has lanes past the last lag
+    """Exact copies of a +-1 pattern of L samples in silence correlate to
+    +-L / (sqrt(L) * ||p||), rounded in f32 as the JAX package's
+    ``correlate.normalized_xcorr`` divides: exactly +-1 at L = 64, where
+    sqrt(64) is exact, so lanes 0..15 of their rows hold +-1; at L = 96 the
+    quotient is 0.99999994, which truncates to 0, as JAX's does.  Lanes
+    past the last lag hold 0."""
+    for l, one in ((64, 1), (96, 0)):
+        pattern = np.sign(np.random.default_rng(3).normal(size=l)).astype(np.float32)
+        x = np.zeros((1, 2020), np.float32)
+        x[0, 128 * 2 + 5:128 * 2 + 5 + l] = pattern
+        x[0, 128 * 9 + 15:128 * 9 + 15 + l] = -pattern
+        want = np.asarray(jcorrelate.normalized_xcorr(
+            jnp.asarray(x[0]), jnp.asarray(pattern), jcorrelate.preamble_energy(pattern)))
+        assert int(want[128 * 2 + 5]) == one and int(want[128 * 9 + 15]) == -one
+        got = ex.xcorr_hits_2s_plain(torch.from_numpy(x), pattern, THR, epilogue=False).numpy()[0]
+        assert got[2, 5] == one and got[9, 15] == -one
+        got[2, 5] = got[9, 15] = 0
+        assert not got.any()
+        assert (2020 - l + 1) % 128 != 0      # the last row has lanes past the last lag
 
 
 @pytest.mark.parametrize("l", [1, 130])

@@ -27,7 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 KERNELS = ("xcorr_hits", "attempt_manchester", "attempt_4b5b", "spec_walk",
            "sliding_dot", "ask_fire", "ask_chain", "ask_walk", "xcorr_norm",
-           "seq_probe", "xcorr_streams")
+           "seq_probe", "xcorr_streams", "offset_add", "attempt_tiles")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -12,8 +12,11 @@
 //
 // For every capture b and lag i < T-L+1:
 //   dot    = sum_j x[i+j] * p[j]      energy = sum_j x[i+j]^2
-//   corr   = energy < kEps ? 0 : dot * (1/sqrtf(max(energy, 1e-30))) * inv_pe
-// (1.0f/sqrtf, both IEEE-rounded: the file is built without fast math.)
+//   corr   = energy < kEps ? 0 : dot / max(sqrtf(energy) * pe, 1e-30)
+// with pe the pattern's norm in f32: a division, as the JAX package's
+// correlate.normalized_xcorr divides (sqrtf and / are IEEE-rounded: the
+// file is built without fast math), so a lag at the threshold falls on the
+// reference's side of it.
 // Lags are grouped into rows of 128.  Row r of `rows` (int32[B, R, 16]):
 //   cols 0..3  the first four lags of the row with corr >= threshold,
 //              ascending, padded with 2^30
@@ -79,7 +82,7 @@ template <bool kRefine>
 __global__ void xcorr_hits_kernel(const float* __restrict__ x,
                                   const float* __restrict__ pattern,
                                   int batch, int bc, int t, int l, int halo,
-                                  float inv_pe, float threshold, int n_rows,
+                                  float pe, float threshold, int n_rows,
                                   int* __restrict__ rows,
                                   float* __restrict__ corr_out, Refine rf) {
   __shared__ float xs[kRows * kLanes + kMaxHalo];
@@ -131,8 +134,8 @@ __global__ void xcorr_hits_kernel(const float* __restrict__ x,
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int lag = lag0 + r * kLanes + tid;
-      const float denom = (1.0f / sqrtf(fmaxf(energy[r], 1e-30f))) * inv_pe;
-      corr[r] = energy[r] < kEps ? 0.0f : dot[r] * denom;
+      const float denom = sqrtf(fmaxf(energy[r], 0.0f)) * pe;
+      corr[r] = energy[r] < kEps ? 0.0f : dot[r] / fmaxf(denom, 1e-30f);
       const bool hit = corr[r] >= threshold && lag < n_lags;
       masks[r] = __ballot_sync(0xffffffffu, hit);
       if (lane == 0) warp_hits[r][warp] = __popc(masks[r]);
@@ -232,25 +235,25 @@ int check_args(int batch, int bc, int t, int l, int n_rows) {
 }  // namespace
 
 extern "C" int tm_xcorr_hits(const float* x, const float* pattern, int batch,
-                             int t, int l, float inv_pe,
+                             int t, int l, float pe,
                              float threshold, int n_rows, int* rows,
                              float* corr, void* stream) {
   if (int err = check_args(batch, 1, t, l, n_rows)) return err;
   dim3 grid((n_rows + kRows - 1) / kRows, batch);
   xcorr_hits_kernel<false><<<grid, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, pattern, batch, 1, t, l, l - 1, inv_pe, threshold, n_rows, rows, corr, Refine{});
+      x, pattern, batch, 1, t, l, l - 1, pe, threshold, n_rows, rows, corr, Refine{});
   return static_cast<int>(cudaGetLastError());
 }
 
 // The hit rows of `bc` captures per block (no dense corr).
 extern "C" int tm_xcorr_hits_batched(const float* x, const float* pattern,
                                      int batch, int bc, int t, int l,
-                                     float inv_pe, float threshold, int n_rows,
+                                     float pe, float threshold, int n_rows,
                                      int* rows, void* stream) {
   if (int err = check_args(batch, bc, t, l, n_rows)) return err;
   dim3 grid((n_rows + kRows - 1) / kRows, (batch + bc - 1) / bc);
   xcorr_hits_kernel<false><<<grid, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, pattern, batch, bc, t, l, l - 1, inv_pe, threshold, n_rows, rows, nullptr,
+      x, pattern, batch, bc, t, l, l - 1, pe, threshold, n_rows, rows, nullptr,
       Refine{});
   return static_cast<int>(cudaGetLastError());
 }
@@ -259,7 +262,7 @@ extern "C" int tm_xcorr_hits_batched(const float* x, const float* pattern,
 extern "C" int tm_xcorr_hits_refine(const float* x, const int* vlen,
                                     const float* pattern, const float* sync,
                                     int batch, int t, int l, int w,
-                                    float inv_pe, float sync_e, float threshold,
+                                    float pe, float sync_e, float threshold,
                                     int sync_off, int n_pos, int fall_off,
                                     int n_rows, int* rows, void* stream) {
   if (int err = check_args(batch, 1, t, l, n_rows)) return err;
@@ -270,7 +273,7 @@ extern "C" int tm_xcorr_hits_refine(const float* x, const int* vlen,
   }
   dim3 grid((n_rows + kRows - 1) / kRows, batch);
   xcorr_hits_kernel<true><<<grid, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, pattern, batch, 1, t, l, halo, inv_pe, threshold, n_rows, rows, nullptr,
+      x, pattern, batch, 1, t, l, halo, pe, threshold, n_rows, rows, nullptr,
       Refine{vlen, sync, sync_e, w, sync_off, n_pos, fall_off});
   return static_cast<int>(cudaGetLastError());
 }

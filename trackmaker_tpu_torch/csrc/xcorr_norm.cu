@@ -10,7 +10,7 @@
 //
 // For every capture b and lag i < T-L+1:
 //   dot    = sum_j x[i+j] * p[j]      energy = sum_j x[i+j]^2
-//   corr   = energy < kEps ? 0 : dot * (1/sqrtf(max(energy, 1e-30))) * inv_pe
+//   corr   = energy < kEps ? 0 : dot / max(sqrtf(energy) * pe, 1e-30)
 // with the taps added in order and the same expressions as xcorr_hits.cu,
 // so that for L <= 128 both kernels give the same corr bit for bit (the
 // file is built without fast math, like the others).
@@ -48,7 +48,7 @@ constexpr float kNoRow = -3.4e38f;
 // corr of the kRows rows of 128 lags starting at lag0, one lane per thread
 __device__ __forceinline__ void block_corr(const float* __restrict__ xb,
                                            const float* __restrict__ pattern,
-                                           int t, int l, float inv_pe, int lag0,
+                                           int t, int l, float pe, int lag0,
                                            float* xs, float* ps,
                                            float (&corr)[kRows]) {
   const int tid = threadIdx.x;
@@ -76,14 +76,14 @@ __device__ __forceinline__ void block_corr(const float* __restrict__ xb,
   }
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
-    const float denom = (1.0f / sqrtf(fmaxf(energy[r], 1e-30f))) * inv_pe;
-    corr[r] = energy[r] < kEps ? 0.0f : dot[r] * denom;
+    const float denom = sqrtf(fmaxf(energy[r], 0.0f)) * pe;
+    corr[r] = energy[r] < kEps ? 0.0f : dot[r] / fmaxf(denom, 1e-30f);
   }
 }
 
 __global__ void normalized_xcorr_kernel(const float* __restrict__ x,
                                         const float* __restrict__ pattern,
-                                        int t, int l, float inv_pe,
+                                        int t, int l, float pe,
                                         float* __restrict__ corr_out) {
   __shared__ float xs[kRows * kLanes + kMaxL - 1];
   __shared__ float ps[kMaxL];
@@ -91,7 +91,7 @@ __global__ void normalized_xcorr_kernel(const float* __restrict__ x,
   const int lag0 = blockIdx.x * kRows * kLanes;
   const int n_lags = t - l + 1;
   float corr[kRows];
-  block_corr(x + static_cast<int64_t>(b) * t, pattern, t, l, inv_pe, lag0, xs, ps,
+  block_corr(x + static_cast<int64_t>(b) * t, pattern, t, l, pe, lag0, xs, ps,
              corr);
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
@@ -111,7 +111,7 @@ __device__ __forceinline__ void keep_max(float& v, int& i, float w, int j) {
 
 __global__ void xcorr_rowstats_kernel(const float* __restrict__ x,
                                       const float* __restrict__ pattern,
-                                      int t, int l, float inv_pe, int n_rows,
+                                      int t, int l, float pe, int n_rows,
                                       float* __restrict__ rowmax,
                                       int* __restrict__ rowpos) {
   __shared__ float xs[kRows * kLanes + kMaxL - 1];
@@ -125,7 +125,7 @@ __global__ void xcorr_rowstats_kernel(const float* __restrict__ x,
   const int warp = tid >> 5;
   const int n_lags = t - l + 1;
   float corr[kRows];
-  block_corr(x + static_cast<int64_t>(b) * t, pattern, t, l, inv_pe, lag0, xs, ps,
+  block_corr(x + static_cast<int64_t>(b) * t, pattern, t, l, pe, lag0, xs, ps,
              corr);
 
 #pragma unroll
@@ -164,24 +164,24 @@ bool bad_shape(int batch, int t, int l) {
 }  // namespace
 
 extern "C" int tm_normalized_xcorr(const float* x, const float* pattern, int batch,
-                                   int t, int l, float inv_pe, float* corr,
+                                   int t, int l, float pe, float* corr,
                                    void* stream) {
   if (bad_shape(batch, t, l)) return static_cast<int>(cudaErrorInvalidValue);
   const int n_rows = (t - l + 1 + kLanes - 1) / kLanes;
   dim3 grid((n_rows + kRows - 1) / kRows, batch);
   normalized_xcorr_kernel<<<grid, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, pattern, t, l, inv_pe, corr);
+      x, pattern, t, l, pe, corr);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int tm_xcorr_rowstats(const float* x, const float* pattern, int batch,
-                                 int t, int l, float inv_pe, int n_rows,
+                                 int t, int l, float pe, int n_rows,
                                  float* rowmax, int* rowpos, void* stream) {
   if (bad_shape(batch, t, l) || n_rows < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   dim3 grid((n_rows + kRows - 1) / kRows, batch);
   xcorr_rowstats_kernel<<<grid, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, pattern, t, l, inv_pe, n_rows, rowmax, rowpos);
+      x, pattern, t, l, pe, n_rows, rowmax, rowpos);
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,7 +15,7 @@
 // 128 samples and zero-padded at the end (xs[i] = x[i + 128]).  For every
 // lag i < T-L+1, with 2 <= L <= 129:
 //   dot = sum_j x[i+j] * p[j]      energy = sum_j x[i+j]^2
-//   corr = energy < kEps ? 0 : dot * (1/sqrtf(max(energy, 1e-30))) * inv_pe
+//   corr = energy < kEps ? 0 : dot / max(sqrtf(energy) * pe, 1e-30)   (pe = ||p||)
 // as direct f32 sums in tap order, with the expressions, the rounding and
 // the hit epilogue of csrc/xcorr_hits.cu, so its rows int32[B, R, 16],
 // R = ceil(T/128), equal kernel #1's bit for bit (see that file's header
@@ -77,7 +77,7 @@ __device__ __forceinline__ void wait_all_groups() {
 template <bool kEpilogue>
 __global__ void __launch_bounds__(kLanes) xcorr_hits_2s_kernel(
     const float* __restrict__ x, const float* __restrict__ xs, int64_t stride,
-    const float* __restrict__ pattern, int t, int l, float inv_pe, float threshold,
+    const float* __restrict__ pattern, int t, int l, float pe, float threshold,
     int n_rows, int* __restrict__ rows) {
   __shared__ __align__(16) float buf[kTile + kLanes];
   __shared__ float ps[kMaxL];
@@ -123,8 +123,8 @@ __global__ void __launch_bounds__(kLanes) xcorr_hits_2s_kernel(
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int lag = lag0 + r * kLanes + tid;
-    const float denom = (1.0f / sqrtf(fmaxf(energy[r], 1e-30f))) * inv_pe;
-    corr[r] = energy[r] < kEps ? 0.0f : dot[r] * denom;
+    const float denom = sqrtf(fmaxf(energy[r], 0.0f)) * pe;
+    corr[r] = energy[r] < kEps ? 0.0f : dot[r] / fmaxf(denom, 1e-30f);
     if constexpr (kEpilogue) {
       const bool hit = corr[r] >= threshold && lag < n_lags;
       masks[r] = __ballot_sync(0xffffffffu, hit);
@@ -185,7 +185,7 @@ __global__ void __launch_bounds__(kLanes) xcorr_hits_2s_kernel(
 // x and xs: f32[batch, stride], 16-byte aligned, stride a multiple of the
 // tile covering ceil(t/128) rows; rows: int32[batch, n_rows, 16].
 extern "C" int tm_xcorr_hits_2s(const float* x, const float* xs, int64_t stride,
-                                const float* pattern, int batch, int t, int l, float inv_pe,
+                                const float* pattern, int batch, int t, int l, float pe,
                                 float threshold, int n_rows, int epilogue, int* rows,
                                 void* stream) {
   const int n_tiles = (n_rows + kRows - 1) / kRows;
@@ -197,10 +197,10 @@ extern "C" int tm_xcorr_hits_2s(const float* x, const float* xs, int64_t stride,
   dim3 grid(n_tiles, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (epilogue) {
-    xcorr_hits_2s_kernel<true><<<grid, kLanes, 0, s>>>(x, xs, stride, pattern, t, l, inv_pe,
+    xcorr_hits_2s_kernel<true><<<grid, kLanes, 0, s>>>(x, xs, stride, pattern, t, l, pe,
                                                       threshold, n_rows, rows);
   } else {
-    xcorr_hits_2s_kernel<false><<<grid, kLanes, 0, s>>>(x, xs, stride, pattern, t, l, inv_pe,
+    xcorr_hits_2s_kernel<false><<<grid, kLanes, 0, s>>>(x, xs, stride, pattern, t, l, pe,
                                                        threshold, n_rows, rows);
   }
   return static_cast<int>(cudaGetLastError());

@@ -39,15 +39,29 @@ def sliding_energy(samples: torch.Tensor, window: int) -> torch.Tensor:
     return _conv_valid(samples * samples, ones)
 
 
-def normalized_xcorr(samples: torch.Tensor, pattern: torch.Tensor) -> torch.Tensor:
-    """corr[i] = dot(x[i:i+L], p) / (||x[i:i+L]|| * ||p||); windows whose
-    energy is below `EPS` give 0."""
+def normalized_xcorr(samples: torch.Tensor, pattern: torch.Tensor,
+                     pattern_energy: float | None = None) -> torch.Tensor:
+    """corr[i] = dot(x[i:i+L], p) / max(||x[i:i+L]|| * ||p||, 1e-30); windows
+    whose energy is below `EPS` give 0.  ``||p||`` is `pattern_energy`
+    rounded to f32 where given, else summed in f32 (:func:`pattern_norm`),
+    as in the JAX package's ``correlate.normalized_xcorr``.  The one formula
+    of the port's normalization: every plain version and kernel divides so."""
     pattern = pattern.to(torch.float32)
-    pattern_energy = torch.sqrt((pattern * pattern).sum())
+    if pattern_energy is None:
+        pe = torch.sqrt((pattern * pattern).sum())
+    else:
+        pe = torch.tensor(pattern_energy, dtype=torch.float32, device=samples.device)
     dot = sliding_dot(samples, pattern)
     energy = sliding_energy(samples, pattern.shape[-1])
-    denom = torch.sqrt(energy.clamp(min=0.0)) * pattern_energy
+    denom = torch.sqrt(energy.clamp(min=0.0)) * pe
     return torch.where(energy < EPS, 0.0, dot / denom.clamp(min=1e-30))
+
+
+def pattern_norm(pattern: np.ndarray) -> float:
+    """||p|| summed and rooted in f32: the norm the JAX package divides by
+    where its caller passes no energy (``auto_xcorr_row_stats``)."""
+    p = torch.from_numpy(np.array(pattern, np.float32))
+    return float(torch.sqrt((p * p).sum()))
 
 
 def preamble_energy(pattern: np.ndarray) -> float:

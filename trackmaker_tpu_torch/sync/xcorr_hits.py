@@ -13,8 +13,10 @@ tensor and runs ``xcorr_hits_plain`` on a CPU tensor.  Both return
   corr at those hits bit-cast to int32 (0 when absent), the rest 0.
 
 Lags at or past T-L+1 are never hits.  The normalization, with
-``correlate.EPS`` = 1e-6, is
-``corr = energy < EPS ? 0 : dot * (1/sqrt(max(energy, 1e-30))) / ||p||``.
+``correlate.EPS`` = 1e-6 and ``||p|| = correlate.preamble_energy(p)``
+rounded to f32, is the division of the JAX package's
+``correlate.normalized_xcorr``:
+``corr = energy < EPS ? 0 : dot / max(sqrt(energy) * ||p||, 1e-30)``.
 
 Two more entry points of the same kernel give the same rows:
 ``xcorr_hits_batched`` folds `bc` captures into each block (the
@@ -115,7 +117,7 @@ def xcorr_hits(x: torch.Tensor, pattern: np.ndarray, threshold: float,
             if emit_corr else None)
     fn = _build.entry("xcorr_hits", "tm_xcorr_hits", _ARGTYPES)
     err = fn(x.data_ptr(), p.data_ptr(), b, t, l,
-             1.0 / correlate.preamble_energy(pattern), threshold, n_rows,
+             correlate.preamble_energy(pattern), threshold, n_rows,
              rows.data_ptr(), None if corr is None else corr.data_ptr(),
              _build.stream_ptr(x))
     _build.check(err, "xcorr_hits")
@@ -151,7 +153,7 @@ def xcorr_hits_batched(x: torch.Tensor, pattern: np.ndarray, threshold: float,
     rows = torch.empty((b, n_rows, ROW_COLS), dtype=torch.int32, device=x.device)
     fn = _build.entry("xcorr_hits", "tm_xcorr_hits_batched", _BATCHED_ARGTYPES)
     err = fn(x.data_ptr(), p.data_ptr(), b, min(bc, b), t, l,
-             1.0 / correlate.preamble_energy(pattern), threshold, n_rows,
+             correlate.preamble_energy(pattern), threshold, n_rows,
              rows.data_ptr(), _build.stream_ptr(x))
     _build.check(err, "xcorr_hits_batched")
     xcorr_hits_batched.launches += 1
@@ -250,7 +252,7 @@ def xcorr_hits_refine(x: torch.Tensor, vlens: torch.Tensor, pattern: np.ndarray,
     rows = torch.empty((b, n_rows, ROW_COLS), dtype=torch.int32, device=x.device)
     fn = _build.entry("xcorr_hits", "tm_xcorr_hits_refine", _REFINE_ARGTYPES)
     err = fn(x.data_ptr(), vlens.data_ptr(), p.data_ptr(), s.data_ptr(), b, t, l, sync_len,
-             1.0 / correlate.preamble_energy(pattern), correlate.preamble_energy(sync_pattern),
+             correlate.preamble_energy(pattern), correlate.preamble_energy(sync_pattern),
              threshold, sync_off, n_pos, fall_off, n_rows, rows.data_ptr(),
              _build.stream_ptr(x))
     _build.check(err, "xcorr_hits_refine")

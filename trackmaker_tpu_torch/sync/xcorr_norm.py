@@ -8,13 +8,16 @@ reduced per row (counterpart of the normalized form of
 CPU tensor.  For captures x f32[B, T] and a host pattern p f32[L]:
 
 * ``normalized_xcorr_dense`` returns corr f32[B, T-L+1],
-  ``corr = energy < EPS ? 0 : dot * (1/sqrt(max(energy, 1e-30))) / ||p||``
-  with ``correlate.EPS`` = 1e-6;
+  ``corr = energy < EPS ? 0 : dot / max(sqrt(energy) * ||p||, 1e-30)``
+  with ``correlate.EPS`` = 1e-6 and ``||p||`` the decoders' norm,
+  ``correlate.preamble_energy`` rounded to f32 (a division, as the JAX
+  package's ``correlate.normalized_xcorr``);
 * ``xcorr_rowstats`` returns (rowmax f32[B, R], rowpos int32[B, R]) over
   the R = ceil((T-L+1)/128) rows of 128 lags: each row's largest corr and
   the absolute lag of its first maximum.  Lags at or past T-L+1 count as
   -3.4e38.  This is the JAX package's CPU form of ``auto_xcorr_row_stats``
-  (R counts the valid lags, not whole blocks of the capture).
+  (R counts the valid lags, not whole blocks of the capture), whose
+  ``||p||`` is summed in f32 (``correlate.pattern_norm``).
 """
 
 from __future__ import annotations
@@ -42,20 +45,20 @@ def _shapes(x: torch.Tensor, pattern: np.ndarray) -> tuple[int, int, int]:
     return b, t, l
 
 
-def normalized_xcorr_dense_plain(x: torch.Tensor, pattern: np.ndarray) -> torch.Tensor:
-    """Plain PyTorch version of :func:`normalized_xcorr_dense`."""
+def normalized_xcorr_dense_plain(x: torch.Tensor, pattern: np.ndarray,
+                                 pe: float | None = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`normalized_xcorr_dense`: the port's
+    ``correlate.normalized_xcorr`` with ``||p|| = pe``, by default
+    ``correlate.preamble_energy(pattern)``."""
     pattern = np.array(pattern, np.float32)      # a private, writable copy
-    _, _, l = _shapes(x, pattern)
-    inv_pe = 1.0 / correlate.preamble_energy(pattern)
-    dot = correlate.sliding_dot(x, torch.from_numpy(pattern).to(x.device))
-    energy = correlate.sliding_energy(x, l)
-    denom = (1.0 / torch.sqrt(energy.clamp(min=1e-30))) * inv_pe
-    return torch.where(energy < correlate.EPS, 0.0, dot * denom)
+    _shapes(x, pattern)
+    pe = correlate.preamble_energy(pattern) if pe is None else pe
+    return correlate.normalized_xcorr(x, torch.from_numpy(pattern).to(x.device), pe)
 
 
 def xcorr_rowstats_plain(x: torch.Tensor, pattern: np.ndarray):
     """Plain PyTorch version of :func:`xcorr_rowstats`."""
-    corr = normalized_xcorr_dense_plain(x, pattern)
+    corr = normalized_xcorr_dense_plain(x, pattern, correlate.pattern_norm(pattern))
     b, n_lags = corr.shape
     r = -(-n_lags // ROW_LAGS)
     grid = torch.nn.functional.pad(corr, (0, r * ROW_LAGS - n_lags), value=NO_ROW)
@@ -74,13 +77,12 @@ _ROWSTATS_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_i
 
 
 def _kernel_args(x: torch.Tensor, pattern: np.ndarray):
-    """(b, t, l, the pattern on x's device, 1/||p||) for a launch."""
+    """(b, t, l, the pattern on x's device) for a launch."""
     pattern = np.array(pattern, np.float32)      # a private, writable copy
     b, t, l = _shapes(x, pattern)
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    p = torch.from_numpy(pattern).to(x.device)
-    return b, t, l, p, 1.0 / correlate.preamble_energy(pattern)
+    return b, t, l, torch.from_numpy(pattern).to(x.device)
 
 
 def normalized_xcorr_dense(x: torch.Tensor, pattern: np.ndarray) -> torch.Tensor:
@@ -88,10 +90,11 @@ def normalized_xcorr_dense(x: torch.Tensor, pattern: np.ndarray) -> torch.Tensor
     constant `pattern` f32[L], L <= 1024 (see the module docstring)."""
     if not _build.on_cuda(x):
         return normalized_xcorr_dense_plain(x, pattern)
-    b, t, l, p, inv_pe = _kernel_args(x, pattern)
+    b, t, l, p = _kernel_args(x, pattern)
     corr = torch.empty((b, t - l + 1), dtype=torch.float32, device=x.device)
     fn = _build.entry("xcorr_norm", "tm_normalized_xcorr", _DENSE_ARGTYPES)
-    err = fn(x.data_ptr(), p.data_ptr(), b, t, l, inv_pe, corr.data_ptr(),
+    err = fn(x.data_ptr(), p.data_ptr(), b, t, l, correlate.preamble_energy(pattern),
+             corr.data_ptr(),
              _build.stream_ptr(x))
     _build.check(err, "normalized_xcorr")
     normalized_xcorr_dense.launches += 1
@@ -107,12 +110,13 @@ def xcorr_rowstats(x: torch.Tensor, pattern: np.ndarray):
     docstring)."""
     if not _build.on_cuda(x):
         return xcorr_rowstats_plain(x, pattern)
-    b, t, l, p, inv_pe = _kernel_args(x, pattern)
+    b, t, l, p = _kernel_args(x, pattern)
     r = -(-(t - l + 1) // ROW_LAGS)
     rowmax = torch.empty((b, r), dtype=torch.float32, device=x.device)
     rowpos = torch.empty((b, r), dtype=torch.int32, device=x.device)
     fn = _build.entry("xcorr_norm", "tm_xcorr_rowstats", _ROWSTATS_ARGTYPES)
-    err = fn(x.data_ptr(), p.data_ptr(), b, t, l, inv_pe, r, rowmax.data_ptr(),
+    err = fn(x.data_ptr(), p.data_ptr(), b, t, l, correlate.pattern_norm(pattern), r,
+             rowmax.data_ptr(),
              rowpos.data_ptr(), _build.stream_ptr(x))
     _build.check(err, "xcorr_rowstats")
     xcorr_rowstats.launches += 1

@@ -114,7 +114,7 @@ def xcorr_hits_2s(x: torch.Tensor, pattern: np.ndarray, threshold: float,
     rows = torch.empty((b, n_rows, ROW_COLS), dtype=torch.int32, device=x.device)
     fn = _build.entry("xcorr_streams", "tm_xcorr_hits_2s", _ARGTYPES)
     err = fn(xp.data_ptr(), xs.data_ptr(), p_len, p.data_ptr(), b, t, l,
-             1.0 / correlate.preamble_energy(pattern), threshold, n_rows, int(epilogue),
+             correlate.preamble_energy(pattern), threshold, n_rows, int(epilogue),
              rows.data_ptr(), _build.stream_ptr(x))
     _build.check(err, "xcorr_hits_2s")
     xcorr_hits_2s.launches += 1
