@@ -30,7 +30,13 @@ Phases, each raising on failure (non-zero exit):
    rows bit for bit and its frame starts against the legacy attempt
    kernels', and the attempt kernels' fold forms against their plain
    versions and, given the legacy frame starts, against the legacy
-   kernels; the hit kernel's batch-folded entry against the hit kernel's
+   kernels; the hit kernel's corr against the normalized correlation
+   kernel's bit for bit, and its rows against the plain rows of that corr,
+   at every pattern length 1..128 (the preamble repeated and cut) on 3
+   captures of 50,001 samples; the refine entry on dense hits (4 captures
+   of 60,001 samples at thresholds 0.3 / 0.4 and -2, rows of 1 to 4 and
+   more hits, every slot live), with the checks of the fold above, at both
+   line codes; the hit kernel's batch-folded entry against the hit kernel's
    rows at the flagship shape; the attempt kernels' shared-capture forms
    (legacy and fold) against their plain versions on two long captures
    split into blocks: blocked_600s (Manchester, 600 s, 64 blocks,
@@ -107,7 +113,11 @@ Phases, each raising on failure (non-zero exit):
    blocked route; the launch floor, the two-stream experiment's times
    beside the hit kernel's at the tool's shapes with their bound, the
    tools' kernels against their plain versions, and the profiler's stage
-   table (min and median of 3 runs of 10 calls); every attempt-tile
+   table (min and median of 3 runs of 10 calls); the hit kernel's entries'
+   own device time (torch.profiler, median of 30 launches, from a session
+   that traced all 30, else "not measured") beside each wrapper's
+   CUDA-event time, and kernel #1 over the two-stream kernel at
+   the tool's shapes in the same run; every attempt-tile
    variant of phase 1 and every offset-add form against its plain version
    and its bound, beside torch.bmm of the body products and torch.matmul
    with the sliced add; each printed beside the card's name and power
@@ -163,6 +173,11 @@ BLOCKED_PAYLOAD = 64
 BLOCKED_MFPB = 8            # max_frames_per_block
 SEAM_SECONDS = 60           # the 4B5B seam capture: a frame across every seam
 SEAM_BLOCKS = 8
+SWEEP_B, SWEEP_T = 3, 50_001  # the tap sweep's captures: T not a multiple of a block's lags
+DENSE_B, DENSE_T = 4, 60_001  # the dense-hit refine captures
+DENSE_THR = {"manchester": 0.3, "4b5b": 0.4}   # rows of 0 to 5 and more hits there
+FULL_THR = -2.0             # every lag a hit: every slot of every row refined
+PROFILE_SESSIONS = 3        # torch.profiler sessions a device time may take
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM bf16 on the tensor cores, dense
@@ -431,6 +446,83 @@ def check_refine_edges(torch, sd, xh, cfg, x, corr_p, tag: str) -> dict:
     log(f"phase 1: xcorr_hits_refine ({tag} edges, threshold {EDGE_THR}): {out['hits']} refined "
         f"hits, {counts}")
     return errs
+
+
+def check_tap_sweep(torch, xh, xn, x, pre, thr) -> int:
+    """Kernel #1's dense corr against tm_normalized_xcorr's (xcorr_norm.cu,
+    the first design's loop), bit for bit, for every pattern length L in
+    1..128 (the preamble repeated and cut) on SWEEP_B captures of SWEEP_T
+    samples, and its rows against the plain hit rows of that corr, bit for
+    bit: every remainder of the kernel's tap steps.  Returns the hits."""
+    xx = x[:SWEEP_B, :SWEEP_T].contiguous()
+    n_rows = -(-SWEEP_T // 128)
+    patterns = np.tile(pre, -(-xh.MAX_PATTERN // len(pre)))
+    hits = 0
+    for l in range(1, xh.MAX_PATTERN + 1):
+        corr, rows = xh.xcorr_hits(xx, patterns[:l], thr, emit_corr=True)
+        dense = xn.normalized_xcorr_dense(xx, patterns[:l])
+        torch.cuda.synchronize()
+        require(torch.equal(corr, dense),
+                f"tap sweep: xcorr_hits' corr at L={l} differs from normalized_xcorr's")
+        require(torch.equal(rows, xh.hit_rows_plain(corr, n_rows, thr)),
+                f"tap sweep: xcorr_hits' rows at L={l} differ from the plain rows of its corr")
+        hits += int(rows[..., 4].sum())
+    require(hits > 0, "tap sweep: no hit at any pattern length")
+    log(f"phase 1: tap sweep: xcorr_hits' corr == normalized_xcorr's bit for bit and its rows == "
+        f"the plain rows of that corr at every L in 1..{xh.MAX_PATTERN} on {SWEEP_B} x "
+        f"{SWEEP_T} ({hits} hits in all)")
+    return hits
+
+
+def check_dense_refine(torch, sd, xh, xn, cfg, x, tag: str) -> dict:
+    """The refine entry on dense hits: the first DENSE_B captures cut to
+    DENSE_T samples, at DENSE_THR (rows of 1, 2, 3 and 4 or more hits in
+    the same blocks) and at FULL_THR (every slot of every row live), with
+    check_fold's checks (deltas equal the plain refine's, cand + delta the
+    legacy attempt's frame start).  Returns the max |err| per kernel."""
+    from trackmaker_tpu_torch.phy.line_coding import preamble_waveform
+
+    xx = x[:DENSE_B, :DENSE_T].contiguous()
+    vlens = torch.full((DENSE_B,), DENSE_T, dtype=torch.int32, device=x.device)
+    corr_p = xn.normalized_xcorr_dense_plain(xx, preamble_waveform(cfg))
+    errs = {}
+    for thr in (DENSE_THR[cfg.line_coding], FULL_THR):
+        e, out = check_fold(torch, sd, xh, cfg, xx, vlens, thr, corr_p,
+                            f"{tag} dense hits at {thr}")
+        for k_name, v in e.items():
+            errs[k_name] = max(errs.get(k_name, 0), v)
+        counts = out["rows"][..., 4].clamp(max=4)
+        need = [1, 2, 3, 4] if thr == DENSE_THR[cfg.line_coding] else [4]
+        seen = {n: int((counts == n).sum()) for n in need}
+        require(all(seen.values()), f"xcorr_hits_refine ({tag} dense hits at {thr}): rows of "
+                                    f"each count {need} wanted, got {seen}")
+        log(f"phase 1: xcorr_hits_refine ({tag} dense hits at threshold {thr}, {DENSE_B} x "
+            f"{DENSE_T}): rows by hit count (4 = 4 or more) {seen}, {out['hits']} refined hits")
+    return errs
+
+
+def device_ms(torch, fn, kernel: str, calls: int = RUNS) -> tuple[float, int] | None:
+    """The median device time (ms) of a launch of the CUDA kernel whose name
+    holds `kernel`, over `calls` calls of `fn` (torch.profiler's kernel
+    events), and the profiling sessions it took: the first of
+    PROFILE_SESSIONS sessions that traced every one of the `calls`
+    launches; None when none did (the profiler can drop kernel events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, PROFILE_SESSIONS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+        if len(times) == calls:
+            return statistics.median(times), attempt
+        log(f"device time of {kernel}: {len(times)} of {calls} launches traced "
+            f"(session {attempt} of {PROFILE_SESSIONS})")
+    return None
 
 
 def run_main_path(torch, decode_capture_fast, decode_capture, sd, cfg, x, frames,
@@ -1331,6 +1423,10 @@ def main() -> None:
             for k_name, v in e.items():
                 errs[k_name] = max(errs.get(k_name, 0), v)
     fold_in, fold_in4 = fold_in["flagship"], fold_in["fourb5b_b32"]
+    check_tap_sweep(torch, xh, xn, x, pre, cfg.correlation_threshold)
+    for tag, c, xx in (("flagship", cfg, x), ("fourb5b_b32", cfg4, x4)):
+        for k_name, v in check_dense_refine(torch, sd, xh, xn, c, xx, tag).items():
+            errs[k_name] = max(errs.get(k_name, 0), v)
     shared_in = {}
     for tag, c, xx, n_blocks, past in (("blocked_600s", cfg, xb, BLOCKED_BLOCKS, True),
                                        ("the 4B5B seam capture", cfg4, xs, SEAM_BLOCKS, False)):
@@ -1846,6 +1942,41 @@ def main() -> None:
         f"of {RUNS}: xcorr_hits_2s {ms['xcorr_hits_2s']:.4f} ms, noep {noep_ms:.4f} ms, kernel #1 "
         f"{xcorr_t_ms:.4f} ms, plain {plain_ms['xcorr_hits_2s']:.4f} ms; bound "
         f"{bounds['xcorr_hits_2s'][0]:.4f} ms ({bounds['xcorr_hits_2s'][1]}) [{card}]")
+    # the hit kernel's own device time (torch.profiler) beside the CUDA-event
+    # median of its wrapper call; at the tool's shapes beside the two-stream
+    # kernel, which keeps the first design's loop: their ratio in one run
+    # compares the two designs
+    thr4 = cfg4.correlation_threshold
+    dev_calls = {
+        "xcorr_hits flagship (L=96)": (lambda: xcorr_hits(x, pre, thr), "xcorr_hits_kernel",
+                                       ms["xcorr_hits"]),
+        "xcorr_hits fourb5b_b32 (L=60)": (lambda: xcorr_hits(x4, pre4, thr4),
+                                          "xcorr_hits_kernel", xcorr4_ms),
+        "xcorr_hits_refine flagship": (lambda: xh.xcorr_hits_refine(
+            x, vlens, pre, sync, thr, **fold_in["kw"]), "xcorr_hits_kernel",
+            ms["xcorr_hits_refine"]),
+        "xcorr_hits_refine fourb5b_b32": (lambda: xh.xcorr_hits_refine(
+            x4, vlens4, pre4, sync4, thr4, **fold_in4["kw"]), "xcorr_hits_kernel", refine4_ms),
+        "xcorr_hits_batched flagship": (lambda: xh.xcorr_hits_batched(x, pre, thr),
+                                        "xcorr_hits_kernel", ms["xcorr_hits_batched"]),
+        "xcorr_hits tool input": (lambda: xcorr_hits(xt, pat_t, exs.THR), "xcorr_hits_kernel",
+                                  xcorr_t_ms),
+        "xcorr_hits_2s tool input": (lambda: exs.xcorr_hits_2s(xt, pat_t, exs.THR,
+                                                               streams=streams_t),
+                                     "xcorr_hits_2s_kernel", ms["xcorr_hits_2s"]),
+    }
+    dev_ms = {}
+    for what, (fn, kernel, event_ms) in dev_calls.items():
+        got = device_ms(torch, fn, kernel)
+        dev_ms[what] = None if got is None else got[0]
+        traced = ("not measured (no session traced every launch)" if got is None
+                  else f"{got[0]:.4f} ms (all {RUNS} launches traced, session {got[1]})")
+        log(f"phase 4: device time {what}: {traced}; CUDA events around the wrapper "
+            f"{event_ms:.4f} ms [{card}]")
+    one, two = dev_ms["xcorr_hits tool input"], dev_ms["xcorr_hits_2s tool input"]
+    log(f"phase 4: kernel #1 / xcorr_hits_2s at the tool's shapes, same run: device "
+        f"{'not measured' if one is None or two is None else f'{one / two:.4f}'}, CUDA events "
+        f"{xcorr_t_ms / ms['xcorr_hits_2s']:.4f} [{card}]")
     xk = torch.ones((8, 128), dtype=torch.float32, device=dev)
     ms["seq_probe"] = time_ms(torch, lambda: hp.seq_probe(xk))
     plain_ms["seq_probe"] = time_ms(torch, lambda: hp.seq_probe_plain(xk))

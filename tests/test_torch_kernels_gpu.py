@@ -52,6 +52,7 @@ from trackmaker_tpu_torch.phy.line_coding import preamble_waveform
 from trackmaker_tpu_torch.sync.correlate import preamble_energy
 from trackmaker_tpu_torch.sync.sliding_dot import sliding_dot_scaled, sliding_dot_scaled_plain
 from trackmaker_tpu_torch.sync.xcorr_hits import (
+    hit_rows_plain,
     xcorr_hits,
     xcorr_hits_batched,
     xcorr_hits_batched_plain,
@@ -925,3 +926,108 @@ def test_offset_add_kernel_matches_plain_and_oracles(cuda, head):
         assert eo.offset_add.launches == before + 1
         assert torch.equal(got, eo.offset_add_plain(form, x, t)), form
         assert eo.errors(form, got, x, t) == (0.0, 0.0), form
+
+
+# --- the register-tiled hit kernel (lags that share samples) -------------------
+# Its dense corr equals tm_normalized_xcorr's (xcorr_norm.cu) bit for bit at
+# every pattern length: the same fused multiply-add chains in tap order and
+# the same division.  Its rows equal the plain hit rows of that corr, and its
+# refine deltas the plain refine's, exactly.
+
+RAGGED_T = 9 * 1024 + 333       # not a multiple of a block's 1,024 lags
+
+
+def _ragged(b: int = 3, cfg=CFG) -> np.ndarray:
+    return np.ascontiguousarray(_captures(b=b, cfg=cfg)[:, :RAGGED_T])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l", range(1, 129))
+def test_xcorr_hits_corr_equals_normalized_xcorr_at_every_length(cuda, l):
+    x = torch.from_numpy(_ragged()).to(cuda)
+    pattern = np.tile(PRE, 2)[:l]
+    corr, rows = xcorr_hits(x, pattern, THR, emit_corr=True)
+    dense = normalized_xcorr_dense(x, pattern)
+    torch.cuda.synchronize()
+    assert torch.equal(corr, dense)
+    assert torch.equal(rows, hit_rows_plain(corr, rows.shape[1], THR))
+    assert torch.equal(xcorr_hits(x, pattern, THR)[1], rows)
+
+
+DENSE_THR = {"manchester": 0.3, "4b5b": 0.4}   # rows of 0 to 5 and more hits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg,pre,sync", FOLD_CODES, ids=FOLD_IDS)
+@pytest.mark.parametrize("dense", ["mixed", "every lag"])
+def test_xcorr_hits_refine_on_dense_hits_matches_plain(cuda, cfg, pre, sync, dense):
+    x = torch.from_numpy(_captures(b=3, cfg=cfg)).to(cuda)
+    vlen = torch.tensor([x.shape[1], x.shape[1] - 500, x.shape[1] - 5000], dtype=torch.int32,
+                        device=cuda)
+    thr = DENSE_THR[cfg.line_coding] if dense == "mixed" else -2.0
+    kw = _refine_kw(cfg)
+    rows = xcorr_hits_refine(x, vlen, pre, sync, thr, **kw)
+    torch.cuda.synchronize()
+    rows_p = xcorr_hits_refine_plain(x, vlen, pre, sync, thr, **kw)
+    corr_p = normalized_xcorr_dense_plain(x, pre)
+    near = torch.nn.functional.pad((corr_p - thr).abs() < 1e-5,
+                                   (0, rows.shape[1] * 128 - corr_p.shape[1]))
+    near = near.reshape(rows.shape[0], rows.shape[1], 128).any(-1)
+    same = (rows[..., :5] == rows_p[..., :5]).all(-1)
+    assert bool((same | near).all())
+    assert torch.equal(rows[..., 9:][same], rows_p[..., 9:][same])
+    assert torch.equal(rows[..., :9], xcorr_hits(x, pre, thr)[1][..., :9])
+    counts = rows[..., 4].clamp(max=4)
+    assert all(bool((counts == n).any()) for n in ([1, 2, 3, 4] if dense == "mixed" else [4]))
+    live = rows[..., :4] < BIGI
+    assert bool((rows[..., 10:13][live[..., 1:]] != kw["fall_off"]).any())
+    cand, _, n_valid, _, fs = sd.compact_hit_rows(rows, 128, with_fs=True)
+    attempt = _attempts(cfg)[0]
+    assert torch.equal(fs, attempt(x, cand, n_valid, vlen, sync, preamble_energy(sync))[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bc", [1, 3, 8])
+def test_xcorr_hits_batched_on_ragged_captures(cuda, bc):
+    x = torch.from_numpy(_ragged(b=7)).to(cuda)
+    rows = xcorr_hits_batched(x, PRE, THR, bc=bc)
+    torch.cuda.synchronize()
+    corr, rows_1 = xcorr_hits(x, PRE, THR, emit_corr=True)
+    assert torch.equal(rows, rows_1)
+    assert torch.equal(rows, hit_rows_plain(corr, rows.shape[1], THR))
+    # against the plain version: the plain corr and the kernel's fused chain
+    # may round a lag within 1e-5 of the threshold to either side of it
+    rows_p = xcorr_hits_batched_plain(x, PRE, THR, bc=bc)
+    corr_p = normalized_xcorr_dense_plain(x, PRE)
+    near = torch.nn.functional.pad((corr_p - THR).abs() < 1e-5,
+                                   (0, rows.shape[1] * 128 - corr_p.shape[1]))
+    near = near.reshape(rows.shape[0], rows.shape[1], 128).any(-1)
+    same = (rows[..., :5] == rows_p[..., :5]).all(-1)
+    assert bool((same | near).all())
+    vals = rows[..., 5:9].contiguous().view(torch.float32)
+    vals_p = rows_p[..., 5:9].contiguous().view(torch.float32)
+    assert (vals - vals_p)[same].abs().max().item() <= 1e-5
+    assert torch.equal(rows[..., 9:], rows_p[..., 9:])
+
+
+@pytest.mark.gpu
+def test_hit_kernel_entries_copy_nothing_to_the_card(cuda):
+    """The pattern and the sync word go to the kernel by value: a call on
+    captures already on the card makes no host-to-device copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.from_numpy(_ragged()).to(cuda)
+    vlen = torch.full((3,), RAGGED_T, dtype=torch.int32, device=cuda)
+    calls = (lambda: xcorr_hits(x, PRE, THR, emit_corr=True),
+             lambda: xcorr_hits_batched(x, PRE, THR, bc=2),
+             lambda: xcorr_hits_refine(x, vlen, PRE, SYNC, THR, **_refine_kw(CFG)))
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for call in calls:
+            call()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    assert sum("xcorr_hits_kernel" in n for n in names) >= len(calls), names
+    assert not [n for n in names if "HtoD" in n or "cudaMemcpy" in n], names

@@ -24,6 +24,9 @@ counterpart of ``pallas_xcorr_hits_batched``), and ``xcorr_hits_refine``
 (the counterpart of ``pallas_xcorr_hits_refine``) refines the frame start
 of each row's first four hits against the sync word and writes it to
 columns 9..12 as a delta from the hit (see :func:`refine_deltas_plain`).
+
+The pattern and the sync word go to the kernel by value, as 128 floats
+(:func:`pack_taps`): a call copies nothing to the card.
 """
 
 from __future__ import annotations
@@ -42,12 +45,22 @@ BIGI = 2**30
 ROW_LAGS = 128
 ROW_COLS = 16
 HIT_SLOTS = 4
-MAX_PATTERN = 128   # longest pattern the kernel stages in shared memory
+MAX_PATTERN = 128   # longest pattern (and sync word) the kernel takes by value
 
-
-MAX_REFINE_POSITIONS = 32   # refine positions, one per lane of a warp
+MAX_REFINE_POSITIONS = 32   # refine positions of a hit
 MAX_REFINE_HALO = 256       # samples the kernel stages past a block's last lag
 REFINE_EPS = 1e-6           # sync windows with no more energy correlate to 0
+
+
+def pack_taps(taps) -> np.ndarray:
+    """The pattern (or sync word) as the kernel's launch parameter: its f32
+    values, then zeros, MAX_PATTERN floats."""
+    taps = np.asarray(taps, np.float32)
+    if not 1 <= len(taps) <= MAX_PATTERN:
+        raise ValueError(f"{len(taps)} taps do not fit the kernel's {MAX_PATTERN}")
+    out = np.zeros(MAX_PATTERN, np.float32)
+    out[:len(taps)] = taps
+    return out
 
 
 def _shapes(x: torch.Tensor, pattern: np.ndarray) -> tuple[int, int, int]:
@@ -111,12 +124,12 @@ def xcorr_hits(x: torch.Tensor, pattern: np.ndarray, threshold: float,
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     n_rows = -(-t // ROW_LAGS)
-    p = torch.from_numpy(pattern).to(x.device)
     rows = torch.empty((b, n_rows, ROW_COLS), dtype=torch.int32, device=x.device)
     corr = (torch.empty((b, t - l + 1), dtype=torch.float32, device=x.device)
             if emit_corr else None)
+    taps = pack_taps(pattern)
     fn = _build.entry("xcorr_hits", "tm_xcorr_hits", _ARGTYPES)
-    err = fn(x.data_ptr(), p.data_ptr(), b, t, l,
+    err = fn(x.data_ptr(), taps.ctypes.data, b, t, l,
              correlate.preamble_energy(pattern), threshold, n_rows,
              rows.data_ptr(), None if corr is None else corr.data_ptr(),
              _build.stream_ptr(x))
@@ -149,10 +162,10 @@ def xcorr_hits_batched(x: torch.Tensor, pattern: np.ndarray, threshold: float,
     if not x.is_contiguous() or bc < 1:
         raise ValueError("x must be contiguous and bc positive")
     n_rows = -(-t // ROW_LAGS)
-    p = torch.from_numpy(pattern).to(x.device)
     rows = torch.empty((b, n_rows, ROW_COLS), dtype=torch.int32, device=x.device)
+    taps = pack_taps(pattern)
     fn = _build.entry("xcorr_hits", "tm_xcorr_hits_batched", _BATCHED_ARGTYPES)
-    err = fn(x.data_ptr(), p.data_ptr(), b, min(bc, b), t, l,
+    err = fn(x.data_ptr(), taps.ctypes.data, b, min(bc, b), t, l,
              correlate.preamble_energy(pattern), threshold, n_rows,
              rows.data_ptr(), _build.stream_ptr(x))
     _build.check(err, "xcorr_hits_batched")
@@ -247,11 +260,11 @@ def xcorr_hits_refine(x: torch.Tensor, vlens: torch.Tensor, pattern: np.ndarray,
             or not vlens.is_contiguous()):
         raise ValueError(f"x must be contiguous and vlens a contiguous int32[{b}]")
     n_rows = -(-t // ROW_LAGS)
-    p = torch.from_numpy(pattern).to(x.device)
-    s = torch.from_numpy(np.asarray(sync_pattern, np.float32)).to(x.device)
     rows = torch.empty((b, n_rows, ROW_COLS), dtype=torch.int32, device=x.device)
+    taps, sync_taps = pack_taps(pattern), pack_taps(sync_pattern)
     fn = _build.entry("xcorr_hits", "tm_xcorr_hits_refine", _REFINE_ARGTYPES)
-    err = fn(x.data_ptr(), vlens.data_ptr(), p.data_ptr(), s.data_ptr(), b, t, l, sync_len,
+    err = fn(x.data_ptr(), vlens.data_ptr(), taps.ctypes.data, sync_taps.ctypes.data,
+             b, t, l, sync_len,
              correlate.preamble_energy(pattern), correlate.preamble_energy(sync_pattern),
              threshold, sync_off, n_pos, fall_off, n_rows, rows.data_ptr(),
              _build.stream_ptr(x))
