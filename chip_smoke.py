@@ -9,7 +9,8 @@ PyTorch built for CUDA and the CUDA toolkit (``nvcc``):
 Phases, each raising on failure (non-zero exit):
 
 0. setup: TF32 off, the card's name and power limit, the kernels built
-   from ``trackmaker_tpu_torch/csrc`` (one nvcc per source, in parallel),
+   from ``trackmaker_tpu_torch/csrc`` (one nvcc per source, in parallel)
+   and the toolchain (nvcc, the driver, torch),
    and the window health probe ``tools.health.health`` on the card (its
    path: 1,201 launches of the probe kernel), printed with the card;
 1. each kernel against its plain PyTorch version on the card: the
@@ -18,13 +19,18 @@ Phases, each raising on failure (non-zero exit):
    preamble and the 4B5B attempt at the fourb5b_b32 shapes (32 captures x
    275,640 samples, 128 candidates), then the four ASK kernels at the
    ask_b16 shapes (16 captures x 338,752 samples, 97 candidate rows): the
-   sliding dot at L=440 and L=30, the fire rule on the batch's sync, the
+   sliding dot at L=440 and L=30 and, bit for bit, at 15 pattern lengths
+   in 1..512 (RAW_LS) on 3 captures of 50,001 samples, the fire rule on
+   the batch's sync, the
    record chain on the batch's chain rows and on random rows with ties,
    the walk on the batch's successor table and on random tables; then the
    row stats at the equalized_b32 (L=96) and fourb5b_b32 (L=60) shapes and
-   the dense normalized correlation at L=440 (the ASK chirp, on the ask_b16
-   captures), each against its plain version and, at L <= 128, exactly
-   against the hit kernel's dense corr; then, at the flagship and
+   at L=440 on the ask_b16 captures, each against its plain version and
+   exactly against the row reduction of the dense normalized correlation
+   and, at L <= 128, of the hit kernel's dense corr, and the dense
+   normalized correlation at L=440 (the ASK chirp, on the ask_b16
+   captures) against its plain version and, at L=96, exactly against the
+   hit kernel's dense corr; then, at the flagship and
    fourb5b_b32 shapes, the hit kernel's refine entry (the sync-refine fold)
    against its plain version, its columns 0..8 against the hit kernel's
    rows bit for bit and its frame starts against the legacy attempt
@@ -117,7 +123,14 @@ Phases, each raising on failure (non-zero exit):
    own device time (torch.profiler, median of 30 launches, from a session
    that traced all 30, else "not measured") beside each wrapper's
    CUDA-event time, and kernel #1 over the two-stream kernel at
-   the tool's shapes in the same run; every attempt-tile
+   the tool's shapes in the same run; the same for every other kernel on
+   a path (the sliding dot at L=440 and L=30, the normalized correlation,
+   the row stats at L=96 and L=60, the attempts in every form, the walk,
+   the ASK kernels), beside its bound and its launches, ranked by
+   launches x (device - bound); the raw sliding dot's unfused floor; the
+   registers, spills and FFMA / FMUL / FADD / LDS counts of each kernel
+   of sliding_dot.cu, xcorr_norm.cu and xcorr_hits.cu, which share the
+   register tile of xcorr_tile.cuh (cuobjdump); every attempt-tile
    variant of phase 1 and every offset-add form against its plain version
    and its bound, beside torch.bmm of the body products and torch.matmul
    with the sliced add; each printed beside the card's name and power
@@ -174,6 +187,9 @@ BLOCKED_MFPB = 8            # max_frames_per_block
 SEAM_SECONDS = 60           # the 4B5B seam capture: a frame across every seam
 SEAM_BLOCKS = 8
 SWEEP_B, SWEEP_T = 3, 50_001  # the tap sweep's captures: T not a multiple of a block's lags
+# the raw sliding dot's sweep: every remainder of an 8-tap step near 8, 16
+# and 128, the dense dots' 30, the chirp's 440 and the kernel's last 512
+RAW_LS = (1, 2, 7, 8, 9, 15, 16, 17, 30, 127, 128, 129, 440, 511, 512)
 DENSE_B, DENSE_T = 4, 60_001  # the dense-hit refine captures
 DENSE_THR = {"manchester": 0.3, "4b5b": 0.4}   # rows of 0 to 5 and more hits there
 FULL_THR = -2.0             # every lag a hit: every slot of every row refined
@@ -525,6 +541,64 @@ def device_ms(torch, fn, kernel: str, calls: int = RUNS) -> tuple[float, int] | 
     return None
 
 
+def toolchain(torch, _build) -> str:
+    """nvcc's release, the driver's version and torch's build: the large
+    launch parameters of xcorr_norm.cu need CUDA 12.1 or later."""
+    import subprocess
+
+    nvcc = [line for line in subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+                                            text=True, check=True).stdout.splitlines()
+            if "release" in line][0]
+    driver = subprocess.run(["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+                            capture_output=True, text=True, check=True,
+                            timeout=60).stdout.strip().splitlines()[0]
+    return f"nvcc {nvcc}, driver {driver}, torch {torch.__version__} (CUDA {torch.version.cuda})"
+
+
+SASS_OPS = ("FFMA", "FMUL", "FADD", "LDS")   # the sums' instructions and shared loads
+
+
+def kernel_resources(_build, src: str) -> dict[str, dict[str, int]]:
+    """The registers, stack, static shared memory and local memory (spills)
+    of each kernel function in the library built from csrc/<src>.cu, as
+    ``cuobjdump -res-usage`` (beside nvcc) reads them, and the count of each
+    of SASS_OPS in its code (``cuobjdump -sass``, any suffix)."""
+    import re
+    import subprocess
+    from pathlib import Path
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    lib = str(_build.library_path(src))
+    out = subprocess.run([str(tool), "-res-usage", lib], capture_output=True, text=True,
+                         check=True).stdout
+    found = {m.group(1): {k: int(v) for k, v in re.findall(r"(REG|STACK|SHARED|LOCAL):(\d+)",
+                                                            m.group(2))}
+             for m in re.finditer(r"Function (\S+):\s*\n([^\n]*)", out)}
+    require(bool(found) and all(len(v) == 4 for v in found.values()),
+            f"cuobjdump -res-usage on {src} gave no resource line:\n{out}")
+    sass = subprocess.run([str(tool), "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        fn_name, code = part.split("\n", 1)
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", code)
+        require(fn_name.strip() in found, f"cuobjdump -sass on {src}: unknown function {fn_name}")
+        found[fn_name.strip()].update({op: ops.count(op) for op in SASS_OPS})
+    require(all(len(v) == 4 + len(SASS_OPS) for v in found.values()),
+            f"cuobjdump -sass on {src} did not give every function's code")
+    return found
+
+
+def digest(tensors) -> str:
+    """A short SHA-256 of the tensors' bytes, in order: equal digests from
+    two trees mean the same decisions bit for bit."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def run_main_path(torch, decode_capture_fast, decode_capture, sd, cfg, x, frames,
                   kernels, tag: str, front=None, expect=None) -> dict[str, int]:
     """One main-path run through decode_capture_fast, behind the front-end
@@ -568,7 +642,8 @@ def run_main_path(torch, decode_capture_fast, decode_capture, sd, cfg, x, frames
         corr_gap = (res.corr[r][res.valid[r]] - exact.corr[exact.valid]).abs().max().item()
         require(corr_gap <= CORR_ATOL, f"{tag} row {r} corr differs from the exact scan by {corr_gap}")
     log(f"phase 2 ({tag}): payload gate passed ({b} rows x {N_FRAMES} frames), every row ok, "
-        f"rows 0 and {b - 1} equal the exact scan")
+        f"rows 0 and {b - 1} equal the exact scan; decisions digest {digest(res)}"
+        + ("" if front is None else f", front end's output digest {digest([x])}"))
     return launches
 
 
@@ -657,6 +732,16 @@ def check_ask_kernels(torch, ask, ask_spec, sdot, cfg, xa, rng) -> tuple[dict, d
                f"at L={len(pattern)}")
     log(f"phase 1: sliding_dot == plain at L=440 on {b} x {xa.shape[1]} and at L=30 on "
         f"{demod_in.shape[0]} x {demod_in.shape[1]}")
+    xx = xa[:SWEEP_B, :SWEEP_T].contiguous()
+    patterns = np.tile(pre, -(-sdot.MAX_PATTERN // len(pre)))
+    for l in RAW_LS:
+        got = sdot.sliding_dot_scaled(xx, patterns[:l], 1.0 / cfg.sync_divisor)
+        torch.cuda.synchronize()
+        record("sliding_dot", [got],
+               [sdot.sliding_dot_scaled_plain(xx, patterns[:l], 1.0 / cfg.sync_divisor)],
+               f"at L={l} on {SWEEP_B} x {SWEEP_T}")
+    log(f"phase 1: sliding_dot == plain bit for bit at every L in {list(RAW_LS)} (the chirp "
+        f"repeated and cut) on {SWEEP_B} x {SWEEP_T}")
 
     power, sync, upd_ok = ask.dense_arrays(cfg, xa)
     hits = ask_spec.dense_fire_candidates(cfg, sync, upd_ok)
@@ -726,7 +811,8 @@ def run_ask_main_path(torch, ask, ask_spec, cfg, xa, frames, kernels) -> dict[st
         require(all(torch.equal(p[r], q) for p, q in zip(res, exact)),
                 f"ask_b16 row {r} differs from the exact scan")
     log(f"phase 2 (ask_b16): payload gate passed ({b} rows x {ASK_FRAMES} frames), every row "
-        f"ok, rows 0 and {b - 1} equal the exact scan in all four fields")
+        f"ok, rows 0 and {b - 1} equal the exact scan in all four fields; decisions digest "
+        f"{digest(res)}")
     return launches
 
 
@@ -762,8 +848,13 @@ def rows_of(torch, corr, n_rows: int):
 def check_rowstats(torch, xn, xcorr_hits, x, pre, tag: str) -> float:
     """xcorr_rowstats against its plain version (row maxima within
     CORR_ATOL, positions equal on rows whose two largest lags differ by
-    more) and, exactly, against the row reduction of xcorr_hits' dense corr;
-    returns the max |err| against the plain version."""
+    more) and, exactly, against the row reduction of normalized_xcorr's
+    dense corr and, at L <= 128, of xcorr_hits'; returns the max |err|
+    against the plain version."""
+    from trackmaker_tpu_torch.sync.correlate import pattern_norm, preamble_energy
+
+    require(pattern_norm(pre) == float(np.float32(preamble_energy(pre))),
+            f"xcorr_rowstats ({tag}): the two norms of the pattern differ")
     rowmax, rowpos = xn.xcorr_rowstats(x, pre)
     torch.cuda.synchronize()
     rowmax_p, rowpos_p = xn.xcorr_rowstats_plain(x, pre)
@@ -776,14 +867,17 @@ def check_rowstats(torch, xn, xcorr_hits, x, pre, tag: str) -> float:
     clear = top2[..., 0] - top2[..., 1] > CORR_ATOL
     require(torch.equal(rowpos[clear], rowpos_p[clear]),
             f"xcorr_rowstats ({tag}) positions differ on an unambiguous row")
-    dense, _ = xcorr_hits(x, pre, float("inf"), emit_corr=True)
-    mx, lane = rows_of(torch, dense, n_rows).max(-1)
-    pos = (torch.arange(n_rows, device=x.device) * 128 + lane).to(torch.int32)
-    require(torch.equal(rowmax, mx) and torch.equal(rowpos, pos),
-            f"xcorr_rowstats ({tag}) differs from the row reduction of xcorr_hits' corr")
+    denses = {"normalized_xcorr": xn.normalized_xcorr_dense(x, pre)}
+    if len(pre) <= 128:
+        denses["xcorr_hits"] = xcorr_hits(x, pre, float("inf"), emit_corr=True)[0]
+    for k_name, dense in denses.items():
+        mx, lane = rows_of(torch, dense, n_rows).max(-1)
+        pos = (torch.arange(n_rows, device=x.device) * 128 + lane).to(torch.int32)
+        require(torch.equal(rowmax, mx) and torch.equal(rowpos, pos),
+                f"xcorr_rowstats ({tag}) differs from the row reduction of {k_name}' corr")
     log(f"phase 1: xcorr_rowstats == plain at L={len(pre)} on {b} x {x.shape[1]} (row max "
         f"|err| {err:.3g}, positions equal on {int(clear.sum())} of {clear.numel()} unambiguous "
-        "rows) and == the row reduction of xcorr_hits' dense corr, bit for bit")
+        f"rows) and == the row reduction of {' and '.join(denses)}' dense corr, bit for bit")
     return err
 
 
@@ -1335,7 +1429,7 @@ def main() -> None:
     t0 = time.perf_counter()
     for path in _build.build_all():
         log(f"built {path.name}")
-    log(f"phase 0: kernels built in {time.perf_counter() - t0:.1f} s")
+    log(f"phase 0: kernels built in {time.perf_counter() - t0:.1f} s; {toolchain(torch, _build)}")
     hp.seq_probe.launches = 0
     torch.cuda.synchronize()
     snap = hp.health(dev)
@@ -1473,9 +1567,10 @@ def main() -> None:
         "(random ones with caps 1..256, the flagship's and fourb5b_b32's)")
     ask_errs, ask_in = check_ask_kernels(torch, ask, ask_spec, sdot, acfg, xa, rng)
     errs.update(ask_errs)
-    errs["xcorr_rowstats"] = max(check_rowstats(torch, xn, xcorr_hits, xe, pre, "equalized_b32"),
-                                 check_rowstats(torch, xn, xcorr_hits, x4, pre4, "fourb5b_b32"))
     chirp = ask._chirp_np(acfg)        # dsp/osc.py's chirp
+    errs["xcorr_rowstats"] = max(check_rowstats(torch, xn, xcorr_hits, xe, pre, "equalized_b32"),
+                                 check_rowstats(torch, xn, xcorr_hits, x4, pre4, "fourb5b_b32"),
+                                 check_rowstats(torch, xn, xcorr_hits, xa, chirp, "ask_b16"))
     errs["normalized_xcorr"] = check_dense(torch, xn, xcorr_hits, xa, chirp, xe, pre)
 
     # --- phase 2: the main paths -----------------------------------------------
@@ -1661,6 +1756,7 @@ def main() -> None:
         plain_ms[k_name] = time_ms(torch, lambda: plain(*ask_args))
     ms["xcorr_rowstats"] = time_ms(torch, lambda: xn.xcorr_rowstats(xe, pre))
     plain_ms["xcorr_rowstats"] = time_ms(torch, lambda: xn.xcorr_rowstats_plain(xe, pre))
+    rowstats4_ms = time_ms(torch, lambda: xn.xcorr_rowstats(x4, pre4))
     ms["normalized_xcorr"] = time_ms(torch, lambda: xn.normalized_xcorr_dense(xa, chirp))
     plain_ms["normalized_xcorr"] = time_ms(torch, lambda: xn.normalized_xcorr_dense_plain(
         xa, chirp))
@@ -1977,6 +2073,79 @@ def main() -> None:
     log(f"phase 4: kernel #1 / xcorr_hits_2s at the tool's shapes, same run: device "
         f"{'not measured' if one is None or two is None else f'{one / two:.4f}'}, CUDA events "
         f"{xcorr_t_ms / ms['xcorr_hits_2s']:.4f} [{card}]")
+    # every other path kernel's own device time beside its wrapper's
+    # CUDA-event time, its bound and its launches on the main paths; the
+    # ASK decode launches the sliding dot once at L=440 and once at L=30
+    n_lags_4 = x4.shape[1] - len(pre4) + 1
+    rowstats4_bound = bound(x4.numel() * 4 + b * -(-n_lags_4 // 128) * 8,
+                            b * n_lags_4 * 4 * len(pre4))
+    path_calls = {
+        "sliding_dot ask_b16 (L=440)": (ask_calls["sliding_dot"], "sliding_dot_kernel",
+                                        ms["sliding_dot"], bounds["sliding_dot"],
+                                        launches["sliding_dot"] // 2),
+        "sliding_dot dense dots (L=30)": (
+            (sdot.sliding_dot_scaled, None, (demod_in, k30, 1.0)), "sliding_dot_kernel",
+            sd30_ms, sd30_bound, launches["sliding_dot"] // 2),
+        "normalized_xcorr ask_b16 (L=440)": (
+            (xn.normalized_xcorr_dense, None, (xa, chirp)), "normalized_xcorr_kernel",
+            ms["normalized_xcorr"], bounds["normalized_xcorr"], launches["normalized_xcorr"]),
+        "xcorr_rowstats equalized_b32 (L=96)": (
+            (xn.xcorr_rowstats, None, (xe, pre)), "xcorr_rowstats_kernel",
+            ms["xcorr_rowstats"], bounds["xcorr_rowstats"], launches["xcorr_rowstats"]),
+        "xcorr_rowstats fourb5b_b32 (L=60)": (
+            (xn.xcorr_rowstats, None, (x4, pre4)), "xcorr_rowstats_kernel", rowstats4_ms,
+            rowstats4_bound, 0),
+    }
+    for k_name in ("attempt_manchester", "attempt_4b5b", "attempt_manchester_fold",
+                   "attempt_4b5b_fold", "attempt_manchester_shared",
+                   "attempt_manchester_fold_shared", "attempt_4b5b_shared",
+                   "attempt_4b5b_fold_shared", "spec_walk", "ask_fire", "ask_chain", "ask_walk"):
+        if k_name in ask_calls:
+            call = ask_calls[k_name]
+        elif k_name in fold_calls:
+            kernel, _, call_args, kw = fold_calls[k_name]
+            call = (lambda kernel=kernel, call_args=call_args, kw=kw: kernel(*call_args, **kw),
+                    None, ())
+        elif k_name.endswith("_shared"):
+            call = shared_in["4b5b" if "4b5b" in k_name else "manchester"]["calls"][k_name]
+        else:
+            call = ({"attempt_manchester": lambda: sd.attempt_manchester(
+                         x, cand, n_valid, vlens, sync, sync_e),
+                     "attempt_4b5b": lambda: sd.attempt_4b5b(
+                         x4, cand4, n_valid4, vlens4, sync4, sync_e4),
+                     "spec_walk": lambda: sd.spec_walk(
+                         phase_a.fields, zeros, no_limit, MAX_FRAMES)}[k_name], None, ())
+        kernel_fn = KERNEL_NAMES.get(k_name, k_name).replace("_fold", "").replace("_shared", "")
+        path_calls[k_name] = (call, f"{kernel_fn}_kernel", ms[k_name], bounds[k_name],
+                              launches[k_name])
+    loss = {}
+    for what, ((kernel, _, call_args), k_fn, event_ms, bnd, n) in path_calls.items():
+        got = device_ms(torch, lambda: kernel(*call_args), k_fn)
+        if got is None:
+            log(f"phase 4: device time {what}: not measured (no session traced every launch); "
+                f"CUDA events around the wrapper {event_ms:.4f} ms, bound {bnd[0]:.6f} ms "
+                f"({bnd[1]}) [{card}]")
+            continue
+        loss[what] = n * (got[0] - bnd[0])
+        log(f"phase 4: device time {what}: {got[0]:.4f} ms (all {RUNS} launches traced, session "
+            f"{got[1]}); CUDA events around the wrapper {event_ms:.4f} ms; bound {bnd[0]:.6f} ms "
+            f"({bnd[1]}); {n} launches on the paths, launches x (device - bound) "
+            f"{loss[what]:.4f} ms [{card}]")
+    log("phase 4: path kernels by launches x (device - bound): "
+        + ", ".join(f"{w} {v:.4f}" for w, v in sorted(loss.items(), key=lambda kv: -kv[1]))
+        + f" ms [{card}]")
+    # the raw sliding dot rounds each product and each sum on its own: two
+    # f32 instructions a tap at half the card's 67 TFLOP/s (FMA counted as 2)
+    unfused_ms = xa.numel() * len(ask_in["pre"]) * 2 / (F32_OPS_PER_S / 2) * 1e3
+    log(f"phase 4: sliding_dot ask_b16 (L=440) unfused floor {unfused_ms:.4f} ms beside its "
+        f"bound {bounds['sliding_dot'][0]:.4f} ms [{card}]")
+    for src in ("sliding_dot", "xcorr_norm", "xcorr_hits"):
+        for fn_name, res in kernel_resources(_build, src).items():
+            require(res["LOCAL"] == 0, f"{fn_name} in {src}.cu spills ({res})")
+            log(f"phase 4: {src}.cu {fn_name}: {res['REG']} registers, {res['LOCAL']} bytes of "
+                f"local memory (spills), {res['SHARED']} bytes of static shared memory, "
+                f"{res['STACK']} bytes of stack (cuobjdump -res-usage); in its SASS "
+                + ", ".join(f"{res[op]} {op}" for op in SASS_OPS) + " (cuobjdump -sass)")
     xk = torch.ones((8, 128), dtype=torch.float32, device=dev)
     ms["seq_probe"] = time_ms(torch, lambda: hp.seq_probe(xk))
     plain_ms["seq_probe"] = time_ms(torch, lambda: hp.seq_probe_plain(xk))

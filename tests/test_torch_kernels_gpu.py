@@ -1031,3 +1031,122 @@ def test_hit_kernel_entries_copy_nothing_to_the_card(cuda):
     names = [e.name for e in prof.events()]
     assert sum("xcorr_hits_kernel" in n for n in names) >= len(calls), names
     assert not [n for n in names if "HtoD" in n or "cudaMemcpy" in n], names
+
+
+# The raw sliding dot and the normalized correlation's row stats on the
+# register tile (csrc/xcorr_tile.cuh): the raw form equals its plain version
+# exactly at every remainder of an 8-tap step and at every edge of a block
+# of 1,024 lags; the row stats equal the row reduction of the dense
+# kernel's own corr exactly, planted ties included; neither wrapper copies
+# its pattern to the card.
+
+RAW_LS = [1, 2, 7, 8, 9, 15, 16, 17, 30, 127, 128, 129, 440, 511, 512]
+TILE = 1024                     # lags a block of either kernel covers
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l", RAW_LS)
+def test_sliding_dot_kernel_equals_plain_at_every_edge(cuda, l):
+    rng = np.random.default_rng(l)
+    pattern = np.tile(ask._chirp_np(ACFG), 2)[:l]
+    for t in sorted({1, l - 1, l, TILE - 1, TILE, TILE + 1, 5001} - {0}):
+        x = torch.from_numpy(rng.normal(0, 1, (3, t)).astype(np.float32)).to(cuda)
+        got = sliding_dot_scaled(x, pattern, 1 / 200)
+        torch.cuda.synchronize()
+        assert torch.equal(got, sliding_dot_scaled_plain(x, pattern, 1 / 200)), (l, t)
+
+
+def _quarter_pattern(rng, l: int) -> np.ndarray:
+    """A pattern of multiples of 1/4 (not all zero), whose norm is the same
+    summed in f32 or in f64: the dense kernel and the row stats divide by
+    the same ||p||."""
+    p = (rng.integers(-4, 5, l) / 4).astype(np.float32)
+    p[0] = 1.0
+    return p
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l", [60, 96, 129, 440, 1024])
+def test_rowstats_equal_the_row_reduction_of_the_dense_kernel(cuda, l):
+    from trackmaker_tpu_torch.sync.correlate import pattern_norm
+
+    rng = np.random.default_rng(l)
+    pattern = _quarter_pattern(rng, l)
+    assert pattern_norm(pattern) == float(np.float32(preamble_energy(pattern)))
+    x = rng.normal(0, 1, (3, RAGGED_T)).astype(np.float32)
+    for b, at in ((0, 0), (0, 5000), (1, RAGGED_T - l), (2, 127 * 8)):
+        x[b, at:at + l] += 3 * pattern      # peaks at the edges and inside
+    x[2, -3000:] = 0.0                       # rows of zero energy: all ties at 0
+    x = torch.from_numpy(x).to(cuda)
+    rowmax, rowpos = xcorr_rowstats(x, pattern)
+    corr = normalized_xcorr_dense(x, pattern)
+    torch.cuda.synchronize()
+    mx, lane = _rows_of(corr, rowmax.shape[1]).max(-1)
+    base = torch.arange(rowmax.shape[1], device=cuda) * 128
+    assert torch.equal(rowmax, mx) and torch.equal(rowpos, (base + lane).int())
+    assert rowpos[0, 0] == 0 and rowpos[1, -1] == RAGGED_T - l
+
+
+def test_tie_captures_plant_what_they_say():
+    x, want = _tie_captures()
+    corr = normalized_xcorr_dense_plain(torch.from_numpy(x), np.ones(8, np.float32))
+    for (b, row), lag in want.items():
+        r = corr[b, row * 128:(row + 1) * 128]
+        assert int(r.argmax()) + row * 128 == lag
+        # a tie, not a clear winner, but where the tie straddles two rows
+        assert int((r == r.max()).sum()) >= 2 or lag in (511, 512)
+
+
+def _tie_captures():
+    """Capture 0: runs of ones that make exact ties (pattern ones(8)) at a
+    thread's lags 7 / 8 (159, 160), at the row's two halves (319, 320), at
+    the last lag of a row and the first of the next (511, 512; each row its
+    own), between a row's first and last lags (640, 767) and between its
+    first and last threads (899, 1016); capture 1: zeros, every lag 0."""
+    t = 2 * 1024 + 70                # 16 rows and a partial 17th
+    x = np.zeros((2, t), np.float32)
+    for start, n in ((159, 9), (319, 9), (511, 9), (640, 8), (767, 8), (899, 8), (1016, 8)):
+        x[0, start:start + n] = 1.0
+    want = {(0, 1): 159, (0, 2): 319, (0, 3): 511, (0, 4): 512, (0, 5): 640, (0, 7): 899}
+    want.update({(1, r): 128 * r for r in range(-(-(t - 7) // 128))})
+    return x, want
+
+
+@pytest.mark.gpu
+def test_rowstats_break_planted_ties_to_the_first_lag(cuda):
+    x, want = _tie_captures()
+    ones = np.ones(8, np.float32)
+    xc = torch.from_numpy(x).to(cuda)
+    rowmax, rowpos = xcorr_rowstats(xc, ones)
+    torch.cuda.synchronize()
+    for (b, row), lag in want.items():
+        assert int(rowpos[b, row]) == lag, (b, row)
+    assert bool((rowmax[1] == 0).all())
+    rowmax_p, rowpos_p = xcorr_rowstats_plain(torch.from_numpy(x), ones)
+    assert torch.equal(rowmax.cpu(), rowmax_p) and torch.equal(rowpos.cpu(), rowpos_p)
+
+
+@pytest.mark.gpu
+def test_sliding_dot_and_normalized_kernels_copy_nothing_to_the_card(cuda):
+    """The pattern goes to each kernel by value: a call on captures already
+    on the card makes no host-to-device copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.from_numpy(_ragged()).to(cuda)
+    chirp = chirp_np(440)
+    calls = (lambda: sliding_dot_scaled(x, chirp, 1 / 200),
+             lambda: normalized_xcorr_dense(x, chirp),
+             lambda: xcorr_rowstats(x, PRE))
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    # three rounds: the profiler can drop the first kernel events of a session
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            for call in calls:
+                call()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    for kernel in ("sliding_dot_kernel", "normalized_xcorr_kernel", "xcorr_rowstats_kernel"):
+        assert sum(kernel in n for n in names) >= 1, (kernel, names)
+    assert not [n for n in names if "HtoD" in n or "cudaMemcpy" in n], names

@@ -17,9 +17,10 @@
 // with pe the pattern's norm in f32: a division, as the JAX package's
 // correlate.normalized_xcorr divides (sqrtf and / are IEEE-rounded: the
 // file is built without fast math), so a lag at the threshold falls on the
-// reference's side of it.  The chains are the ones xcorr_norm.cu and
-// xcorr_streams.cu compile from `dot += v * p` (contracted to one fused
-// multiply-add a tap), so the three give the same corr bit for bit.
+// reference's side of it.  xcorr_norm.cu runs the same steps
+// (xcorr_tile.cuh), and xcorr_streams.cu compiles the same chains from
+// `dot += v * p` (contracted to one fused multiply-add a tap), so the three
+// give the same corr bit for bit.
 // Lags are grouped into rows of 128.  Row r of `rows` (int32[B, R, 16]):
 //   cols 0..3  the first four lags of the row with corr >= threshold,
 //              ascending, padded with 2^30
@@ -49,45 +50,39 @@
 // for 16 multiply-adds, and shared memory bound it at about 2.25x the FMA
 // issue time.
 //
-// Design: a block of 128 threads covers kK rows of 128 lags, staged with
-// their halo in shared memory, 4 floats of padding after every 32 samples
-// (sx), so that a warp's 16-byte loads, kK floats apart from thread to
-// thread, spread evenly over the banks.  Each thread sums kK consecutive
-// lags: a step of kChunk taps loads a window of kK + kChunk samples and
-// the step's taps (16-byte loads, the taps a broadcast), then does
-// 2 * kK * kChunk multiply-adds from registers, so one shared load feeds
-// 2 * kK of them and FFMA issue bounds the loop; a last step of fewer
-// taps keeps the order for an L that is not a multiple of kChunk.  The
-// pattern and the sync word come by value in the launch parameters (no
-// copy to the card).  Then each thread's kK corr values go to shared
-// memory.  A block without a hit (most of them) writes its empty rows at
-// once; the others run the hit extraction, one lane of each row a thread:
-// a warp ballot per row and warp, a popc prefix over the row's four warps
-// and a scatter of the first four hits.  The refine compacts the block's
-// live (row, slot) pairs in row-then-slot order, spreads the (pair,
-// position) windows over all 128 threads and takes the first maximum over
-// a pair's positions in one thread; the TPU form's dense sync correlation
-// (two more banded products on an idle matrix unit) is not built.  The
-// batch-folded entry loops a block over `bc` captures.  kK = 8 keeps a
-// block at 8 rows of 128 lags, the first design's block; kK = 16 (90
-// registers, 16 rows a block) timed 1-2% faster on an H100 and kK = 4
-// 13% slower (PERF.md).
+// Design (the tile and its steps in xcorr_tile.cuh, shared with
+// xcorr_norm.cu and sliding_dot.cu): a block of 128 threads covers kK rows
+// of 128 lags, staged with their halo in shared memory, 4 floats of padding
+// after every 32 samples (sx), so that a warp's 16-byte loads, kK floats
+// apart from thread to thread, spread evenly over the banks.  Each thread
+// sums kK consecutive lags: a step of kChunk taps loads a window of kK +
+// kChunk samples and the step's taps (16-byte loads, the taps a broadcast),
+// then does 2 * kK * kChunk multiply-adds from registers, so one shared
+// load feeds 2 * kK of them and FFMA issue bounds the loop; a last step of
+// fewer taps keeps the order for an L that is not a multiple of kChunk.  The
+// pattern and the sync word come by value in the launch parameters (no copy
+// to the card).  Then each thread's kK corr values go to shared memory.  A
+// block without a hit (most of them) writes its empty rows at once; the
+// others run the hit extraction, one lane of each row a thread: a warp
+// ballot per row and warp, a popc prefix over the row's four warps and a
+// scatter of the first four hits.  The refine compacts the block's live
+// (row, slot) pairs in row-then-slot order, spreads the (pair, position)
+// windows over all 128 threads and takes the first maximum over a pair's
+// positions in one thread; the TPU form's dense sync correlation (two more
+// banded products on an idle matrix unit) is not built.  The batch-folded
+// entry loops a block over `bc` captures.  kK = 8 keeps a block at 8 rows of
+// 128 lags, the first design's block; kK = 16 (90 registers, 16 rows a
+// block) timed 1-2% faster on an H100 and kK = 4 13% slower (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 #include <string.h>
 
+#include "xcorr_tile.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kLanes = 128;       // lags per row
-constexpr int kK = 8;            // consecutive lags a thread sums
-constexpr int kRows = kK;         // rows per block: kThreads * kK lags
-constexpr int kTile = kRows * kLanes;
-constexpr int kChunk = 8;         // taps a step
-constexpr int kWindow = kK + kChunk;   // samples a step's kK lags read (one spare)
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxL = 128;        // longest pattern (and sync word)
 constexpr int kMaxHalo = 256;     // staged samples past the block's last lag
 constexpr int kMaxPositions = 32; // refine positions
@@ -98,12 +93,8 @@ constexpr int kBig = 1 << 30;
 constexpr float kEps = 1e-6f;     // sync/correlate.py:EPS
 constexpr float kRefineEps = 1e-6f;
 
-static_assert(kK % 4 == 0 && kChunk % 4 == 0, "a window starts at a multiple of 4: 16-byte loads");
-static_assert(kThreads % 32 == 0, "sx(i + kThreads) = sx(i) + sx(kThreads)");
 static_assert(kMaxHalo >= kMaxL, "the last step's window reaches round_up(L, kChunk) past the tile");
 
-// the padded shared index of staged sample i: 4 floats after every 32
-__host__ __device__ constexpr int sx(int i) { return i + ((i >> 5) << 2); }
 constexpr int kStaged = sx(kTile + kMaxHalo) + 4;
 
 struct Taps {                     // a pattern by value: the taps, then zeros
@@ -116,41 +107,6 @@ struct Refine {
   int w, sync_off, n_pos, fall_off;
   Taps sync;             // f32[W] sync word
 };
-
-__device__ __forceinline__ void load4(float* dst, const float* src) {
-  const float4 v = *reinterpret_cast<const float4*>(src);
-  dst[0] = v.x;
-  dst[1] = v.y;
-  dst[2] = v.z;
-  dst[3] = v.w;
-}
-
-// The sums of the kK lags from `base` (a tile index) over the taps j0 ..
-// j0 + n - 1, n <= kChunk (all kChunk when kFull), in tap order: one window
-// of kWindow staged samples and the step's taps, then the multiply-adds
-// from registers.
-template <bool kFull>
-__device__ __forceinline__ void tap_step(const float* xs, const float* ps, int base, int j0,
-                                         int n, float (&dot)[kK], float (&energy)[kK]) {
-  float w[kWindow], p[kChunk];
-  // sx(s + q) = sx(s) + q + 4 * (((s & 31) + q) >> 5)
-  const int s = base + j0;
-  const float* ws = xs + sx(s);
-  const int s_lo = s & 31;
-#pragma unroll
-  for (int q = 0; q < kWindow; q += 4) load4(w + q, ws + q + (((s_lo + q) >> 5) << 2));
-#pragma unroll
-  for (int q = 0; q < kChunk; q += 4) load4(p + q, ps + j0 + q);
-#pragma unroll
-  for (int m = 0; m < (kFull ? kChunk : kChunk - 1); ++m) {
-    if (!kFull && m >= n) break;
-#pragma unroll
-    for (int k = 0; k < kK; ++k) {
-      dot[k] = __fmaf_rn(w[m + k], p[m], dot[k]);
-      energy[k] = __fmaf_rn(w[m + k], w[m + k], energy[k]);
-    }
-  }
-}
 
 template <bool kRefine>
 __global__ void __launch_bounds__(kThreads) xcorr_hits_kernel(
@@ -194,15 +150,7 @@ __global__ void __launch_bounds__(kThreads) xcorr_hits_kernel(
     __syncthreads();
 
     float dot[kK], energy[kK];
-#pragma unroll
-    for (int k = 0; k < kK; ++k) {
-      dot[k] = 0.0f;
-      energy[k] = 0.0f;
-    }
-    int j0 = 0;
-#pragma unroll 1
-    for (; j0 + kChunk <= l; j0 += kChunk) tap_step<true>(xs, ps, base, j0, kChunk, dot, energy);
-    if (j0 < l) tap_step<false>(xs, ps, base, j0, l - j0, dot, energy);   // the last taps
+    tap_sums(xs, ps, base, l, dot, energy);
     float corr[kK];
     bool any_hit = false;
 #pragma unroll
@@ -351,12 +299,6 @@ int check_args(int batch, int bc, int t, int l, int n_rows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return 0;
-}
-
-// samples staged past the tile: the halo, and at least what the last
-// step's window reaches (round_up(L, kChunk))
-int staged_halo(int l, int halo) {
-  return max(halo, (l + kChunk - 1) / kChunk * kChunk);
 }
 
 Taps taps_of(const float* host) {

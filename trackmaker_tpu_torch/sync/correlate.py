@@ -66,3 +66,14 @@ def pattern_norm(pattern: np.ndarray) -> float:
 
 def preamble_energy(pattern: np.ndarray) -> float:
     return float(np.sqrt(np.sum(np.asarray(pattern, np.float64) ** 2)))
+
+
+def pack_taps(taps, width: int) -> np.ndarray:
+    """A pattern as a correlation kernel's launch parameter: its f32 values,
+    then zeros, `width` floats."""
+    taps = np.asarray(taps, np.float32)
+    if not 1 <= len(taps) <= width:
+        raise ValueError(f"{len(taps)} taps do not fit the kernel's {width}")
+    out = np.zeros(width, np.float32)
+    out[:len(taps)] = taps
+    return out

@@ -55,12 +55,7 @@ REFINE_EPS = 1e-6           # sync windows with no more energy correlate to 0
 def pack_taps(taps) -> np.ndarray:
     """The pattern (or sync word) as the kernel's launch parameter: its f32
     values, then zeros, MAX_PATTERN floats."""
-    taps = np.asarray(taps, np.float32)
-    if not 1 <= len(taps) <= MAX_PATTERN:
-        raise ValueError(f"{len(taps)} taps do not fit the kernel's {MAX_PATTERN}")
-    out = np.zeros(MAX_PATTERN, np.float32)
-    out[:len(taps)] = taps
-    return out
+    return correlate.pack_taps(taps, MAX_PATTERN)
 
 
 def _shapes(x: torch.Tensor, pattern: np.ndarray) -> tuple[int, int, int]:

@@ -18,6 +18,15 @@ CPU tensor.  For captures x f32[B, T] and a host pattern p f32[L]:
   -3.4e38.  This is the JAX package's CPU form of ``auto_xcorr_row_stats``
   (R counts the valid lags, not whole blocks of the capture), whose
   ``||p||`` is summed in f32 (``correlate.pattern_norm``).
+
+The kernel runs the hit kernel's register tile (``csrc/xcorr_tile.cuh``):
+each thread sums 8 consecutive lags from a window of samples in registers,
+one fused multiply-add a tap for the dot and one for the energy, in tap
+order, so at L <= 128 its corr equals ``xcorr_hits``' bit for bit.  A row
+of 128 lags is 16 threads; each keeps the first maximum of its 8 lags and
+the row's threads meet by warp shuffles, the smaller lag winning a tie.
+The pattern goes to the kernel by value, 1024 floats (:func:`pack_taps`):
+a call copies nothing to the card.
 """
 
 from __future__ import annotations
@@ -31,8 +40,15 @@ from trackmaker_tpu_torch import _build
 from trackmaker_tpu_torch.sync import correlate
 
 ROW_LAGS = 128
-MAX_PATTERN = 1024   # longest pattern the kernel stages in shared memory
+MAX_PATTERN = 1024   # longest pattern the kernel takes by value
+MAX_BATCH = 65535    # captures a launch: the grid's second dimension
 NO_ROW = -3.4e38     # the value of a lag past the valid ones
+
+
+def pack_taps(taps) -> np.ndarray:
+    """The pattern as the kernel's launch parameter: its f32 values, then
+    zeros, MAX_PATTERN floats."""
+    return correlate.pack_taps(taps, MAX_PATTERN)
 
 
 def _shapes(x: torch.Tensor, pattern: np.ndarray) -> tuple[int, int, int]:
@@ -77,12 +93,14 @@ _ROWSTATS_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_i
 
 
 def _kernel_args(x: torch.Tensor, pattern: np.ndarray):
-    """(b, t, l, the pattern on x's device) for a launch."""
-    pattern = np.array(pattern, np.float32)      # a private, writable copy
+    """(b, t, l, the packed taps) for a launch, after the kernel's range
+    checks."""
     b, t, l = _shapes(x, pattern)
+    if not 1 <= b <= MAX_BATCH:
+        raise ValueError(f"the kernel takes 1..{MAX_BATCH} captures, got {b}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    return b, t, l, torch.from_numpy(pattern).to(x.device)
+    return b, t, l, pack_taps(pattern)
 
 
 def normalized_xcorr_dense(x: torch.Tensor, pattern: np.ndarray) -> torch.Tensor:
@@ -90,12 +108,11 @@ def normalized_xcorr_dense(x: torch.Tensor, pattern: np.ndarray) -> torch.Tensor
     constant `pattern` f32[L], L <= 1024 (see the module docstring)."""
     if not _build.on_cuda(x):
         return normalized_xcorr_dense_plain(x, pattern)
-    b, t, l, p = _kernel_args(x, pattern)
+    b, t, l, taps = _kernel_args(x, pattern)
     corr = torch.empty((b, t - l + 1), dtype=torch.float32, device=x.device)
     fn = _build.entry("xcorr_norm", "tm_normalized_xcorr", _DENSE_ARGTYPES)
-    err = fn(x.data_ptr(), p.data_ptr(), b, t, l, correlate.preamble_energy(pattern),
-             corr.data_ptr(),
-             _build.stream_ptr(x))
+    err = fn(x.data_ptr(), taps.ctypes.data, b, t, l, correlate.preamble_energy(pattern),
+             corr.data_ptr(), _build.stream_ptr(x))
     _build.check(err, "normalized_xcorr")
     normalized_xcorr_dense.launches += 1
     return corr
@@ -110,14 +127,13 @@ def xcorr_rowstats(x: torch.Tensor, pattern: np.ndarray):
     docstring)."""
     if not _build.on_cuda(x):
         return xcorr_rowstats_plain(x, pattern)
-    b, t, l, p = _kernel_args(x, pattern)
+    b, t, l, taps = _kernel_args(x, pattern)
     r = -(-(t - l + 1) // ROW_LAGS)
     rowmax = torch.empty((b, r), dtype=torch.float32, device=x.device)
     rowpos = torch.empty((b, r), dtype=torch.int32, device=x.device)
     fn = _build.entry("xcorr_norm", "tm_xcorr_rowstats", _ROWSTATS_ARGTYPES)
-    err = fn(x.data_ptr(), p.data_ptr(), b, t, l, correlate.pattern_norm(pattern), r,
-             rowmax.data_ptr(),
-             rowpos.data_ptr(), _build.stream_ptr(x))
+    err = fn(x.data_ptr(), taps.ctypes.data, b, t, l, correlate.pattern_norm(pattern), r,
+             rowmax.data_ptr(), rowpos.data_ptr(), _build.stream_ptr(x))
     _build.check(err, "xcorr_rowstats")
     xcorr_rowstats.launches += 1
     return rowmax, rowpos
