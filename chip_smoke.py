@@ -23,7 +23,12 @@ Phases, each raising on failure (non-zero exit):
    in 1..512 (RAW_LS) on 3 captures of 50,001 samples, the fire rule on
    the batch's sync, the
    record chain on the batch's chain rows and on random rows with ties,
-   the walk on the batch's successor table and on random tables; then the
+   the walk on the batch's successor table and on random tables; the
+   line-coded walk on random tables and, with the Manchester attempt's four
+   forms, on the edge inputs of tests/test_torch_walk_attempt_design.py
+   (walk tables of 1 to 1,000 candidates at the caps that bind; attempt
+   windows across T and the valid length, at every offset mod 4, bases at
+   and past T, a first sample off a 16-byte boundary, row stride 0); then the
    row stats at the equalized_b32 (L=96) and fourb5b_b32 (L=60) shapes and
    at L=440 on the ask_b16 captures, each against its plain version and
    exactly against the row reduction of the dense normalized correlation
@@ -128,9 +133,11 @@ Phases, each raising on failure (non-zero exit):
    the row stats at L=96 and L=60, the attempts in every form, the walk,
    the ASK kernels), beside its bound and its launches, ranked by
    launches x (device - bound); the raw sliding dot's unfused floor; the
-   registers, spills and FFMA / FMUL / FADD / LDS counts of each kernel
+   Manchester attempts' contract floor (each live slot's window read once);
+   the registers, spills and FFMA / FMUL / FADD / LDS counts of each kernel
    of sliding_dot.cu, xcorr_norm.cu and xcorr_hits.cu, which share the
-   register tile of xcorr_tile.cuh (cuobjdump); every attempt-tile
+   register tile of xcorr_tile.cuh, and of spec_walk.cu and
+   attempt_manchester.cu (cuobjdump); every attempt-tile
    variant of phase 1 and every offset-add form against its plain version
    and its bound, beside torch.bmm of the body products and torch.matmul
    with the sliced add; each printed beside the card's name and power
@@ -586,6 +593,50 @@ def kernel_resources(_build, src: str) -> dict[str, dict[str, int]]:
     require(all(len(v) == 4 + len(SASS_OPS) for v in found.values()),
             f"cuobjdump -sass on {src} did not give every function's code")
     return found
+
+
+def check_walk_attempt_edges(torch, sd, dev) -> dict:
+    """The walk and the four Manchester attempt forms against their plain
+    versions, bit for bit, on the edge inputs of
+    tests/test_torch_walk_attempt_design.py: walk tables of 1 to 1,000
+    candidates (none present, all present, a stop first, duplicate
+    positions, a cursor past all, a limit mid-table) at caps 1, L - 1, L
+    and C + 1; attempts at windows across T and the valid length, starts at
+    every offset mod 4, bases at and past T, a first sample off a 16-byte
+    boundary, row stride 0, rows without a live slot and with more hits
+    than slots."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import test_torch_walk_attempt_design as edges
+
+    errs = {"spec_walk": 0}
+    n_tables = 0
+    for c in edges.WALK_CS:
+        for fields, cur0, limit, cap in edges.walk_edge_tables(c):
+            args = (fields.to(dev), cur0.to(dev), limit.to(dev), cap)
+            got = sd.spec_walk(*args)
+            torch.cuda.synchronize()
+            for field, g, w in zip(got._fields, got, sd.spec_walk_plain(*args)):
+                require(torch.equal(g, w), f"spec_walk {field} differs on the edge table of "
+                                           f"{c} candidates (max_frames {cap})")
+            n_tables += 1
+    inputs = edges.attempt_edge_inputs(dev)
+    n_live = 0
+    for form in edges.ATTEMPT_FORMS:
+        xx, args = inputs[form]
+        wrapper, plain = edges.attempt_call(form)
+        got = wrapper(xx, *args)
+        torch.cuda.synchronize()
+        for field, g, w in zip(("bytes", "fs"), got, plain(xx, *args)):
+            require(torch.equal(g, w), f"{wrapper.__name__} ({form}) {field} differs from its "
+                                       "plain version on the edge inputs")
+        k_name = wrapper.__name__ + ("_shared" if xx.stride(0) == 0 else "")
+        errs[k_name] = 0
+        n_live = int(sd._live(got[1], args[1]).sum())
+    log(f"phase 1: spec_walk == plain on {n_tables} edge tables of {list(edges.WALK_CS)} "
+        f"candidates; attempt_manchester and its fold form, per row and shared, == plain on "
+        f"the edge inputs ({edges.ATT_B} x {edges.ATT_T} samples, {n_live} live slots of "
+        f"{edges.ATT_B * edges.ATT_C})")
+    return errs
 
 
 def digest(tensors) -> str:
@@ -1565,6 +1616,8 @@ def main() -> None:
     errs["spec_walk"] = walk_err
     log(f"phase 1: spec_walk == plain on {len(tables)} tables "
         "(random ones with caps 1..256, the flagship's and fourb5b_b32's)")
+    for k_name, v in check_walk_attempt_edges(torch, sd, dev).items():
+        errs[k_name] = max(errs.get(k_name, 0), v)
     ask_errs, ask_in = check_ask_kernels(torch, ask, ask_spec, sdot, acfg, xa, rng)
     errs.update(ask_errs)
     chirp = ask._chirp_np(acfg)        # dsp/osc.py's chirp
@@ -1807,10 +1860,10 @@ def main() -> None:
         "attempt_4b5b": bound(
             x4.numel() * 4 + small_in + b * N_CAND * (sd.FRAME_BYTES + 12),
             live4 * (31 * 30 * 4 + sd.ZERO_SYMBOLS * 5 * 4)),
-        # the fields in, keep/attempted and four ints per capture out; a
-        # few integer ops per candidate
-        "spec_walk": bound(phase_a.fields.numel() * 4 + 2 * b * 4 + 2 * b * N_CAND + 4 * b * 4,
-                           b * N_CAND * 4),
+        # the fields in, keep/attempted, done and three ints per capture
+        # out; a few integer ops per candidate
+        "spec_walk": bound(phase_a.fields.numel() * 4 + 2 * b * 4 + 2 * b * N_CAND + b
+                           + 3 * b * 4, b * N_CAND * 4),
         # each lag: 440 products and 440 sums, then the scale
         "sliding_dot": bound(2 * xa.numel() * 4, xa.numel() * (2 * 440 + 1)),
         # sync and upd in, hits out; a select per sample (the window
@@ -2131,6 +2184,16 @@ def main() -> None:
             f"{got[1]}); CUDA events around the wrapper {event_ms:.4f} ms; bound {bnd[0]:.6f} ms "
             f"({bnd[1]}); {n} launches on the paths, launches x (device - bound) "
             f"{loss[what]:.4f} ms [{card}]")
+    # the attempt's contract: every live slot reads its own window (legacy
+    # 60 + 12,624 samples, fold 12,624), once each, beside the bound, which
+    # counts the capture once
+    for k_name, n_live in (("attempt_manchester", live), ("attempt_manchester_fold", live),
+                           ("attempt_manchester_shared", shared_in["manchester"]["live"]),
+                           ("attempt_manchester_fold_shared", shared_in["manchester"]["live"])):
+        window = sd.FRAME_BYTES * 8 * sd.BIT_SAMPLES + (0 if "_fold" in k_name else 60)
+        log(f"phase 4: {k_name}: contract floor {n_live * window * 4 / HBM_BYTES_PER_S * 1e3:.6f}"
+            f" ms ({n_live} live slots x {window} samples, each window read once) beside its "
+            f"bound {bounds[k_name][0]:.6f} ms [{card}]")
     log("phase 4: path kernels by launches x (device - bound): "
         + ", ".join(f"{w} {v:.4f}" for w, v in sorted(loss.items(), key=lambda kv: -kv[1]))
         + f" ms [{card}]")
@@ -2139,7 +2202,7 @@ def main() -> None:
     unfused_ms = xa.numel() * len(ask_in["pre"]) * 2 / (F32_OPS_PER_S / 2) * 1e3
     log(f"phase 4: sliding_dot ask_b16 (L=440) unfused floor {unfused_ms:.4f} ms beside its "
         f"bound {bounds['sliding_dot'][0]:.4f} ms [{card}]")
-    for src in ("sliding_dot", "xcorr_norm", "xcorr_hits"):
+    for src in ("sliding_dot", "xcorr_norm", "xcorr_hits", "spec_walk", "attempt_manchester"):
         for fn_name, res in kernel_resources(_build, src).items():
             require(res["LOCAL"] == 0, f"{fn_name} in {src}.cu spills ({res})")
             log(f"phase 4: {src}.cu {fn_name}: {res['REG']} registers, {res['LOCAL']} bytes of "

@@ -71,6 +71,15 @@ from trackmaker_tpu_torch.tools import exp_offset_add as eo
 from trackmaker_tpu_torch.tools import exp_xcorr_streams as ex
 from trackmaker_tpu_torch.tools import health, prof_fused
 
+# the edge inputs, from the CPU tests beside this file
+from test_torch_walk_attempt_design import (
+    ATTEMPT_FORMS,
+    WALK_CS,
+    attempt_call,
+    attempt_edge_inputs,
+    walk_edge_tables,
+)
+
 CFG = PhyConfig()
 PRE = preamble_waveform(CFG)
 SYNC = PRE[48:]
@@ -115,7 +124,19 @@ def _tables(rng, b=8, c=128, mf=72):
 
 def test_cpu_tensors_run_the_plain_versions():
     """On CPU tensors each wrapper returns its plain version's result and
-    counts no launch."""
+    counts no launch.  Torch runs on one thread here: on several, the CPU
+    conv1d behind the plain correlation may sum in another order in a
+    process's first call than in its second, and the two calls below
+    compare bit for bit."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _cpu_tensors_run_the_plain_versions()
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _cpu_tensors_run_the_plain_versions():
     x = torch.from_numpy(_captures(b=2, n_frames=3))
     counts = [f.launches for f in (xcorr_hits, sd.attempt_manchester, sd.spec_walk)]
     corr, rows = xcorr_hits(x, PRE, THR, emit_corr=True)
@@ -298,6 +319,9 @@ def test_positions_past_2_24_stay_exact(cuda):
     assert bool(ok.all())
     assert res.start[0, :2].tolist() == starts
     assert [f.data for f in res.to_frames(row=0)] == [f.data for f in frames]
+    t = x.shape[1]
+    got = _attempt_forms_equal_plain(x, [[*starts, t - 5_000, t - 1, t, BIGI]], [5])
+    assert got[:2] == [s + 96 for s in starts]          # each frame's exact start
 
     seam = 2**24 + 2**19
     starts = [2**24 + 1001, seam - 1000, seam + 5003]
@@ -308,12 +332,38 @@ def test_positions_past_2_24_stay_exact(cuda):
         long[s:s + wave.shape[0]] = wave
     assert starts[1] + wave.shape[0] > seam
     long = long.to(cuda)
+    _attempt_forms_equal_plain(long.expand(2, -1), [[starts[0], starts[1], seam - 7, seam - 1],
+                                                    [starts[2], 2 * seam - 9_000, 2 * seam - 2,
+                                                     BIGI]], [4, 3])
     before = sd.attempt_manchester.shared_launches
     for res in (decode_blocked_single_chip(CFG, long, 2, n_blocks=2, max_frames_per_block=4),
                 decode_blocked_exact(CFG, long, 2, 2, 4)):
         assert res.start[res.valid].tolist() == starts
         assert [f.data for f in res.to_frames()] == [f.data for f in frames]
     assert sd.attempt_manchester.shared_launches == before + 1
+
+
+def _attempt_forms_equal_plain(x, cand, n_valid) -> list[int]:
+    """Both Manchester attempt forms on x (on the card, rows or one capture
+    expanded) at the candidates `cand` and the expected frame starts, each
+    equal to its plain version; the legacy frame starts of row 0."""
+    dev = x.device
+    b, t = x.shape
+    cand = torch.tensor(cand, dtype=torch.int32, device=dev)
+    n_valid = torch.tensor(n_valid, dtype=torch.int32, device=dev)
+    vlen = torch.full((b,), t, dtype=torch.int32, device=dev)
+    fs = torch.minimum(cand, torch.tensor(t, dtype=torch.int32, device=dev)) + 96
+    forms = ((sd.attempt_manchester, sd.attempt_manchester_plain,
+              (cand, n_valid, vlen, SYNC, preamble_energy(SYNC))),
+             (sd.attempt_manchester_fold, sd.attempt_manchester_fold_plain, (fs, n_valid)))
+    for wrapper, plain, args in forms:
+        got = wrapper(x, *args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, plain(x, *args)):
+            assert torch.equal(g, w), wrapper.__name__
+        if wrapper is sd.attempt_manchester:
+            starts = got[1][0].tolist()
+    return starts
 
 
 @pytest.mark.gpu
@@ -1150,3 +1200,94 @@ def test_sliding_dot_and_normalized_kernels_copy_nothing_to_the_card(cuda):
     for kernel in ("sliding_dot_kernel", "normalized_xcorr_kernel", "xcorr_rowstats_kernel"):
         assert sum(kernel in n for n in names) >= 1, (kernel, names)
     assert not [n for n in names if "HtoD" in n or "cudaMemcpy" in n], names
+
+
+# The walk as a successor-table chase by pointer doubling and the Manchester
+# attempt staged by the copy engine (csrc/spec_walk.cu,
+# csrc/attempt_manchester.cu): each equals its plain version on the edge
+# inputs of tests/test_torch_walk_attempt_design.py, the walk at every table
+# size it takes, and neither wrapper copies anything to the card.
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", WALK_CS)
+def test_walk_kernel_matches_plain_on_edge_tables(cuda, c):
+    for fields, cur0, limit, mf in walk_edge_tables(c):
+        args = (fields.to(cuda), cur0.to(cuda), limit.to(cuda), mf)
+        before = sd.spec_walk.launches
+        got = sd.spec_walk(*args)
+        torch.cuda.synchronize()
+        assert sd.spec_walk.launches == before + 1
+        want = sd.spec_walk_plain(*args)
+        for name, g, w in zip(got._fields, got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w), (c, mf, name)
+
+
+@pytest.mark.gpu
+def test_walk_kernel_takes_the_table_sizes_it_took(cuda):
+    """Tables of 1..2,730 candidates (their fields once fit 48 KB of shared
+    memory); 2,731 is refused."""
+    rng = np.random.default_rng(9)
+    for c, mf in ((2730, 72), (2730, 2731), (1025, 300), (2049, 5)):
+        fields, cur0, limit, _ = _tables(rng, b=3, c=c)
+        args = (fields.to(cuda), cur0.to(cuda), limit.to(cuda), mf)
+        got = sd.spec_walk(*args)
+        torch.cuda.synchronize()
+        for name, g, w in zip(got._fields, got, sd.spec_walk_plain(*args)):
+            assert torch.equal(g, w), (c, mf, name)
+    fields, cur0, limit, _ = _tables(rng, b=2, c=2731)
+    with pytest.raises(RuntimeError):
+        sd.spec_walk(fields.to(cuda), cur0.to(cuda), limit.to(cuda), 72)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ATTEMPT_FORMS)
+def test_attempt_kernels_match_plain_at_the_edges(cuda, form):
+    x, args = attempt_edge_inputs(cuda)[form]
+    wrapper, plain = attempt_call(form)
+    shared = x.stride(0) == 0
+    before = (wrapper.launches, wrapper.shared_launches)
+    got = wrapper(x, *args)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.shared_launches) == (before[0] + (not shared),
+                                                           before[1] + shared)
+    for name, g, w in zip(("bytes", "fs"), got, plain(x, *args)):
+        assert torch.equal(g, w), (form, name)
+
+
+@pytest.mark.gpu
+def test_walk_and_attempt_kernels_copy_nothing_to_the_card(cuda):
+    """The sync word goes to the attempt kernel by value, and the walk
+    writes every field it returns in its one launch: no call copies host to
+    device, and a walk call launches one kernel and nothing else."""
+    from torch.profiler import ProfilerActivity, profile
+
+    inputs = attempt_edge_inputs(cuda)
+    table = [t.to(cuda) for t in _tables(np.random.default_rng(4))[:3]]
+    calls = [lambda form=form: attempt_call(form)[0](inputs[form][0], *inputs[form][1])
+             for form in ATTEMPT_FORMS] + [lambda: sd.spec_walk(*table, 72)]
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    # three rounds: the profiler can drop the first kernel events of a session
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            for call in calls:
+                call()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    for kernel in ("attempt_manchester_kernel", "spec_walk_kernel"):
+        assert sum(kernel in n for n in names) >= 1, (kernel, names)
+    assert not [n for n in names if "HtoD" in n or "cudaMemcpy" in n], names
+
+    before = sd.spec_walk.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            calls[-1]()
+        torch.cuda.synchronize()
+    assert sd.spec_walk.launches == before + 3
+    on_card = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert 1 <= len(on_card) <= 3 and all("spec_walk_kernel" in n for n in on_card), on_card
+    assert sum(n.startswith("cudaLaunchKernel") for n in names) >= 1
+    assert sum(e.name.startswith("cudaLaunchKernel") for e in prof.events()) <= 3

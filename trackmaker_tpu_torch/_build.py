@@ -30,6 +30,7 @@ KERNELS = ("xcorr_hits", "attempt_manchester", "attempt_4b5b", "spec_walk",
            "seq_probe", "xcorr_streams", "offset_add", "attempt_tiles")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_entries: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -96,10 +97,14 @@ def build_all() -> list[Path]:
 
 
 def entry(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
-    """C entry point `symbol` of kernel `name`, returning a cudaError_t."""
-    fn = getattr(load(name), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    """C entry point `symbol` of kernel `name`, returning a cudaError_t; its
+    argument types are set at the first lookup, later ones return it."""
+    fn = _entries.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _entries[(name, symbol)] = fn
     return fn
 
 

@@ -302,20 +302,21 @@ def attempt_manchester(x: torch.Tensor, cand: torch.Tensor,
     in ``csrc/attempt_manchester.cu``).  x may be one capture expanded to
     every row (``x.expand(B, -1)``, row stride 0): every row of the tables
     then reads that capture (the long-capture blocked decode), counted in
-    ``shared_launches``.
+    ``shared_launches``.  The sync word goes to the kernel by value: a call
+    copies nothing to the card.
     """
     if not _build.on_cuda(x, cand, n_valid, vlen):
         return attempt_manchester_plain(x, cand, n_valid, vlen, sync, sync_e)
     _check_attempt_args(x, cand, n_valid, vlen, sync, 48)
     b, t = x.shape
     n_cand = cand.shape[1]
-    s = torch.from_numpy(np.asarray(sync, np.float32)).to(x.device)
+    s = np.ascontiguousarray(sync, np.float32)     # read on the host, passed by value
     byts = torch.empty((b, n_cand, FRAME_BYTES), dtype=torch.uint8, device=x.device)
     fs = torch.empty((b, n_cand), dtype=torch.int32, device=x.device)
     fn = _build.entry("attempt_manchester", "tm_attempt_manchester",
                       _ATTEMPT_ARGTYPES)
     err = fn(x.data_ptr(), x.stride(0), cand.data_ptr(), n_valid.data_ptr(), vlen.data_ptr(),
-             s.data_ptr(), b, t, n_cand, sync_e, byts.data_ptr(), fs.data_ptr(),
+             s.ctypes.data, b, t, n_cand, sync_e, byts.data_ptr(), fs.data_ptr(),
              _build.stream_ptr(x))
     _build.check(err, "attempt_manchester")
     _count(attempt_manchester, x)
@@ -592,29 +593,37 @@ class WalkResult(NamedTuple):
 
 def spec_walk_plain(fields: torch.Tensor, start_cursor: torch.Tensor,
                     scan_limit: torch.Tensor, max_frames: int) -> WalkResult:
-    """Plain PyTorch version of :func:`spec_walk`: the walk as a chase
-    through a successor table.  The successor of candidate c is the first
-    candidate at or past pos_c + consumed_c (positions are sorted); stop
-    candidates and absent ones lead to a sink at index C.  The attempted
-    set is the first `max_frames` nodes of the chain that starts at the
-    first candidate at or past the start cursor."""
+    """Plain PyTorch version of :func:`spec_walk`, by the kernel's
+    algorithm: a successor table and pointer doubling.  The successor of
+    candidate c is the first candidate at or past pos_c + consumed_c
+    (positions ascend); stop candidates and absent ones lead to a sink at
+    index C.  The attempted set is
+    the first `max_frames` nodes of the chain from s0, the first candidate
+    at or past the start cursor: round k marks the 2^k-th successor of
+    every node marked at distance d from s0 with d + 2^k, then doubles the
+    jumps, until 2^k reaches min(max_frames, C)."""
     b, _, c_n = fields.shape
     dev = fields.device
-    pos, consumed = fields[:, 0], fields[:, 1]
+    pos, consumed = fields[:, 0].contiguous(), fields[:, 1]
     stopf, keepf = fields[:, 2] > 0, fields[:, 3] > 0
     exists = (pos < BIGI) & (pos < scan_limit[:, None])
-    nxt = (pos[:, None, :] < (pos + consumed)[:, :, None]).sum(-1)
+    nxt = torch.searchsorted(pos, (pos + consumed).contiguous())
     nxt = torch.where(stopf | ~exists, c_n, nxt)
-    nxt = torch.cat([nxt, torch.full((b, 1), c_n, dtype=nxt.dtype, device=dev)], -1)
+    jump = torch.cat([nxt, torch.full((b, 1), c_n, dtype=nxt.dtype, device=dev)], -1)
 
-    rows = torch.arange(b, device=dev)
-    ptr = (pos < start_cursor[:, None]).sum(-1)
-    visited = torch.zeros((b, c_n + 1), dtype=torch.bool, device=dev)
-    for _ in range(min(max_frames, c_n + 1)):
-        visited[rows, ptr] = True
-        ptr = nxt[rows, ptr]
+    s0 = torch.searchsorted(pos, start_cursor[:, None].contiguous())
+    off = 2**62                                     # a node off the chain
+    nodes = torch.arange(c_n + 1, device=dev)
+    dist = torch.where(nodes == s0, 0, off)
+    step = 1
+    while step < min(max_frames, c_n):
+        mark = (dist < off) & (jump < c_n)
+        dist = dist.scatter_reduce(1, torch.where(mark, jump, c_n),
+                                   torch.where(mark, dist + step, off), "amin")
+        jump = jump.gather(1, jump)
+        step *= 2
 
-    att = visited[:, :c_n] & exists
+    att = (dist[:, :c_n] < max_frames) & exists
     att_n = att.sum(-1, dtype=torch.int32)
     stop_at = att & stopf
     pending = torch.where(stop_at, pos, BIGI).amin(-1)
@@ -628,7 +637,8 @@ def spec_walk_plain(fields: torch.Tensor, start_cursor: torch.Tensor,
         att=att_n)
 
 
-_WALK_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+# the tables, the sizes, then keep, attempted, done and state int32[3, B]
+_WALK_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
 
 
 def spec_walk(fields: torch.Tensor, start_cursor: torch.Tensor,
@@ -636,7 +646,8 @@ def spec_walk(fields: torch.Tensor, start_cursor: torch.Tensor,
     """The consumption walk of every capture over fields int32[B, 4, C]
     from start_cursor int32[B], ignoring candidates at or past
     scan_limit int32[B], for at most `max_frames` attempts (see the
-    kernel's note in ``csrc/spec_walk.cu``)."""
+    kernel's note in ``csrc/spec_walk.cu``): one launch, which writes every
+    field; C may be 1..2,730."""
     if not _build.on_cuda(fields, start_cursor, scan_limit):
         return spec_walk_plain(fields, start_cursor, scan_limit, max_frames)
     b, rows, c_n = fields.shape
@@ -646,17 +657,19 @@ def spec_walk(fields: torch.Tensor, start_cursor: torch.Tensor,
         if (tuple(tensor.shape) != (b,) or tensor.dtype != torch.int32
                 or not tensor.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous int32[{b}]")
-    keep = torch.empty((b, c_n), dtype=torch.bool, device=fields.device)
-    attempted = torch.empty((b, c_n), dtype=torch.bool, device=fields.device)
-    state = torch.empty((b, 4), dtype=torch.int32, device=fields.device)
+    flags = torch.empty((2 * c_n + 1) * b, dtype=torch.bool, device=fields.device)
+    state = torch.empty((3, b), dtype=torch.int32, device=fields.device)
+    keep, attempted = flags[:2 * b * c_n].view(2, b, c_n)
+    done = flags[2 * b * c_n:]
     fn = _build.entry("spec_walk", "tm_spec_walk", _WALK_ARGTYPES)
     err = fn(fields.data_ptr(), start_cursor.data_ptr(), scan_limit.data_ptr(),
-             b, c_n, max_frames, keep.data_ptr(), attempted.data_ptr(),
+             b, c_n, max_frames, keep.data_ptr(), attempted.data_ptr(), done.data_ptr(),
              state.data_ptr(), _build.stream_ptr(fields))
     _build.check(err, "spec_walk")
     spec_walk.launches += 1
-    return WalkResult(keep=keep, attempted=attempted, cur_f=state[:, 0],
-                      done=state[:, 1] > 0, pending=state[:, 2], att=state[:, 3])
+    cur_f, pending, att = state
+    return WalkResult(keep=keep, attempted=attempted, cur_f=cur_f, done=done,
+                      pending=pending, att=att)
 
 
 spec_walk.launches = 0
