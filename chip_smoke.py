@@ -28,7 +28,12 @@ Phases, each raising on failure (non-zero exit):
    forms, on the edge inputs of tests/test_torch_walk_attempt_design.py
    (walk tables of 1 to 1,000 candidates at the caps that bind; attempt
    windows across T and the valid length, at every offset mod 4, bases at
-   and past T, a first sample off a 16-byte boundary, row stride 0); then the
+   and past T, a first sample off a 16-byte boundary, row stride 0); the
+   4B5B attempt's four forms and the ASK walk on the edge inputs of
+   tests/test_torch_ask_walk_4b5b_design.py (the same kinds of windows,
+   near-zero levels, invalid symbols at 0 and 525; ASK tables of C+1 in
+   1..2,048 at max_frames 1..300 with self-loops, cycles, misses and a
+   clean chain longer than max_frames); then the
    row stats at the equalized_b32 (L=96) and fourb5b_b32 (L=60) shapes and
    at L=440 on the ask_b16 captures, each against its plain version and
    exactly against the row reduction of the dense normalized correlation
@@ -133,11 +138,12 @@ Phases, each raising on failure (non-zero exit):
    the row stats at L=96 and L=60, the attempts in every form, the walk,
    the ASK kernels), beside its bound and its launches, ranked by
    launches x (device - bound); the raw sliding dot's unfused floor; the
-   Manchester attempts' contract floor (each live slot's window read once);
-   the registers, spills and FFMA / FMUL / FADD / LDS counts of each kernel
-   of sliding_dot.cu, xcorr_norm.cu and xcorr_hits.cu, which share the
-   register tile of xcorr_tile.cuh, and of spec_walk.cu and
-   attempt_manchester.cu (cuobjdump); every attempt-tile
+   Manchester and 4B5B attempts' contract floor (each live slot's window
+   read once); the registers, spills and FFMA / FMUL / FADD / LDS counts of
+   each kernel of sliding_dot.cu, xcorr_norm.cu and xcorr_hits.cu, which
+   share the register tile of xcorr_tile.cuh, and of spec_walk.cu,
+   attempt_manchester.cu, attempt_4b5b.cu and ask_walk.cu (cuobjdump);
+   every attempt-tile
    variant of phase 1 and every offset-add form against its plain version
    and its bound, beside torch.bmm of the body products and torch.matmul
    with the sliced add; each printed beside the card's name and power
@@ -636,6 +642,51 @@ def check_walk_attempt_edges(torch, sd, dev) -> dict:
         f"candidates; attempt_manchester and its fold form, per row and shared, == plain on "
         f"the edge inputs ({edges.ATT_B} x {edges.ATT_T} samples, {n_live} live slots of "
         f"{edges.ATT_B * edges.ATT_C})")
+    return errs
+
+
+def check_ask_walk_4b5b_edges(torch, sd, ask_spec, dev) -> dict:
+    """The four 4B5B attempt forms and the ASK walk against their plain
+    versions, bit for bit, on the edge inputs of
+    tests/test_torch_ask_walk_4b5b_design.py: attempts at windows across T
+    and the valid length, starts at every offset mod 4, bases at and past T,
+    a first sample off a 16-byte boundary, row stride 0, rows without a live
+    slot and with more hits than slots, near-zero levels and invalid
+    symbols at 0 and 525; ASK tables of C+1 in 1..2,048 (a self-loop, a
+    cycle, a miss at an emitting node, nonconf with a successor, a clean
+    chain longer than max_frames) at max_frames 1..300."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import test_torch_ask_walk_4b5b_design as edges
+
+    errs = {}
+    inputs = edges.fourb5b_edge_inputs(dev)
+    n_live = 0
+    for form in edges.FOURB_FORMS:
+        xx, args = inputs[form]
+        wrapper, plain = edges.attempt_4b5b_call(form)
+        got = wrapper(xx, *args)
+        torch.cuda.synchronize()
+        for field, g, w in zip(("bytes", "fs", "first_bad", "first_zero"), got, plain(xx, *args)):
+            require(torch.equal(g, w), f"{wrapper.__name__} ({form}) {field} differs from its "
+                                       "plain version on the edge inputs")
+        errs[wrapper.__name__ + ("_shared" if xx.stride(0) == 0 else "")] = 0
+        n_live = int(sd._live(args[0], args[1]).sum())
+    n_tables = 0
+    for c1 in edges.ASK_C1S:
+        fields = edges.ask_edge_tables(c1).to(dev)
+        for mf in edges.ASK_MFS:
+            got = ask_spec.ask_walk(fields, mf)
+            torch.cuda.synchronize()
+            for field, g, w in zip(("peaks", "fire_ok", "bad"), got,
+                                   ask_spec.ask_walk_plain(fields, mf)):
+                require(torch.equal(g, w), f"ask_walk {field} differs on the edge table of "
+                                           f"C+1 = {c1} (max_frames {mf})")
+            n_tables += 1
+    errs["ask_walk"] = 0
+    log(f"phase 1: attempt_4b5b and its fold form, per row and shared, == plain on the edge "
+        f"inputs ({edges.B4} x {edges.T4} samples, {n_live} live slots of "
+        f"{edges.B4 * edges.C4}); ask_walk == plain on {n_tables} edge tables "
+        f"(C+1 in {list(edges.ASK_C1S)}, max_frames in {list(edges.ASK_MFS)})")
     return errs
 
 
@@ -1618,6 +1669,8 @@ def main() -> None:
         "(random ones with caps 1..256, the flagship's and fourb5b_b32's)")
     for k_name, v in check_walk_attempt_edges(torch, sd, dev).items():
         errs[k_name] = max(errs.get(k_name, 0), v)
+    for k_name, v in check_ask_walk_4b5b_edges(torch, sd, ask_spec, dev).items():
+        errs[k_name] = max(errs.get(k_name, 0), v)
     ask_errs, ask_in = check_ask_kernels(torch, ask, ask_spec, sdot, acfg, xa, rng)
     errs.update(ask_errs)
     chirp = ask._chirp_np(acfg)        # dsp/osc.py's chirp
@@ -2184,13 +2237,18 @@ def main() -> None:
             f"{got[1]}); CUDA events around the wrapper {event_ms:.4f} ms; bound {bnd[0]:.6f} ms "
             f"({bnd[1]}); {n} launches on the paths, launches x (device - bound) "
             f"{loss[what]:.4f} ms [{card}]")
-    # the attempt's contract: every live slot reads its own window (legacy
-    # 60 + 12,624 samples, fold 12,624), once each, beside the bound, which
-    # counts the capture once
+    # the attempts' contract: every live slot reads its own window (legacy
+    # 60 + 12,624 samples, fold 12,624; 4B5B legacy 60 + 9,600, fold
+    # 9,600), once each, beside the bound, which counts the capture once
     for k_name, n_live in (("attempt_manchester", live), ("attempt_manchester_fold", live),
                            ("attempt_manchester_shared", shared_in["manchester"]["live"]),
-                           ("attempt_manchester_fold_shared", shared_in["manchester"]["live"])):
-        window = sd.FRAME_BYTES * 8 * sd.BIT_SAMPLES + (0 if "_fold" in k_name else 60)
+                           ("attempt_manchester_fold_shared", shared_in["manchester"]["live"]),
+                           ("attempt_4b5b", live4), ("attempt_4b5b_fold", live4),
+                           ("attempt_4b5b_shared", shared_in["4b5b"]["live"]),
+                           ("attempt_4b5b_fold_shared", shared_in["4b5b"]["live"])):
+        body = (sd.ZERO_SYMBOLS * sd.SYMBOL_SAMPLES if "4b5b" in k_name
+                else sd.FRAME_BYTES * 8 * sd.BIT_SAMPLES)
+        window = body + (0 if "_fold" in k_name else 60)
         log(f"phase 4: {k_name}: contract floor {n_live * window * 4 / HBM_BYTES_PER_S * 1e3:.6f}"
             f" ms ({n_live} live slots x {window} samples, each window read once) beside its "
             f"bound {bounds[k_name][0]:.6f} ms [{card}]")
@@ -2202,7 +2260,8 @@ def main() -> None:
     unfused_ms = xa.numel() * len(ask_in["pre"]) * 2 / (F32_OPS_PER_S / 2) * 1e3
     log(f"phase 4: sliding_dot ask_b16 (L=440) unfused floor {unfused_ms:.4f} ms beside its "
         f"bound {bounds['sliding_dot'][0]:.4f} ms [{card}]")
-    for src in ("sliding_dot", "xcorr_norm", "xcorr_hits", "spec_walk", "attempt_manchester"):
+    for src in ("sliding_dot", "xcorr_norm", "xcorr_hits", "spec_walk", "attempt_manchester",
+                "attempt_4b5b", "ask_walk"):
         for fn_name, res in kernel_resources(_build, src).items():
             require(res["LOCAL"] == 0, f"{fn_name} in {src}.cu spills ({res})")
             log(f"phase 4: {src}.cu {fn_name}: {res['REG']} registers, {res['LOCAL']} bytes of "

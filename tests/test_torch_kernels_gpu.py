@@ -72,6 +72,15 @@ from trackmaker_tpu_torch.tools import exp_xcorr_streams as ex
 from trackmaker_tpu_torch.tools import health, prof_fused
 
 # the edge inputs, from the CPU tests beside this file
+from test_torch_ask_walk_4b5b_design import (
+    ASK_C1S,
+    ASK_MFS,
+    FOURB_FORMS,
+    ask_edge_tables,
+    ask_walk_serial,
+    attempt_4b5b_call,
+    fourb5b_edge_inputs,
+)
 from test_torch_walk_attempt_design import (
     ATTEMPT_FORMS,
     WALK_CS,
@@ -1291,3 +1300,88 @@ def test_walk_and_attempt_kernels_copy_nothing_to_the_card(cuda):
     assert 1 <= len(on_card) <= 3 and all("spec_walk_kernel" in n for n in on_card), on_card
     assert sum(n.startswith("cudaLaunchKernel") for n in names) >= 1
     assert sum(e.name.startswith("cudaLaunchKernel") for e in prof.events()) <= 3
+
+
+# The 4B5B attempt staged by the copy engine and the ASK walk by binary
+# lifting (csrc/attempt_4b5b.cu, csrc/ask_walk.cu): each equals its plain
+# version on the edge inputs of tests/test_torch_ask_walk_4b5b_design.py,
+# the walk also the statement-for-statement loop, at every slot count and
+# table size it takes, and neither wrapper copies anything to the card.
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", FOURB_FORMS)
+def test_attempt_4b5b_kernels_match_plain_at_the_edges(cuda, form):
+    x, args = fourb5b_edge_inputs(cuda)[form]
+    wrapper, plain = attempt_4b5b_call(form)
+    shared = x.stride(0) == 0
+    before = (wrapper.launches, wrapper.shared_launches)
+    got = wrapper(x, *args)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.shared_launches) == (before[0] + (not shared),
+                                                           before[1] + shared)
+    for name, g, w in zip(("bytes", "fs", "first_bad", "first_zero"), got, plain(x, *args)):
+        assert g.dtype == w.dtype and torch.equal(g, w), (form, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c1", ASK_C1S)
+def test_ask_walk_kernel_matches_plain_on_edge_tables(cuda, c1):
+    fields = ask_edge_tables(c1)
+    on_card = fields.to(cuda)
+    for mf in ASK_MFS:
+        before = ask_spec.ask_walk.launches
+        got = ask_spec.ask_walk(on_card, mf)
+        torch.cuda.synchronize()
+        assert ask_spec.ask_walk.launches == before + 1
+        for name, g, w, o in zip(("peaks", "fire_ok", "bad"), got,
+                                 ask_spec.ask_walk_plain(on_card, mf), ask_walk_serial(fields, mf)):
+            assert g.dtype == w.dtype and torch.equal(g, w) and torch.equal(g.cpu(), o), (mf, name)
+
+
+@pytest.mark.gpu
+def test_ask_walk_kernel_takes_every_slot_count_and_table_size(cuda):
+    """Slot counts past the kernel's chunk of 1,024 and tables of C+1 up to
+    2,048 (their six rows once filled 48 KB of shared memory); 2,049 and
+    a count of 0 are refused."""
+    for c1, mf in ((2048, 3000), (97, 1024), (97, 1025), (1, 5000), (33, 2049)):
+        fields = ask_edge_tables(c1)
+        got = ask_spec.ask_walk(fields.to(cuda), mf)
+        torch.cuda.synchronize()
+        for name, g, o in zip(("peaks", "fire_ok", "bad"), got, ask_walk_serial(fields, mf)):
+            assert torch.equal(g.cpu(), o), (c1, mf, name)
+    with pytest.raises(RuntimeError):
+        ask_spec.ask_walk(ask_edge_tables(2049).to(cuda), 72)
+    with pytest.raises(RuntimeError):
+        ask_spec.ask_walk(ask_edge_tables(97).to(cuda), 0)
+
+
+@pytest.mark.gpu
+def test_4b5b_attempt_and_ask_walk_copy_nothing_to_the_card(cuda):
+    """The sync word goes to the 4B5B attempt kernel by value and the walk
+    reads only its table: no call copies host to device, and each call
+    launches its one kernel and nothing else."""
+    from torch.profiler import ProfilerActivity, profile
+
+    inputs = fourb5b_edge_inputs(cuda)
+    table = ask_edge_tables(97).to(cuda)
+    calls = {form: (lambda form=form: attempt_4b5b_call(form)[0](inputs[form][0],
+                                                                  *inputs[form][1]),
+                    "attempt_4b5b_kernel") for form in FOURB_FORMS}
+    calls["ask_walk"] = (lambda: ask_spec.ask_walk(table, 72), "ask_walk_kernel")
+    for call, _ in calls.values():
+        call()
+    torch.cuda.synchronize()
+    for what, (call, kernel) in calls.items():
+        # three calls: the profiler can drop the first kernel events of a session
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()]
+        assert not [n for n in names if "HtoD" in n or "cudaMemcpy" in n], (what, names)
+        on_card = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert 1 <= len(on_card) <= 3 and all(kernel in n for n in on_card), (what, on_card)
+        assert 1 <= sum(n.startswith("cudaLaunchKernel") for n in names) <= 3, (what, names)
+

@@ -15,9 +15,9 @@ batch of captures in five steps:
    it, the first update, and the record chain over a 512-aligned window
    (kernel ``csrc/ask_chain.cu``, via ``phy/ask.py:ask_chain``), giving
    its successor.  Slot 0 is a virtual candidate whose cursor is exactly 0;
-4. ``ask_walk`` (kernel ``csrc/ask_walk.cu``): the frame loop as a
-   pointer chase through the successor table; slot k of the walk is step
-   k of the exact scan;
+4. ``ask_walk`` (kernel ``csrc/ask_walk.cu``): the frame loop as a walk
+   through the successor table by binary lifting; slot k of the walk is
+   step k of the exact scan;
 5. the dense demodulation (``phy/ask.py:demod_dense``, two 30-tap
    sliding dots) and a strided pick for every slot.
 
@@ -31,6 +31,7 @@ its ``*_plain`` version on CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -151,8 +152,7 @@ def chain_windows(cfg: AskConfig, rx: torch.Tensor, power: torch.Tensor,
     gidx = pos.clamp(max=t).reshape(b, -1)
     slab = torch.nn.functional.pad(rx, (0, 1)).gather(1, gidx).reshape(b, c1, l_pre)
     pw = torch.nn.functional.pad(power, (0, 1)).gather(1, gidx).reshape(b, c1, l_pre)
-    w_band = torch.from_numpy(ask._warmup_band_np(cfg).copy()).to(dev)
-    sync_w = ask.true_div(matmul_f32(slab, w_band), cfg.sync_divisor)
+    sync_w = ask.true_div(matmul_f32(slab, _warmup_band(cfg, dev)), cfg.sync_divisor)
     ok_w = (sync_w > cfg.sync_power_factor * pw) & (sync_w > cfg.sync_abs_threshold) & inside
 
     first_warm = torch.where(ok_w, pos, BIGI).amin(-1)
@@ -175,6 +175,13 @@ def chain_windows(cfg: AskConfig, rx: torch.Tensor, power: torch.Tensor,
     ok = ok & (idx >= i0[..., None])
     vals = torch.where(ok, sp, -math.inf)
     return vals.reshape(b * c1, win), base.reshape(-1).to(torch.int32), has
+
+
+@functools.lru_cache(maxsize=8)
+def _warmup_band(cfg: AskConfig, device: torch.device) -> torch.Tensor:
+    """The warm-up correlation's band matrix f32[L, L] on `device`, made
+    once per configuration and device: a call copies nothing to the card."""
+    return torch.from_numpy(ask._warmup_band_np(cfg).copy()).to(device)
 
 
 def phase_b(cfg: AskConfig, rx: torch.Tensor, power: torch.Tensor,
@@ -202,27 +209,34 @@ def phase_b(cfg: AskConfig, rx: torch.Tensor, power: torch.Tensor,
 
 
 def ask_walk_plain(fields: torch.Tensor, max_frames: int):
-    """Plain PyTorch version of :func:`ask_walk`: the steps in a Python
-    loop, batched over captures."""
-    b = fields.shape[0]
+    """Plain PyTorch version of :func:`ask_walk`, the kernel's algorithm in
+    tensor ops, batched over captures: the step function on 2 * (C+1)
+    nodes (candidate i active, or the sink of i, where the walk is done),
+    and each slot's node by binary lifting."""
+    if max_frames < 1:
+        raise ValueError("max_frames must be at least 1")
+    b, _, c1 = fields.shape
     dev = fields.device
-    rows = torch.arange(b, device=dev)
-    i = torch.zeros(b, dtype=torch.int64, device=dev)
-    done = torch.zeros(b, dtype=torch.bool, device=dev)
-    bad = torch.zeros(b, dtype=torch.bool, device=dev)
-    peaks, emits = [], []
-    for _ in range(max_frames):
-        has, fired, complete, peak, succ, nc = fields[rows, :, i].unbind(-1)
-        active = ~done
-        ok_fire = active & (has > 0) & (fired > 0)
-        emit = ok_fire & (complete > 0)
-        peaks.append(peak)
-        emits.append(emit)
-        miss = (emit & (succ < 0)) | (active & (nc > 0))
-        done = done | (active & ((has == 0) | (fired == 0) | (ok_fire & (complete == 0)) | miss))
-        i = torch.where(emit & (succ >= 0), succ.to(torch.int64), i)
-        bad = bad | miss
-    return torch.stack(peaks, 1), torch.stack(emits, 1), bad
+    has, fired, complete, peak, succ, nc = fields.unbind(1)
+    emit = (has > 0) & (fired > 0) & (complete > 0)
+    miss = (emit & (succ < 0)) | (nc > 0)
+    node = torch.arange(c1, device=dev).expand(b, c1)
+    nxt = torch.where(emit & (succ >= 0), succ.to(torch.int64), node)
+    # node i: the active candidate i for i < C+1, the sink of i - (C+1) past
+    # it; a sink loops to itself
+    jump = torch.cat([torch.where(~emit | miss, nxt + c1, nxt), node + c1], dim=1)
+    pos = torch.zeros((b, max_frames), dtype=torch.int64, device=dev)
+    h = 1
+    while h < max_frames:           # slots [h, 2h) from [0, h) through f^h
+        n = min(h, max_frames - h)
+        pos[:, h:h + n] = jump.gather(1, pos[:, :n])
+        if 2 * h < max_frames:
+            jump = jump.gather(1, jump)
+        h *= 2
+    active = pos < c1
+    cand = torch.where(active, pos, pos - c1)
+    return (peak.gather(1, cand), active & emit.gather(1, cand),
+            (active & miss.gather(1, cand)).any(1))
 
 
 _WALK_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -230,9 +244,9 @@ _WALK_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
 
 
 def ask_walk(fields: torch.Tensor, max_frames: int):
-    """The frame loop of every capture as a chase through its successor
+    """The frame loop of every capture as a walk through its successor
     table fields int32[B, 6, C+1] (rows has / fired / complete / peak /
-    succ / nonconf), from candidate 0, for `max_frames` slots:
+    succ / nonconf, succ < C+1), from candidate 0, for `max_frames` slots:
 
         active = !done;  ok_fire = active & has & fired
         emit = ok_fire & complete            (slot k: peak, emit)
@@ -241,7 +255,10 @@ def ask_walk(fields: torch.Tensor, max_frames: int):
         i = emit & succ >= 0 ? succ : i;     bad |= miss
 
     Returns (peaks int32[B, K], fire_ok bool[B, K], bad bool[B]); a row
-    with bad set met a candidate the table cannot represent exactly."""
+    with bad set met a candidate the table cannot represent exactly.  The
+    kernel finds every slot's candidate by binary lifting (see
+    ``csrc/ask_walk.cu``), in one launch that copies nothing to the card;
+    it takes C+1 up to 2,048."""
     if not _build.on_cuda(fields):
         return ask_walk_plain(fields, max_frames)
     b, rows, c1 = fields.shape

@@ -413,20 +413,21 @@ def attempt_4b5b(x: torch.Tensor, cand: torch.Tensor,
 
     Each transition is read against the level just before it (see the
     kernel's note in ``csrc/attempt_4b5b.cu``).  x may be one capture
-    expanded to every row, as for :func:`attempt_manchester`.
+    expanded to every row, as for :func:`attempt_manchester`.  The sync
+    word goes to the kernel by value: a call copies nothing to the card.
     """
     if not _build.on_cuda(x, cand, n_valid, vlen):
         return attempt_4b5b_plain(x, cand, n_valid, vlen, sync, sync_e)
     _check_attempt_args(x, cand, n_valid, vlen, sync, SYNC_LEN_4B5B)
     b, t = x.shape
     n_cand = cand.shape[1]
-    s = torch.from_numpy(np.asarray(sync, np.float32)).to(x.device)
+    s = np.ascontiguousarray(sync, np.float32)     # read on the host, passed by value
     byts = torch.empty((b, n_cand, FRAME_BYTES), dtype=torch.uint8, device=x.device)
     fs, first_bad, first_zero = (
         torch.empty((b, n_cand), dtype=torch.int32, device=x.device) for _ in range(3))
     fn = _build.entry("attempt_4b5b", "tm_attempt_4b5b", _ATTEMPT_4B5B_ARGTYPES)
     err = fn(x.data_ptr(), x.stride(0), cand.data_ptr(), n_valid.data_ptr(), vlen.data_ptr(),
-             s.data_ptr(), b, t, n_cand, sync_e, byts.data_ptr(), fs.data_ptr(),
+             s.ctypes.data, b, t, n_cand, sync_e, byts.data_ptr(), fs.data_ptr(),
              first_bad.data_ptr(), first_zero.data_ptr(), _build.stream_ptr(x))
     _build.check(err, "attempt_4b5b")
     _count(attempt_4b5b, x)

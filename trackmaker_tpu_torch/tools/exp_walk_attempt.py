@@ -1,6 +1,8 @@
-"""What holds the consumption walk (kernel #4, ``csrc/spec_walk.cu``) and the
-Manchester attempt (kernel #3, ``csrc/attempt_manchester.cu``) back:
-variants of each, built for the run from patched copies of the kept
+"""What holds the walks and the attempts back: variants of the consumption
+walk (kernel #4, ``csrc/spec_walk.cu``), the Manchester attempt (kernel #3,
+``csrc/attempt_manchester.cu``), the 4B5B attempt (kernel #5,
+``csrc/attempt_4b5b.cu``) and the ASK frame walk (kernel #11,
+``csrc/ask_walk.cu``), built for the run from patched copies of the kept
 sources, timed on the card beside the kept designs.
 
     python -m trackmaker_tpu_torch.tools.exp_walk_attempt [runs]
@@ -22,10 +24,24 @@ source, every anchor required):
 * attempt ``nocopy`` and ``nodecode``, which take out the copies (the
   decode reads a stale stage) and the decode (the bytes are not written):
   what is left of the time without each, their outputs not checked;
+* 4B5B attempt ``global``: each lane reads its symbol's 15 samples and the
+  level before them straight from device memory (the first design's
+  loads, 60 bytes apart from lane to lane) and no body copies;
+* 4B5B attempt ``serial``: the body's copies issued only once the refine
+  is done, so nothing overlaps the refine;
+* 4B5B attempt ``nocopy`` and ``nodecode``, as for the Manchester attempt
+  (``nodecode`` still waits for each copy);
+* ASK walk ``chase``: one lane steps the step function slot by slot (the
+  first design's serial chase, from the staged table) in place of binary
+  lifting;
+* ASK walk ``stageonly``: the table staged and the step function built,
+  then nothing (its outputs not checked);
 
-and ``empty``, an empty kernel at the walk's grid (a block of 128 threads a
-capture): the walk's practical floor.  On the tool's corpus
-(``prof_fused.build_corpus``: 32 captures of 64 frames, 128 candidates),
+and ``empty``, an empty kernel at each walk's grid (a block of 128 threads
+a capture for the consumption walk, of 256 for the ASK walk): each walk's
+practical floor.  On the tool's corpora (``prof_fused.build_corpus``: 32
+captures of 64 frames, 128 candidates, Manchester and 4B5B; the ASK walk
+on ask_b16's table: 16 tracks of 64 frames, 97 candidate rows, 72 slots),
 each variant's outputs must equal the plain version's; then each one's
 device time (torch.profiler, median of `runs` launches, default 30, from a
 session that traced every launch) prints between two readings of the
@@ -43,13 +59,15 @@ import importlib
 import statistics
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from trackmaker_tpu_torch import _build
 from trackmaker_tpu_torch.core.config import PhyConfig
-from trackmaker_tpu_torch.phy import line_coding
+from trackmaker_tpu_torch.phy import ask, ask_spec, line_coding
 from trackmaker_tpu_torch.phy import spec_decode as sd
 from trackmaker_tpu_torch.sync.correlate import preamble_energy
 from trackmaker_tpu_torch.tools import prof_fused as pf
@@ -58,10 +76,13 @@ from trackmaker_tpu_torch.tools.health import card_line
 xh = importlib.import_module("trackmaker_tpu_torch.sync.xcorr_hits")   # the module
 
 RUNS = 30
-UNCHECKED = {"nocopy", "nodecode"}   # variants whose outputs differ by design
+UNCHECKED = {"nocopy", "nodecode", "stageonly"}   # variants whose outputs differ by design
 SESSIONS = 3            # profiling sessions a device time may take
 EXP_DIR = _build.BUILD_DIR / "exp"
 WALK_THREADS = 128      # the walk's block at the corpus's 128 candidates
+ASK_WALK_THREADS = 256  # the ASK walk's block
+ASK_TRACKS, ASK_FRAMES, ASK_MAX_FRAMES = 16, 64, 72   # chip_smoke.py's ask_b16
+SOURCES = ("spec_walk", "attempt_manchester", "attempt_4b5b", "ask_walk")
 
 # (start anchor, end anchor, replacement): the text from the start anchor
 # through the end anchor is replaced
@@ -104,6 +125,52 @@ VARIANTS = {
         "        if ((o & 1) == 0) {",
         "a5 = p6[5];\n        }\n",
         "        a0 = p6[0]; a1 = p6[1]; a2 = p6[2]; a3 = p6[3]; a4 = p6[4]; a5 = p6[5];\n")],
+    ("attempt_4b5b", "global"): [
+        ("    copy_to_stage(stage + from, src + from, (to - from) * 4, &bars[1 + s]);",
+         "    copy_to_stage(stage + from, src + from, (to - from) * 4, &bars[1 + s]);",
+         "    copy_to_stage(stage + from, src + from, 0, &bars[1 + s]);"),
+        ("        const float* p = stage + o + m * kSymbolSamples;",
+         "        if (lane == 0) prev = m == 0 ? 1.0f : level_at(p - kLevelSamples);\n",
+         "        auto gl = [&](int i) {\n"
+         "          return __fadd_rn(__fadd_rn(i < t ? xb[i] : 0.0f, i + 1 < t ? xb[i + 1] : 0.0f),\n"
+         "                           i + 2 < t ? xb[i + 2] : 0.0f);\n"
+         "        };\n"
+         "        const int g = fs + m * kSymbolSamples;\n"
+         "        float lv[5];\n"
+         "        for (int j = 0; j < 5; ++j) lv[j] = gl(g + j * kLevelSamples);\n"
+         "        float prev = m == 0 ? 1.0f : gl(g - kLevelSamples);\n")],
+    ("attempt_4b5b", "serial"): [
+        ("      copy_body<kFold>(stage, src, n_head, n_bulk, lead, bars);\n",
+         "      copy_body<kFold>(stage, src, n_head, n_bulk, lead, bars);\n", ""),
+        ("    // symbol m of the frame reads", "    // symbol m of the frame reads",
+         "    if (tid == 0) copy_body<kFold>(stage, src, n_head, n_bulk, lead, bars);\n"
+         "    // symbol m of the frame reads")],
+    ("attempt_4b5b", "nocopy"): [
+        ("      copy_to_stage(stage, src, n_head * 4, &bars[0]);",
+         "      copy_to_stage(stage, src, n_head * 4, &bars[0]);",
+         "      copy_to_stage(stage, src, 0, &bars[0]);"),
+        ("    copy_to_stage(stage + from, src + from, (to - from) * 4, &bars[1 + s]);",
+         "    copy_to_stage(stage + from, src + from, (to - from) * 4, &bars[1 + s]);",
+         "    copy_to_stage(stage + from, src + from, 0, &bars[1 + s]);")],
+    ("attempt_4b5b", "nodecode"): [(
+        "        const int m = m0 + lane;\n",
+        "        packed[s] = (nib << 4) | __shfl_down_sync(0xffffffffu, nib, 1);\n",
+        "")],
+    ("ask_walk", "chase"): [(
+        "    int cur = 0;\n    for (int h = 1; h < n; h <<= 1) {",
+        "      cur ^= 1;\n      __syncthreads();\n    }\n",
+        "    if (tid == 0) {\n"
+        "      for (int k = 1; k < n; ++k) {\n"
+        "        const int p = pos[k - 1];\n"
+        "        pos[k] = p < c1 ? step[p] : p;\n"
+        "      }\n"
+        "    }\n"
+        "    __syncthreads();\n")],
+    ("ask_walk", "stageonly"): [(
+        "  int* pk = peaks + static_cast<int64_t>(b) * max_frames;",
+        "  if (tid == 0) bad[b] = static_cast<uint8_t>(any != 0);\n",
+        "  __syncthreads();\n"
+        "  if (tid == 0) bad[b] = static_cast<uint8_t>(flags[c1 - 1] + step[0] + peak[0] != 0);\n")],
 }
 
 EMPTY_SOURCE = """
@@ -171,31 +238,54 @@ def device_ms(fn, kernel: str, runs: int) -> float | None:
     return None
 
 
+def ask_fields(device) -> torch.Tensor:
+    """ask_b16's successor table int32[16, 6, 97] (``chip_smoke.py``'s ASK
+    captures through ``phase_b``)."""
+    cfg = ask.AskConfig()
+    frames = ask.build_frames(b"the quick brown fox", cfg, num_frames=ASK_FRAMES)
+    waves = [ask.build_track(cfg, frames, seed=7 + r) for r in range(ASK_TRACKS)]
+    caps = np.zeros((ASK_TRACKS, max(len(w) for w in waves)), np.float32)
+    for r, w in enumerate(waves):
+        caps[r, :len(w)] = w
+    x = torch.from_numpy(caps).to(device)
+    power, sync, upd_ok = ask.dense_arrays(cfg, x)
+    cand, _, _ = ask_spec.extract_candidates(ask_spec.dense_fire_candidates(cfg, sync, upd_ok), 96)
+    virt = torch.full((ASK_TRACKS, 1), -(cfg.frame_samples + 1), dtype=torch.int32, device=device)
+    return ask_spec.phase_b(cfg, x, power, sync, upd_ok, torch.cat([virt, cand], dim=1))
+
+
 def corpus_calls(device):
-    """The walk and the two attempt forms on the tool's corpus, name ->
-    (kernel call, plain call)."""
-    cfg = PhyConfig()
-    _, x = pf.build_corpus(cfg, device)
-    b, t = x.shape
-    vlens = torch.full((b,), t, dtype=torch.int32, device=device)
-    pre = line_coding.preamble_waveform(cfg)
-    sync = pre[cfg.preamble_len - cfg.sync_len:]
-    thr = cfg.correlation_threshold
-    cand, _, n_valid, _ = sd.compact_hit_rows(xh.xcorr_hits(x, pre, thr)[1], pf.N_CAND)
-    rows = xh.xcorr_hits_refine(x, vlens, pre, sync, thr, **pf._refine_kw(cfg))
-    _, _, n_valid_f, _, fs = sd.compact_hit_rows(rows, pf.N_CAND, with_fs=True)
-    fields = sd.spec_phase_a(cfg, x, pf.LOCAL_ADDR, pf.N_CAND, vlens).fields
-    zeros = torch.zeros(b, dtype=torch.int32, device=device)
-    no_limit = torch.full((b,), 2**30, dtype=torch.int32, device=device)
-    legacy = (x, cand, n_valid, vlens, sync, preamble_energy(sync))
-    return {
-        "spec_walk": (lambda: sd.spec_walk(fields, zeros, no_limit, pf.MAX_FRAMES),
-                      lambda: sd.spec_walk_plain(fields, zeros, no_limit, pf.MAX_FRAMES)),
-        "attempt_manchester": (lambda: sd.attempt_manchester(*legacy),
-                               lambda: sd.attempt_manchester_plain(*legacy)),
-        "attempt_manchester_fold": (lambda: sd.attempt_manchester_fold(x, fs, n_valid_f),
-                                    lambda: sd.attempt_manchester_fold_plain(x, fs, n_valid_f)),
-    }
+    """The walks and the attempts' legacy and fold forms on the tool's
+    corpora, name -> (kernel call, plain call)."""
+    calls = {}
+    for cfg in (PhyConfig(), PhyConfig(line_coding="4b5b")):
+        _, x = pf.build_corpus(cfg, device)
+        b, t = x.shape
+        vlens = torch.full((b,), t, dtype=torch.int32, device=device)
+        pre = line_coding.preamble_waveform(cfg)
+        sync = pre[cfg.preamble_len - cfg.sync_len:]
+        thr = cfg.correlation_threshold
+        cand, _, n_valid, _ = sd.compact_hit_rows(xh.xcorr_hits(x, pre, thr)[1], pf.N_CAND)
+        rows = xh.xcorr_hits_refine(x, vlens, pre, sync, thr, **pf._refine_kw(cfg))
+        _, _, n_valid_f, _, fs = sd.compact_hit_rows(rows, pf.N_CAND, with_fs=True)
+        legacy = (x, cand, n_valid, vlens, sync, preamble_energy(sync))
+        fold = (x, fs, n_valid_f)
+        name = "attempt_manchester" if cfg.line_coding == "manchester" else "attempt_4b5b"
+        kernel, plain = getattr(sd, name), getattr(sd, f"{name}_plain")
+        kernel_f, plain_f = getattr(sd, f"{name}_fold"), getattr(sd, f"{name}_fold_plain")
+        calls[name] = (lambda k=kernel, a=legacy: k(*a), lambda p=plain, a=legacy: p(*a))
+        calls[f"{name}_fold"] = (lambda k=kernel_f, a=fold: k(*a), lambda p=plain_f, a=fold: p(*a))
+        if name == "attempt_manchester":
+            fields = sd.spec_phase_a(cfg, x, pf.LOCAL_ADDR, pf.N_CAND, vlens).fields
+            zeros = torch.zeros(b, dtype=torch.int32, device=device)
+            no_limit = torch.full((b,), 2**30, dtype=torch.int32, device=device)
+            calls["spec_walk"] = (
+                lambda: sd.spec_walk(fields, zeros, no_limit, pf.MAX_FRAMES),
+                lambda: sd.spec_walk_plain(fields, zeros, no_limit, pf.MAX_FRAMES))
+    table = ask_fields(device)
+    calls["ask_walk"] = (lambda: ask_spec.ask_walk(table, ASK_MAX_FRAMES),
+                         lambda: ask_spec.ask_walk_plain(table, ASK_MAX_FRAMES))
+    return calls
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -206,11 +296,14 @@ def main(argv: list[str] | None = None) -> None:
     card = card_line()
     dev = torch.device("cuda", 0)
     calls = corpus_calls(dev)
-    kept = {src: _build.load(src) for src in ("spec_walk", "attempt_manchester")}
+    kept = {src: _build.load(src) for src in SOURCES}
     # the kept designs first and again last: their two readings show the drift
+    with ThreadPoolExecutor(len(VARIANTS)) as pool:      # one nvcc a variant, all at once
+        libs = list(pool.map(lambda kv: build_source(f"{kv[0][0]}-{kv[0][1]}",
+                                                     patched(kv[0][0], kv[1])), VARIANTS.items()))
     designs = [(src, "kept", kept[src]) for src in kept] + [
-        (src, variant, ctypes.CDLL(str(build_source(f"{src}-{variant}", patched(src, p)))))
-        for (src, variant), p in VARIANTS.items()] + [(src, "kept", kept[src]) for src in kept]
+        (src, variant, ctypes.CDLL(str(lib))) for (src, variant), lib in zip(VARIANTS, libs)] + [
+        (src, "kept", kept[src]) for src in kept]
     for src, variant, lib in designs:
         install(src, lib)
         for name, (kernel, plain) in calls.items():
@@ -228,13 +321,15 @@ def main(argv: list[str] | None = None) -> None:
         install(src, kept[src])
     empty = ctypes.CDLL(str(build_source("empty", EMPTY_SOURCE))).tm_empty
     empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    b = calls["spec_walk"][1]().att.shape[0]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ms = device_ms(lambda: _build.check(empty(b, WALK_THREADS, stream), "empty"),
-                   "empty_kernel", runs)
-    shown = "not measured" if ms is None else f"{ms:.4f} ms"
-    print(f"empty kernel at the walk's grid ({b} x {WALK_THREADS}): device {shown} "
-          f"(median of {runs}) [{card}]", flush=True)
+    grids = (("the walk's", calls["spec_walk"][1]().att.shape[0], WALK_THREADS),
+             ("the ASK walk's", ASK_TRACKS, ASK_WALK_THREADS))
+    for what, blocks, threads in grids:
+        ms = device_ms(lambda g=blocks, n=threads: _build.check(empty(g, n, stream), "empty"),
+                       "empty_kernel", runs)
+        shown = "not measured" if ms is None else f"{ms:.4f} ms"
+        print(f"empty kernel at {what} grid ({blocks} x {threads}): device {shown} "
+              f"(median of {runs}) [{card}]", flush=True)
 
 
 if __name__ == "__main__":
