@@ -33,7 +33,12 @@ Phases, each raising on failure (non-zero exit):
    tests/test_torch_ask_walk_4b5b_design.py (the same kinds of windows,
    near-zero levels, invalid symbols at 0 and 525; ASK tables of C+1 in
    1..2,048 at max_frames 1..300 with self-loops, cycles, misses and a
-   clean chain longer than max_frames); then the
+   clean chain longer than max_frames); the record chain and the fire rule
+   on the edge inputs of tests/test_torch_ask_fire_chain_design.py (chain
+   rows of widths 1..4,096 across its segment and tile edges, the fire
+   rule at w 1..11,264 and T 1..339,453 around its tile and halo, its
+   arrays aligned and one element in; w = 0 and past its limit refused);
+   then the
    row stats at the equalized_b32 (L=96) and fourb5b_b32 (L=60) shapes and
    at L=440 on the ask_b16 captures, each against its plain version and
    exactly against the row reduction of the dense normalized correlation
@@ -142,7 +147,11 @@ Phases, each raising on failure (non-zero exit):
    read once); the registers, spills and FFMA / FMUL / FADD / LDS counts of
    each kernel of sliding_dot.cu, xcorr_norm.cu and xcorr_hits.cu, which
    share the register tile of xcorr_tile.cuh, and of spec_walk.cu,
-   attempt_manchester.cu, attempt_4b5b.cu and ask_walk.cu (cuobjdump);
+   attempt_manchester.cu, attempt_4b5b.cu, ask_walk.cu, ask_fire.cu and
+   ask_chain.cu (cuobjdump); the record chain on the exact scan's row
+   (4,096 columns) and on its first 512 columns, each one launch, and two
+   yardsticks that compute part of #10's and #9's functions
+   (``torch.cummax`` of the chain rows, ``max_pool1d`` of the masked rows);
    every attempt-tile
    variant of phase 1 and every offset-add form against its plain version
    and its bound, beside torch.bmm of the body products and torch.matmul
@@ -688,6 +697,59 @@ def check_ask_walk_4b5b_edges(torch, sd, ask_spec, dev) -> dict:
         f"{edges.B4 * edges.C4}); ask_walk == plain on {n_tables} edge tables "
         f"(C+1 in {list(edges.ASK_C1S)}, max_frames in {list(edges.ASK_MFS)})")
     return errs
+
+
+def check_fire_chain_edges(torch, ask, ask_spec, dev) -> None:
+    """The fire rule and the record chain against their plain versions, bit
+    for bit, on the edge inputs of tests/test_torch_ask_fire_chain_design.py:
+    the chain at widths 1..4,096 across its segment (32) and tile (1,024)
+    edges, guards 200 and 3 (all -inf, a lone update, ties across a segment
+    and a tile edge, fires at the guard, after a segment and a tile edge and
+    at the last column, a row that never fires); the fire rule at w 1..11,264
+    and T 1..339,453 around its tile of 4,096 and its halo (30% of upd
+    set, all, none; ties at the windows' ends), its arrays aligned (float4
+    and word loads) and one element into their buffers (scalar loads); w
+    = 0 and past FIRE_MAX_W refused, FIRE_MAX_W taken."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import test_torch_ask_fire_chain_design as edges
+
+    n_rows = 0
+    for win in edges.CHAIN_WS:
+        for guard in edges.CHAIN_GUARDS:
+            vals, base = (a.to(dev) for a in edges.chain_edge_rows(win, guard))
+            got = ask.ask_chain(vals, base, guard)
+            torch.cuda.synchronize()
+            for field, g, w in zip(("fired", "peak"), got, ask.ask_chain_plain(vals, base, guard)):
+                require(torch.equal(g, w), f"ask_chain {field} differs on the edge rows of width "
+                                           f"{win} (guard {guard})")
+            n_rows += vals.shape[0]
+    n_inputs = 0
+    for w in edges.FIRE_WS:
+        cfg = edges.fire_cfg(w)
+        for t in edges.FIRE_TS:
+            for offset in (0, 1):
+                sync, upd = edges.fire_edge_inputs(w, t, offset, dev)
+                got = ask_spec.dense_fire_candidates(cfg, sync, upd)
+                torch.cuda.synchronize()
+                require(torch.equal(got, ask_spec.dense_fire_candidates_plain(cfg, sync, upd)),
+                        f"ask_fire differs on the edge inputs at w={w}, T={t}, offset {offset}")
+                n_inputs += 1
+    sync, upd = edges.fire_edge_inputs(edges.FIRE_MAX_W, 50_001, device=dev)
+    cfg = edges.fire_cfg(edges.FIRE_MAX_W)
+    got = ask_spec.dense_fire_candidates(cfg, sync, upd)
+    torch.cuda.synchronize()
+    require(torch.equal(got, ask_spec.dense_fire_candidates_plain(cfg, sync, upd)),
+            f"ask_fire differs at w={edges.FIRE_MAX_W}")
+    for w in (0, edges.FIRE_MAX_W + 1):
+        try:
+            ask_spec.dense_fire_candidates(edges.fire_cfg(w), sync, upd)
+        except RuntimeError:
+            continue
+        raise RuntimeError(f"ask_fire took w={w}")
+    log(f"phase 1: ask_chain == plain on {n_rows} edge rows (widths {list(edges.CHAIN_WS)}, "
+        f"guards {list(edges.CHAIN_GUARDS)}); ask_fire == plain on {n_inputs} edge inputs of 3 "
+        f"rows (w in {list(edges.FIRE_WS)}, T in {list(edges.FIRE_TS)}, aligned and one element "
+        f"in) and at w={edges.FIRE_MAX_W}; w=0 and w={edges.FIRE_MAX_W + 1} refused")
 
 
 def digest(tensors) -> str:
@@ -1515,6 +1577,7 @@ def main() -> None:
     from trackmaker_tpu_torch.sync.correlate import preamble_energy
     from trackmaker_tpu_torch.sync.xcorr_hits import xcorr_hits, xcorr_hits_plain
     from trackmaker_tpu_torch.tools import exp_attempt_tiles as et
+    from trackmaker_tpu_torch.tools import exp_fire_chain as efc
     from trackmaker_tpu_torch.tools import exp_offset_add as eo
     from trackmaker_tpu_torch.tools import exp_xcorr_streams as exs
     from trackmaker_tpu_torch.tools import health as hp
@@ -1673,6 +1736,7 @@ def main() -> None:
         errs[k_name] = max(errs.get(k_name, 0), v)
     ask_errs, ask_in = check_ask_kernels(torch, ask, ask_spec, sdot, acfg, xa, rng)
     errs.update(ask_errs)
+    check_fire_chain_edges(torch, ask, ask_spec, dev)
     chirp = ask._chirp_np(acfg)        # dsp/osc.py's chirp
     errs["xcorr_rowstats"] = max(check_rowstats(torch, xn, xcorr_hits, xe, pre, "equalized_b32"),
                                  check_rowstats(torch, xn, xcorr_hits, x4, pre4, "fourb5b_b32"),
@@ -1919,9 +1983,9 @@ def main() -> None:
                            + 3 * b * 4, b * N_CAND * 4),
         # each lag: 440 products and 440 sums, then the scale
         "sliding_dot": bound(2 * xa.numel() * 4, xa.numel() * (2 * 440 + 1)),
-        # sync and upd in, hits out; a select per sample (the window
-        # compares run only at updates and stop at the first larger value,
-        # far below the bytes term)
+        # sync and upd in, hits out; a select per sample (the block scans
+        # and the window's three maxima are a few more a sample, far below
+        # the bytes term)
         "ask_fire": bound(xa.numel() * 6, xa.numel()),
         # each row up to its first fire (all of it when none): the value in,
         # a max, a compare, an index select and a max per column
@@ -2260,8 +2324,36 @@ def main() -> None:
     unfused_ms = xa.numel() * len(ask_in["pre"]) * 2 / (F32_OPS_PER_S / 2) * 1e3
     log(f"phase 4: sliding_dot ask_b16 (L=440) unfused floor {unfused_ms:.4f} ms beside its "
         f"bound {bounds['sliding_dot'][0]:.4f} ms [{card}]")
+    # the exact scan's record chain, one row a launch: its first row on the
+    # first track (phy/ask.py's CHAIN_WINDOW, 4,096 columns) and that row's
+    # first 512 columns
+    scan_row, scan_base = efc.exact_scan_row(acfg, xa[0])
+    for width, v in ((scan_row.shape[1], scan_row), (512, scan_row[:, :512].contiguous())):
+        def chain_row(v=v):
+            return ask.ask_chain(v, scan_base, acfg.peak_guard)
+
+        got = device_ms(torch, chain_row, "ask_chain_kernel")
+        traced = ("not measured (no session traced every launch)" if got is None
+                  else f"{got[0]:.4f} ms (all {RUNS} launches traced, session {got[1]})")
+        row_plain = time_ms(torch, lambda v=v: ask.ask_chain_plain(v, scan_base, acfg.peak_guard))
+        log(f"phase 4: device time ask_chain exact scan row ({width} columns): {traced}; CUDA "
+            f"events around the wrapper {time_ms(torch, chain_row):.4f} ms, plain "
+            f"{row_plain:.4f} ms; fires {bool(chain_row()[0][0])} [{card}]")
+    # yardsticks, each one PyTorch call that computes only part of its
+    # kernel's function: torch.cummax of the chain rows (the running maximum
+    # alone) and max_pool1d (kernel w, stride 1) of the masked rows (the
+    # window maxima alone)
+    w_fire = acfg.peak_guard + 1
+    masked_a = torch.where(ask_in["upd_ok"], ask_in["sync"], -np.inf)[:, None]
+    cummax_ms = time_ms(torch, lambda: ask_in["vals"].cummax(-1))
+    pool_ms = time_ms(torch, lambda: torch.nn.functional.max_pool1d(masked_a, w_fire, 1))
+    log(f"phase 4: yardsticks, each only part of its kernel's function: ask_chain "
+        f"torch.cummax of the {ask_in['vals'].shape[0]} x {ask_in['vals'].shape[1]} rows "
+        f"{cummax_ms:.4f} ms; ask_fire max_pool1d (kernel {w_fire}, stride 1) of the masked "
+        f"{masked_a.shape[0]} x {masked_a.shape[2]} rows {pool_ms:.4f} ms [{card}]")
+    del masked_a
     for src in ("sliding_dot", "xcorr_norm", "xcorr_hits", "spec_walk", "attempt_manchester",
-                "attempt_4b5b", "ask_walk"):
+                "attempt_4b5b", "ask_walk", "ask_fire", "ask_chain"):
         for fn_name, res in kernel_resources(_build, src).items():
             require(res["LOCAL"] == 0, f"{fn_name} in {src}.cu spills ({res})")
             log(f"phase 4: {src}.cu {fn_name}: {res['REG']} registers, {res['LOCAL']} bytes of "

@@ -72,6 +72,16 @@ from trackmaker_tpu_torch.tools import exp_xcorr_streams as ex
 from trackmaker_tpu_torch.tools import health, prof_fused
 
 # the edge inputs, from the CPU tests beside this file
+from test_torch_ask_fire_chain_design import (
+    CHAIN_GUARDS,
+    CHAIN_WS,
+    FIRE_MAX_W,
+    FIRE_TS,
+    FIRE_WS,
+    chain_edge_rows,
+    fire_cfg,
+    fire_edge_inputs,
+)
 from test_torch_ask_walk_4b5b_design import (
     ASK_C1S,
     ASK_MFS,
@@ -1385,3 +1395,92 @@ def test_4b5b_attempt_and_ask_walk_copy_nothing_to_the_card(cuda):
         assert 1 <= len(on_card) <= 3 and all(kernel in n for n in on_card), (what, on_card)
         assert 1 <= sum(n.startswith("cudaLaunchKernel") for n in names) <= 3, (what, names)
 
+
+
+# The record chain as warp scans over a tile already loaded and the fire
+# rule's window maxima from block prefix and suffix maxima
+# (csrc/ask_chain.cu, csrc/ask_fire.cu): each equals its plain version bit
+# for bit on the edge inputs of tests/test_torch_ask_fire_chain_design.py,
+# takes every row width and window the first designs took, and copies
+# nothing to the card.
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("win", CHAIN_WS)
+def test_ask_chain_kernel_matches_plain_on_edge_rows(cuda, win):
+    for guard in CHAIN_GUARDS:
+        vals, base = chain_edge_rows(win, guard)
+        before = ask.ask_chain.launches
+        got = ask.ask_chain(vals.to(cuda), base.to(cuda), guard)
+        torch.cuda.synchronize()
+        assert ask.ask_chain.launches == before + 1
+        for name, g, w in zip(("fired", "peak"), got, ask.ask_chain_plain(vals, base, guard)):
+            assert g.dtype == w.dtype and torch.equal(g.cpu(), w), (win, guard, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", FIRE_WS)
+def test_ask_fire_kernel_matches_plain_on_edge_inputs(cuda, w):
+    """Every T of FIRE_TS, with the arrays aligned (the kernel's float4 and
+    word path) and one element into their buffers (its scalar path)."""
+    cfg = fire_cfg(w)
+    for t in FIRE_TS:
+        for offset in (0, 1):
+            sync, upd = fire_edge_inputs(w, t, offset, cuda)
+            assert (sync.data_ptr() % 16 == 0) == (offset == 0)
+            before = ask_spec.dense_fire_candidates.launches
+            got = ask_spec.dense_fire_candidates(cfg, sync, upd)
+            torch.cuda.synchronize()
+            assert ask_spec.dense_fire_candidates.launches == before + 1
+            want = ask_spec.dense_fire_candidates_plain(cfg, sync, upd)
+            assert got.dtype == want.dtype and torch.equal(got, want), (w, t, offset)
+
+
+@pytest.mark.gpu
+def test_ask_fire_and_chain_take_every_window_and_width(cuda):
+    """The fire rule takes w from 1 to FIRE_MAX_W (the first design took
+    up to 11,264) and refuses 0 and FIRE_MAX_W + 1; the chain takes any
+    width from 1 and refuses 0."""
+    for w in (11_264, FIRE_MAX_W):
+        sync, upd = fire_edge_inputs(w, 50_001, device=cuda)
+        got = ask_spec.dense_fire_candidates(fire_cfg(w), sync, upd)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ask_spec.dense_fire_candidates_plain(fire_cfg(w), sync, upd)), w
+    sync, upd = fire_edge_inputs(201, 4097, device=cuda)
+    for w in (0, FIRE_MAX_W + 1):
+        with pytest.raises(RuntimeError):
+            ask_spec.dense_fire_candidates(fire_cfg(w), sync, upd)
+    for win in (1, 2, 5000, 9000):
+        vals, base = chain_edge_rows(win, 200)
+        got = ask.ask_chain(vals.to(cuda), base.to(cuda), 200)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, ask.ask_chain_plain(vals, base, 200)))
+    with pytest.raises(RuntimeError):
+        ask.ask_chain(torch.zeros((3, 0), device=cuda), torch.zeros(3, dtype=torch.int32, device=cuda),
+                      200)
+
+
+@pytest.mark.gpu
+def test_ask_fire_and_chain_copy_nothing_to_the_card(cuda):
+    """Each call launches its one kernel and nothing else, and copies
+    nothing host to device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync, upd = fire_edge_inputs(201, 339_453, device=cuda)
+    vals, base = (a.to(cuda) for a in chain_edge_rows(1024, 200))
+    calls = {"ask_fire": lambda: ask_spec.dense_fire_candidates(ACFG, sync, upd),
+             "ask_chain": lambda: ask.ask_chain(vals, base, 200)}
+    for call in calls.values():
+        call()
+    torch.cuda.synchronize()
+    for what, call in calls.items():
+        # three calls: the profiler can drop the first kernel events of a session
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()]
+        assert not [n for n in names if "HtoD" in n or "cudaMemcpy" in n], (what, names)
+        on_card = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert 1 <= len(on_card) <= 3 and all(f"{what}_kernel" in n for n in on_card), (what, on_card)
