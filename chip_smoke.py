@@ -76,10 +76,15 @@ Phases, each raising on failure (non-zero exit):
    fast decode and the exact scan; the experiments' kernels: every
    attempt-tile variant (``tools.exp_attempt_tiles``) and base's _nodma,
    _nostore and _u5 against the plain version bit for bit on the tool's
-   corpus (32 captures) and an integer-valued copy, a ring deeper than a
-   block's shared memory refused, and the three offset-add forms
-   (``tools.exp_offset_add``) against their plain versions and the NumPy
-   oracles, bit for bit;
+   corpus (32 captures) and an integer-valued copy, each at rings of 1 to
+   4 stages, a ring that does not fit refused, and the three offset-add
+   forms (``tools.exp_offset_add``) against their plain versions and the
+   NumPy oracles, bit for bit; the attempt tiles and the two-stream rows
+   on the edge inputs of tests/test_torch_tiles_streams_design.py (the
+   tiles' _u1.._u65, _nostore, noop, _nodma and the other kinds at rings of
+   1 to 4 on two captures; the streams at L in 2..129 and T in
+   129..50,001 around their tile, halo and zero tail, with a hit at the
+   last lag, against kernel #1's rows bit for bit and the plain version);
 2. the main paths, each with its kernels' launch counts set to 0 just
    before it and read just after: the flagship and fourb5b_b32 through
    ``decode_capture_fast`` (32 noisy captures of 64 frames of 128-byte
@@ -145,18 +150,21 @@ Phases, each raising on failure (non-zero exit):
    launches x (device - bound); the raw sliding dot's unfused floor; the
    Manchester and 4B5B attempts' contract floor (each live slot's window
    read once); the registers, spills and FFMA / FMUL / FADD / LDS counts of
-   each kernel of sliding_dot.cu, xcorr_norm.cu and xcorr_hits.cu, which
-   share the register tile of xcorr_tile.cuh, and of spec_walk.cu,
-   attempt_manchester.cu, attempt_4b5b.cu, ask_walk.cu, ask_fire.cu and
-   ask_chain.cu (cuobjdump); the record chain on the exact scan's row
+   each kernel of sliding_dot.cu, xcorr_norm.cu, xcorr_hits.cu and
+   xcorr_streams.cu, which share the register tile of xcorr_tile.cuh, and
+   of spec_walk.cu, attempt_manchester.cu, attempt_4b5b.cu, ask_walk.cu,
+   ask_fire.cu, ask_chain.cu and attempt_tiles.cu (cuobjdump); the device
+   time of the window probe, of the offset add's three forms, of the
+   attempt tiles' noop and of the two-stream kernel, each beside an empty
+   kernel at its grid; the record chain on the exact scan's row
    (4,096 columns) and on its first 512 columns, each one launch, and two
    yardsticks that compute part of #10's and #9's functions
    (``torch.cummax`` of the chain rows, ``max_pool1d`` of the masked rows);
    every attempt-tile
-   variant of phase 1 and every offset-add form against its plain version
-   and its bound, beside torch.bmm of the body products and torch.matmul
-   with the sliced add; each printed beside the card's name and power
-   limit.
+   variant of phase 1 (CUDA events and device time) and every offset-add
+   form against its plain version and its bound (bf16b's also at the f32
+   rate), beside torch.bmm of the body products and torch.matmul with the
+   sliced add; each printed beside the card's name and power limit.
 
 The line before the last is a JSON object with the kernels' measurements:
 ``launches`` counts each kernel's launches in the main-path runs of
@@ -1408,13 +1416,30 @@ def run_profiler_path(torch, pf, exs, cfg, x, frames, vlens, tool, kernels) -> d
     return launches
 
 
-def tiles_bound(et, variant: str, inputs) -> tuple[float, str]:
+def empty_kernel(torch, dev):
+    """An empty kernel's launcher, (blocks, threads) -> None, built from
+    ``tools/exp_walk_attempt.py``'s source: the floor a tiny kernel's device
+    time is read against."""
+    import ctypes
+
+    from trackmaker_tpu_torch import _build
+    from trackmaker_tpu_torch.tools.exp_walk_attempt import EMPTY_SOURCE, build_source
+
+    fn = ctypes.CDLL(str(build_source("empty", EMPTY_SOURCE))).tm_empty
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return lambda blocks, threads: _build.check(fn(blocks, threads, stream), "empty")
+
+
+def tiles_bound(et, variant: str, inputs, bf16_rate: bool = True) -> tuple[float, str]:
     """(least ms, what sets it) of one attempt-tile call on `inputs`: the
     output written once (zero-filled), the rows of x each candidate reads,
     the table rows this run's candidates read (sync slices from q, body
     slices from the sync's best), each once, and w; every multiply-add of
     the sync, the body and the pack, the body's at the bf16 tensor-core
-    rate for bf16b and all others at the f32 rate."""
+    rate for bf16b (with `bf16_rate`; else at the f32 rate, the function
+    as the port defines it: its sums stay on the FP32 pipes) and all
+    others at the f32 rate."""
     spec = et.parse_variant(variant)
     x, ts, tsc, tb, tbn, w, wn = inputs
     b, n = x.shape[0], spec.n_cand
@@ -1435,10 +1460,10 @@ def tiles_bound(et, variant: str, inputs) -> tuple[float, str]:
     half, bits = (64, 64) if spec.n128 else (128, 128)
     body = 2 * et.BROWS * half * et.DROW * 2 * b * n                 # flops
     rest = (et.BROWS * et.LANES * bits + et.SYNC_LANES * 4 * et.DROW) * 2 * b * n
-    x_bytes = b * (9 * 7 + et.STAGE_ROWS) * et.DROW * 4
+    x_bytes = b * (9 * 7 + et.SLAB_ROWS) * et.DROW * 4
     by_bytes = (out_bytes + x_bytes + table_bytes + (wn if spec.n128 else w).numel() * 4) \
         / HBM_BYTES_PER_S * 1e3
-    by_ops = (body / (BF16_OPS_PER_S if spec.kind == "bf16b" else F32_OPS_PER_S)
+    by_ops = (body / (BF16_OPS_PER_S if spec.kind == "bf16b" and bf16_rate else F32_OPS_PER_S)
               + rest / F32_OPS_PER_S) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
@@ -1489,24 +1514,27 @@ def check_experiments(torch, et, eo, dev) -> tuple[dict, dict]:
     """Phase 1 for the two experiments' kernels: every attempt-tile variant,
     and base's _nodma, _nostore and _u5, against the plain version on the
     tool's corpus and on an integer-valued copy (x of integers -2..2), bit
-    for bit both (the products are exact and both sum in k order); a ring
-    deeper than a block's shared memory refused; the three offset-add forms
-    against their plain versions and the NumPy oracles, bit for bit.
-    Returns (max |err| per kernel, the inputs phase 4 times them on)."""
+    for bit both (the products are exact and both sum in k order), at
+    rings of 1 to 4 stages; a ring that does not fit refused; the three
+    offset-add forms against their plain versions and the NumPy oracles,
+    bit for bit.  Returns (max |err| per kernel, the inputs phase 4 times
+    them on)."""
     errs = {"attempt_tiles": 0.0, "offset_add": 0.0}
     corpora = {"normal": et.tool_input(dev), "integer": et.tool_input(dev, integer=True)}
     for tag, inputs in corpora.items():
         for variant in TILE_CHECKS:
-            got = et.attempt_tiles(variant, *inputs)
-            torch.cuda.synchronize()
             want = et.attempt_tiles_plain(variant, *inputs)
-            n_diff = int((got != want).sum())
-            errs["attempt_tiles"] = max(errs["attempt_tiles"], (got - want).abs().max().item())
-            require(n_diff == 0, f"attempt_tiles {variant} ({tag} corpus): {n_diff} values differ "
-                    "from the plain version")
-            require(bool(torch.isfinite(got).all()), f"attempt_tiles {variant}: not finite")
+            for pipe in range(1, et.PIPE + 1):
+                got = et.attempt_tiles(variant, *inputs, pipe=pipe)
+                torch.cuda.synchronize()
+                n_diff = int((got != want).sum())
+                errs["attempt_tiles"] = max(errs["attempt_tiles"], (got - want).abs().max().item())
+                require(n_diff == 0, f"attempt_tiles {variant} ({tag} corpus, ring {pipe}): "
+                        f"{n_diff} values differ from the plain version")
+                require(bool(torch.isfinite(got).all()), f"attempt_tiles {variant}: not finite")
         log(f"phase 1: attempt_tiles == plain bit for bit on the tool's {tag} corpus "
-            f"({inputs[0].shape[0]} x {et.NV} candidates) for {', '.join(TILE_CHECKS)}")
+            f"({inputs[0].shape[0]} x {et.NV} candidates) for {', '.join(TILE_CHECKS)}, each at "
+            f"rings of 1 to {et.PIPE} stages")
     launches = et.attempt_tiles.launches
     try:
         et.attempt_tiles("base", *corpora["normal"], pipe=5)
@@ -1516,7 +1544,8 @@ def check_experiments(torch, et, eo, dev) -> tuple[dict, dict]:
     require(refused and et.attempt_tiles.launches == launches,
             "attempt_tiles took a ring of 5 stages, which does not fit a block")
     log(f"phase 1: attempt_tiles refuses a ring of 5 stages ({5 * et.STAGE_BYTES} B), runs 4 "
-        f"({et.stage_smem(et.parse_variant('base'), 4)} B of {et.SMEM_PER_BLOCK})")
+        f"({et.stage_smem(et.parse_variant('base'), 4)} B of the {et.SMEM_PER_BLOCK} each of "
+        f"{et.BLOCKS_PER_SM} blocks an SM may use)")
     x, t = eo.tool_input(dev)
     for form in eo.FORMS:
         got = eo.offset_add(form, x, t)
@@ -1529,6 +1558,58 @@ def check_experiments(torch, et, eo, dev) -> tuple[dict, dict]:
     log(f"phase 1: offset_add A, B, C == plain and == the NumPy oracles bit for bit "
         f"(lane shift {eo.lane_shift(x)} from a sum of {int(x[0, :8].sum())})")
     return errs, {"tiles": corpora["normal"], "offset": (x, t)}
+
+
+def check_tiles_streams_edges(torch, et, exs, xh, dev) -> None:
+    """The attempt tiles and the two-stream rows on the edge inputs of
+    tests/test_torch_tiles_streams_design.py: the tiles' edge variants
+    (_u1, _u2, _u5, _u13, _u65, _nostore, noop, _nodma and the other kinds)
+    at rings of 1 to 4 on two captures of the normal corpus, bit for bit;
+    the streams at L in 2..129 and T in 129..50,001 around the tile of
+    1,024 lags, the second stream's 128 samples and the 8 zero-filled past
+    them, with a hit at the last lag: the rows and the noep form equal
+    kernel #1's bit for bit (L <= 128) and the plain version's away from
+    the threshold and from |corr| = 1."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import test_torch_tiles_streams_design as edges
+
+    inputs = edges.tile_edge_input(dev)
+    for variant in edges.TILE_EDGE_VARIANTS:
+        want = et.attempt_tiles_plain(variant, *inputs)
+        for pipe in edges.TILE_RINGS:
+            got = et.attempt_tiles(variant, *inputs, pipe=pipe)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want), f"attempt_tiles {variant} differs on the edge input "
+                                            f"at ring {pipe}")
+    n_hits = 0
+    for l in edges.STREAM_LS:
+        for t in edges.STREAM_TS:
+            x, pattern = edges.stream_edge_input(l, t, dev)
+            rows = exs.xcorr_hits_2s(x, pattern, edges.STREAM_THR)
+            noep = exs.xcorr_hits_2s(x, pattern, edges.STREAM_THR, epilogue=False)
+            torch.cuda.synchronize()
+            if l <= 128:
+                corr, rows_1 = xh.xcorr_hits(x, pattern, edges.STREAM_THR, emit_corr=True)
+                require(torch.equal(rows, rows_1) and torch.equal(
+                    noep, exs.noep_plain(corr, noep.shape[1])),
+                    f"xcorr_hits_2s differs from kernel #1 at L={l}, T={t}")
+            corr_p = exs.normalized_xcorr_dense_plain(x, pattern)
+            try:
+                edges.assert_rows_agree(rows.cpu(), exs.xcorr_hits_2s_plain(
+                    x, pattern, edges.STREAM_THR).cpu(), corr_p.cpu(), edges.STREAM_THR)
+            except AssertionError as exc:
+                raise AssertionError(f"xcorr_hits_2s differs from plain at L={l}, T={t}") from exc
+            edge = exs.noep_plain(((corr_p.abs() - 1.0).abs() < CORR_ATOL).float(),
+                                  noep.shape[1]) > 0
+            require(bool(((noep == exs.xcorr_hits_2s_plain(x, pattern, edges.STREAM_THR, False))
+                          | edge).all()), f"xcorr_hits_2s noep differs from plain at L={l}, T={t}")
+            require(int(rows[0, (t - l) // 128, 4]) >= 1, f"no hit at the last lag, L={l} T={t}")
+            n_hits += int(rows[..., 4].sum())
+    log(f"phase 1: attempt_tiles == plain bit for bit on the edge input (2 captures) for "
+        f"{', '.join(edges.TILE_EDGE_VARIANTS)} at rings {list(edges.TILE_RINGS)}; xcorr_hits_2s "
+        f"== kernel #1's rows and noep bit for bit (L <= 128) and == plain at L in "
+        f"{list(edges.STREAM_LS)}, T in {list(edges.STREAM_TS)} ({n_hits} hits, one at each "
+        "last lag)")
 
 
 def run_experiments(torch, et, eo) -> dict[str, int]:
@@ -1594,6 +1675,7 @@ def main() -> None:
     t0 = time.perf_counter()
     for path in _build.build_all():
         log(f"built {path.name}")
+    empty = empty_kernel(torch, dev)     # built here: no compiler runs once profiling starts
     log(f"phase 0: kernels built in {time.perf_counter() - t0:.1f} s; {toolchain(torch, _build)}")
     hp.seq_probe.launches = 0
     torch.cuda.synchronize()
@@ -1697,6 +1779,7 @@ def main() -> None:
     check_threshold_tie(torch, xh, decode_capture_fast, decode_capture, cfg4, pre4, dev)
     exp_errs, exp_in = check_experiments(torch, et, eo, dev)
     errs.update(exp_errs)
+    check_tiles_streams_edges(torch, et, exs, xh, dev)
     del corr_p, corr_p4, cp, rows_b     # the dense corr: keep it out of phase 4's peak memory
 
     rng = np.random.default_rng(args.seed + 17)
@@ -2210,8 +2293,8 @@ def main() -> None:
         f"{bounds['xcorr_hits_2s'][0]:.4f} ms ({bounds['xcorr_hits_2s'][1]}) [{card}]")
     # the hit kernel's own device time (torch.profiler) beside the CUDA-event
     # median of its wrapper call; at the tool's shapes beside the two-stream
-    # kernel, which keeps the first design's loop: their ratio in one run
-    # compares the two designs
+    # kernel, which runs the same register tile on its two streams: their
+    # ratio in one run compares the two ways of delivering the operand
     thr4 = cfg4.correlation_threshold
     dev_calls = {
         "xcorr_hits flagship (L=96)": (lambda: xcorr_hits(x, pre, thr), "xcorr_hits_kernel",
@@ -2230,6 +2313,9 @@ def main() -> None:
         "xcorr_hits_2s tool input": (lambda: exs.xcorr_hits_2s(xt, pat_t, exs.THR,
                                                                streams=streams_t),
                                      "xcorr_hits_2s_kernel", ms["xcorr_hits_2s"]),
+        "xcorr_hits_2s noep tool input": (lambda: exs.xcorr_hits_2s(xt, pat_t, exs.THR, False,
+                                                                    streams_t),
+                                          "xcorr_hits_2s_kernel", noep_ms),
     }
     dev_ms = {}
     for what, (fn, kernel, event_ms) in dev_calls.items():
@@ -2352,14 +2438,6 @@ def main() -> None:
         f"{cummax_ms:.4f} ms; ask_fire max_pool1d (kernel {w_fire}, stride 1) of the masked "
         f"{masked_a.shape[0]} x {masked_a.shape[2]} rows {pool_ms:.4f} ms [{card}]")
     del masked_a
-    for src in ("sliding_dot", "xcorr_norm", "xcorr_hits", "spec_walk", "attempt_manchester",
-                "attempt_4b5b", "ask_walk", "ask_fire", "ask_chain"):
-        for fn_name, res in kernel_resources(_build, src).items():
-            require(res["LOCAL"] == 0, f"{fn_name} in {src}.cu spills ({res})")
-            log(f"phase 4: {src}.cu {fn_name}: {res['REG']} registers, {res['LOCAL']} bytes of "
-                f"local memory (spills), {res['SHARED']} bytes of static shared memory, "
-                f"{res['STACK']} bytes of stack (cuobjdump -res-usage); in its SASS "
-                + ", ".join(f"{res[op]} {op}" for op in SASS_OPS) + " (cuobjdump -sass)")
     xk = torch.ones((8, 128), dtype=torch.float32, device=dev)
     ms["seq_probe"] = time_ms(torch, lambda: hp.seq_probe(xk))
     plain_ms["seq_probe"] = time_ms(torch, lambda: hp.seq_probe_plain(xk))
@@ -2374,6 +2452,30 @@ def main() -> None:
     for k_name in ("seq_probe", "xcorr_hits_2s", "attempt_sum"):
         log(f"phase 4: {k_name}: kernel {ms[k_name]:.4f} ms, plain {plain_ms[k_name]:.4f} ms, "
             f"bound {bounds[k_name][0]:.6f} ms ({bounds[k_name][1]}) [{card}]")
+    # the tools' kernels whose time is a launch, each beside an empty kernel
+    # at its grid: the window probe (#12), the offset add's forms (#14), and
+    # the grids of the attempt tiles (#13) and the two streams (#15)
+    xo, to = exp_in["offset"]
+    n_tiles_13 = -(-et.NV // et.GROUP)
+    launch_calls = (
+        ("seq_probe (#12)", lambda: hp.seq_probe(xk), "seq_probe_kernel", (32, 1024)),
+        ("offset_add A (#14)", lambda: eo.offset_add("A", xo, to), "offset_add_a_kernel",
+         (32, 128)),
+        ("offset_add B (#14)", lambda: eo.offset_add("B", xo, to), "offset_add_b_kernel",
+         (1, 128)),
+        ("offset_add C (#14)", lambda: eo.offset_add("C", xo, to), "offset_add_c_kernel",
+         (32, 128)),
+        ("attempt_tiles noop (#13)", lambda: et.attempt_tiles("noop", *exp_in["tiles"]),
+         "attempt_tiles_kernel", (exp_in["tiles"][0].shape[0] * n_tiles_13, 128)),
+        ("xcorr_hits_2s (#15)", lambda: exs.xcorr_hits_2s(xt, pat_t, exs.THR, streams=streams_t),
+         "xcorr_hits_2s_kernel", (xt.shape[0] * n_tiles_t, 128)))
+    for what, fn, kernel, (blocks, threads) in launch_calls:
+        got = device_ms(torch, fn, kernel)
+        none = device_ms(torch, lambda g=blocks, n=threads: empty(g, n), "empty_kernel")
+        log(f"phase 4: device time {what}: "
+            + ("not measured" if got is None else f"{got[0]:.4f} ms")
+            + f"; an empty kernel at its grid ({blocks} x {threads}): "
+            + ("not measured" if none is None else f"{none[0]:.4f} ms") + f" [{card}]")
     stage_fns = pf.stages(cfg, x, vlens)
     stage_fns["xcorr+extract+attempt (fold on)"] = lambda xx: pf.attempt_sum(cfg, xx, vlens, True)
     for stage, fn in stage_fns.items():
@@ -2389,10 +2491,15 @@ def main() -> None:
     for variant in TILE_CHECKS:
         k_ms = time_ms(torch, lambda: et.attempt_tiles(variant, xt13, *tables13), runs=10)
         p_ms = time_ms(torch, lambda: et.attempt_tiles_plain(variant, xt13, *tables13), runs=3)
+        got = device_ms(torch, lambda: et.attempt_tiles(variant, xt13, *tables13),
+                        "attempt_tiles_kernel")
         bnd = tiles_bound(et, variant, exp_in["tiles"])
+        at_f32 = (f", at the f32 rate {tiles_bound(et, variant, exp_in['tiles'], False)[0]:.4f} "
+                  "ms" if variant.startswith("bf16b") else "")
         log(f"phase 4: attempt_tiles {variant}: kernel {k_ms:.4f} ms "
-            f"({k_ms * 1e3 / (xt13.shape[0] * et.NV):.3f} us a candidate), plain {p_ms:.4f} ms, "
-            f"bound {bnd[0]:.4f} ms ({bnd[1]}) [{card}]")
+            f"({k_ms * 1e3 / (xt13.shape[0] * et.NV):.3f} us a candidate), device "
+            + ("not measured" if got is None else f"{got[0]:.4f} ms")
+            + f", plain {p_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}){at_f32} [{card}]")
         if variant == "base":
             ms["attempt_tiles"], plain_ms["attempt_tiles"], bounds["attempt_tiles"] = k_ms, p_ms, bnd
     spec13 = et.parse_variant("base")
@@ -2425,6 +2532,17 @@ def main() -> None:
     library_ms["offset_add"] = time_ms(torch, matmul_add)
     log(f"phase 4: offset_add A yardstick: torch.matmul + the sliced add (two calls, TF32 off) "
         f"{library_ms['offset_add']:.4f} ms [{card}]")
+    # registers and spills last: cuobjdump runs as a child process, and the
+    # profiler's sessions after one lose their last launches
+    for src in ("sliding_dot", "xcorr_norm", "xcorr_hits", "spec_walk", "attempt_manchester",
+                "attempt_4b5b", "ask_walk", "ask_fire", "ask_chain", "attempt_tiles",
+                "xcorr_streams"):
+        for fn_name, res in kernel_resources(_build, src).items():
+            require(res["LOCAL"] == 0, f"{fn_name} in {src}.cu spills ({res})")
+            log(f"phase 4: {src}.cu {fn_name}: {res['REG']} registers, {res['LOCAL']} bytes of "
+                f"local memory (spills), {res['SHARED']} bytes of static shared memory, "
+                f"{res['STACK']} bytes of stack (cuobjdump -res-usage); in its SASS "
+                + ", ".join(f"{res[op]} {op}" for op in SASS_OPS) + " (cuobjdump -sass)")
 
     replaces = {
         "seq_probe": "bench.py:200",

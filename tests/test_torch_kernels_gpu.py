@@ -91,6 +91,16 @@ from test_torch_ask_walk_4b5b_design import (
     attempt_4b5b_call,
     fourb5b_edge_inputs,
 )
+from test_torch_tiles_streams_design import (
+    STREAM_LS,
+    STREAM_THR,
+    STREAM_TS,
+    TILE_EDGE_VARIANTS,
+    TILE_RINGS,
+    assert_rows_agree,
+    stream_edge_input,
+    tile_edge_input,
+)
 from test_torch_walk_attempt_design import (
     ATTEMPT_FORMS,
     WALK_CS,
@@ -896,6 +906,33 @@ def test_xcorr_hits_2s_kernel_at_129_taps_matches_plain(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("l", STREAM_LS)
+def test_xcorr_hits_2s_kernel_on_the_edges(cuda, l):
+    """At every T of the design tests' edges (1,024 lags a block, the
+    second stream's 128 and the 8 zero-filled past them), a hit at the
+    last lag: the rows and the noep form equal kernel #1's bit for bit (L
+    <= 128) and the plain version's away from the threshold and from
+    |corr| = 1."""
+    for t in STREAM_TS:
+        x, pattern = stream_edge_input(l, t, cuda)
+        before = ex.xcorr_hits_2s.launches
+        rows = ex.xcorr_hits_2s(x, pattern, STREAM_THR)
+        noep = ex.xcorr_hits_2s(x, pattern, STREAM_THR, epilogue=False)
+        torch.cuda.synchronize()
+        assert ex.xcorr_hits_2s.launches == before + 2
+        if l <= 128:
+            corr, rows_1 = xcorr_hits(x, pattern, STREAM_THR, emit_corr=True)
+            assert torch.equal(rows, rows_1), (l, t)
+            assert torch.equal(noep, ex.noep_plain(corr, noep.shape[1])), (l, t)
+        corr_p = normalized_xcorr_dense_plain(x, pattern)
+        assert_rows_agree(rows.cpu(), ex.xcorr_hits_2s_plain(x, pattern, STREAM_THR).cpu(),
+                          corr_p.cpu(), STREAM_THR)
+        edge = ex.noep_plain(((corr_p.abs() - 1.0).abs() < 1e-5).float(), noep.shape[1]) > 0
+        assert bool(((noep == ex.xcorr_hits_2s_plain(x, pattern, STREAM_THR, False)) | edge).all())
+        assert int(rows[0, (t - l) // 128, 4]) >= 1, (l, t)
+
+
+@pytest.mark.gpu
 def test_noep_kernel_truncates_the_hit_kernel_s_corr(cuda):
     """The noep form equals the truncation of kernel #1's dense corr bit
     for bit (the same sums), exact +-1 copies of a 64-sample pattern in
@@ -978,6 +1015,23 @@ def test_attempt_tiles_refuses_a_ring_that_does_not_fit(cuda):
     assert et.attempt_tiles.launches == before
     got = et.attempt_tiles("base_nodma", *inputs, pipe=5)    # no ring: any depth
     assert torch.equal(got, et.attempt_tiles_plain("base", *inputs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", TILE_EDGE_VARIANTS)
+def test_attempt_tiles_kernel_on_the_edges(cuda, variant):
+    """On the design tests' edge input (two captures of the normal corpus),
+    at every ring: the kernel equals the plain version bit for bit, one
+    launch a call, and the arrival counters are left zero."""
+    inputs = tile_edge_input(cuda)
+    want = et.attempt_tiles_plain(variant, *inputs)
+    for pipe in TILE_RINGS:
+        before = et.attempt_tiles.launches
+        got = et.attempt_tiles(variant, *inputs, pipe=pipe)
+        torch.cuda.synchronize()
+        assert et.attempt_tiles.launches == before + 1
+        assert torch.equal(got, want), (variant, pipe)
+        assert not et._arrival_counts(cuda, 2).any()
 
 
 @pytest.mark.gpu
@@ -1484,3 +1538,27 @@ def test_ask_fire_and_chain_copy_nothing_to_the_card(cuda):
         on_card = [e.name for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         assert 1 <= len(on_card) <= 3 and all(f"{what}_kernel" in n for n in on_card), (what, on_card)
+
+
+@pytest.mark.gpu
+def test_xcorr_hits_2s_copies_nothing_to_the_card(cuda):
+    """The pattern goes by value: a call on streams already on the card
+    makes no host-to-device copy.  (Last in the file: a profiler session
+    loses launches once a child process has run after an earlier one, and
+    the tools' tests above start ``nvidia-smi``.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, pattern = stream_edge_input(129, 50_001, cuda)
+    streams = ex.two_streams(x)
+    calls = (lambda: ex.xcorr_hits_2s(x, pattern, STREAM_THR, streams=streams),
+             lambda: ex.xcorr_hits_2s(x, pattern, STREAM_THR, False, streams))
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for call in calls:
+            call()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    assert sum("xcorr_hits_2s_kernel" in n for n in names) >= len(calls), names
+    assert not [n for n in names if "HtoD" in n or "cudaMemcpy" in n], names

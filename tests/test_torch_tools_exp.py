@@ -270,16 +270,19 @@ def test_variants_parse_and_refuse():
 
 
 def test_a_ring_that_does_not_fit_raises(tiles):
-    """Four stages of 36 rows fit a block's 232,448 bytes of shared memory;
-    five do not, and the depth is refused, not clamped, on every device."""
+    """Four stages (16 table rows and 35 rows of x over 16 columns) fit a
+    block's share of an SM's shared memory when three blocks share it
+    (76,800 bytes); five do not, and the depth is refused, not clamped, on
+    every device."""
     inputs, _ = tiles
-    assert et.stage_smem(et.parse_variant("base"), 4) == 4 * 36 * 384 * 4 + et.STATIC_SMEM
-    assert et.stage_smem(et.parse_variant("base"), 4) <= et.SMEM_PER_BLOCK
+    assert et.stage_smem(et.parse_variant("base"), 4) == 4 * (16 * 256 + 35 * 16) * 4 + \
+        et.STATIC_SMEM
+    assert et.stage_smem(et.parse_variant("base"), 4) <= et.SMEM_PER_BLOCK == 76_800
     for call in (et.attempt_tiles, et.attempt_tiles_plain):
         with pytest.raises(ValueError):
             call("base", *inputs, pipe=5)
         with pytest.raises(ValueError):
             call("base", *inputs, pipe=0)
-    assert et.stage_smem(et.parse_variant("base_nodma"), 9) == et.STATIC_SMEM
+    assert et.stage_smem(et.parse_variant("base_nodma"), 9) == 2 * et.STAGE_BYTES + et.STATIC_SMEM
     with pytest.raises(ValueError):
         et.main(["1", "base", "5"])

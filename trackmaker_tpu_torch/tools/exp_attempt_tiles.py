@@ -1,6 +1,5 @@
 """The attempt-tile experiment (counterpart of ``tools/exp_attempt_tiles.py``):
-skeletons of the attempt kernel's per-candidate products, timed one
-candidate loop per capture.
+skeletons of the attempt kernel's per-candidate products.
 
 ``attempt_tiles(variant, x, ts, tsc, tb, tbn, w, wn, pipe)`` launches
 ``csrc/attempt_tiles.cu`` on CUDA tensors and runs ``attempt_tiles_plain``
@@ -40,12 +39,21 @@ the sync into four chunks of 96 added in order; on the tool's tables
 (ternary, and 0/1 for w) every product is exact, so the kernel and the
 plain version agree bit for bit on any x.
 
+The kernel spreads the candidates over the card: a block of 128 threads
+takes GROUP consecutive candidates of one capture, stores each one's
+share of the accumulator, and the last block of a capture to finish adds
+them in candidate order (``csrc/attempt_tiles.cu``'s header).  Its ring
+holds `pipe` stages, each STAGE_COLS rows of the table and STAGE_ROWS
+body rows of x over the same STAGE_COLS columns, and fits when
+BLOCKS_PER_SM blocks share an SM; ``_nodma`` reads x from device memory
+and keeps NODMA_PIPE stages for the table whatever the depth.
+
     python -m trackmaker_tpu_torch.tools.exp_attempt_tiles [iters] [variants] [pipe]
 
 prints the card's name and power limit, then per variant the ms a call
 and the us a candidate (CUDA events, the least of 3 repeats of `iters`
 calls back to back).  The ring depth `pipe` defaults to ``TM_EXP_PIPE``
-or 4; a depth whose ring does not fit a block's shared memory raises.
+or 4; a depth whose ring does not fit a block's share of an SM raises.
 """
 
 from __future__ import annotations
@@ -69,13 +77,19 @@ TABLES, TROWS = 8, 768
 LANES = 128
 SYNC_LANES = 13
 SYNC_CHUNKS = 4             # the sync sums: four chunks of 96 terms, added in order
-STAGE_ROWS = 36             # rows a candidate reads
+SLAB_ROWS = 36              # rows a candidate reads
+STAGE_ROWS, STAGE_COLS = BROWS + 1, 16   # a stage's body rows of x, and its k
+NODMA_PIPE = 2              # _nodma's ring, for the table alone
+GROUP = 2                   # candidates a block (csrc/attempt_tiles.cu:kGroup)
 ITERS = 100
 PIPE = 4
 VARIANTS = ("noop", "base", "n128", "sync1", "both", "bf16b")
-SMEM_PER_BLOCK = 232_448    # shared memory a block may use on an H100
-STATIC_SMEM = 2_048         # the kernel's fixed scratch (csrc/attempt_tiles.cu:kStaticSmem)
-STAGE_BYTES = STAGE_ROWS * DROW * 4
+BLOCKS_PER_SM = 3           # the kernel's blocks an SM, each with its ring
+# an H100 SM's 233,472 bytes of shared memory shared by BLOCKS_PER_SM
+# blocks, less the 1,024 the system keeps for each
+SMEM_PER_BLOCK = 233_472 // BLOCKS_PER_SM - 1_024
+STATIC_SMEM = 1_024         # the kernel's fixed scratch (csrc/attempt_tiles.cu:kStaticSmem)
+STAGE_BYTES = (STAGE_COLS * 256 + STAGE_ROWS * STAGE_COLS) * 4
 # kernel kinds, as csrc/attempt_tiles.cu numbers them
 KINDS = {"base": 0, "n128": 1, "sync1": 2, "both": 3, "bf16b": 4, "noop": 5}
 
@@ -116,13 +130,14 @@ def parse_variant(variant: str) -> Variant:
 
 def stage_smem(spec: Variant, pipe: int) -> int:
     """Bytes of shared memory a block of the kernel uses at ring depth
-    `pipe`; raises ValueError where the ring does not fit."""
+    `pipe` (``_nodma``: NODMA_PIPE stages, whatever the depth); raises
+    ValueError where the ring does not fit."""
     if pipe < 1:
         raise ValueError(f"the ring depth must be positive, got {pipe}")
-    need = (pipe * STAGE_BYTES if spec.stage else 0) + STATIC_SMEM
+    need = (pipe if spec.stage else NODMA_PIPE) * STAGE_BYTES + STATIC_SMEM
     if need > SMEM_PER_BLOCK:
         raise ValueError(f"a ring of {pipe} stages of {STAGE_BYTES} B needs {need} B of shared "
-                         f"memory; a block may use {SMEM_PER_BLOCK}")
+                         f"memory; each of {BLOCKS_PER_SM} blocks an SM may use {SMEM_PER_BLOCK}")
     return need
 
 
@@ -272,7 +287,17 @@ def attempt_tiles_plain(variant: str, x: torch.Tensor, ts: torch.Tensor, tsc: to
     return out
 
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_counts: dict[torch.device, torch.Tensor] = {}
+
+
+def _arrival_counts(device: torch.device, b: int) -> torch.Tensor:
+    """int32[>= b] on `device`, zero: the kernel's arrival counter for each
+    capture, which every launch leaves zero again."""
+    counts = _counts.get(device)
+    if counts is None or counts.numel() < b:
+        counts = _counts[device] = torch.zeros(b, dtype=torch.int32, device=device)
+    return counts
 
 
 def attempt_tiles(variant: str, x: torch.Tensor, ts: torch.Tensor, tsc: torch.Tensor,
@@ -288,10 +313,13 @@ def attempt_tiles(variant: str, x: torch.Tensor, ts: torch.Tensor, tsc: torch.Te
     stage_smem(spec, pipe)
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned for the staging copies")
-    out = torch.zeros((x.shape[0], NV, BROWS, LANES), dtype=torch.float32, device=x.device)
+    b = x.shape[0]
+    out = torch.zeros((b, NV, BROWS, LANES), dtype=torch.float32, device=x.device)
+    part = torch.empty((b, NV, 2), dtype=torch.float32, device=x.device)
     fn = _build.entry("attempt_tiles", "tm_attempt_tiles", _ARGTYPES)
-    err = fn(*(a.data_ptr() for a in tensors), out.data_ptr(), x.shape[0], KINDS[spec.kind],
-             int(spec.stage), int(spec.store), spec.n_cand, pipe, _build.stream_ptr(x))
+    err = fn(*(a.data_ptr() for a in tensors), out.data_ptr(), part.data_ptr(),
+             _arrival_counts(x.device, b).data_ptr(), b, KINDS[spec.kind], int(spec.stage),
+             int(spec.store), spec.n_cand, pipe, _build.stream_ptr(x))
     _build.check(err, f"attempt_tiles {variant}")
     attempt_tiles.launches += 1
     return out

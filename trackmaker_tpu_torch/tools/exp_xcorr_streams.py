@@ -15,6 +15,12 @@ order); JAX's padded rows past T, all empty, are not kept.  With
 ``int(corr[128 r + k])`` (truncated), 0 past the last lag.  Patterns of 2
 to 129 samples, as the tool's two 128-lane chunks allow.
 
+The kernel runs kernel #1's register tile (``csrc/xcorr_tile.cuh``): the
+tile of 1,024 lags comes from the first stream and the 128 samples after
+it from the second, each by its own group of asynchronous copies, and the
+pattern goes to the kernel by value, TAPS floats (:func:`correlate.
+pack_taps`), so a call copies nothing to the card.
+
     python -m trackmaker_tpu_torch.tools.exp_xcorr_streams [iters]
 
 runs the tool's three timings at its shapes (32 captures of 433,464
@@ -49,6 +55,7 @@ ITERS = 100
 TILE = 8 * ROW_LAGS          # lags per block of the kernel
 SHIFT = ROW_LAGS             # the second stream's offset
 MIN_PATTERN, MAX_PATTERN = 2, ROW_LAGS + 1
+TAPS = 136                   # the kernel's taps by value: 129 rounded up to a step of 8
 NOEP_COLS = 16
 
 
@@ -110,10 +117,10 @@ def xcorr_hits_2s(x: torch.Tensor, pattern: np.ndarray, threshold: float,
         if tuple(s.shape) != (b, p_len) or s.dtype != torch.float32 or not s.is_contiguous():
             raise ValueError(f"each stream must be a contiguous f32[{b}, {p_len}]")
     n_rows = -(-t // ROW_LAGS)
-    p = torch.from_numpy(pattern).to(x.device)
+    taps = correlate.pack_taps(pattern, TAPS)
     rows = torch.empty((b, n_rows, ROW_COLS), dtype=torch.int32, device=x.device)
     fn = _build.entry("xcorr_streams", "tm_xcorr_hits_2s", _ARGTYPES)
-    err = fn(xp.data_ptr(), xs.data_ptr(), p_len, p.data_ptr(), b, t, l,
+    err = fn(xp.data_ptr(), xs.data_ptr(), p_len, taps.ctypes.data, b, t, l,
              correlate.preamble_energy(pattern), threshold, n_rows, int(epilogue),
              rows.data_ptr(), _build.stream_ptr(x))
     _build.check(err, "xcorr_hits_2s")
