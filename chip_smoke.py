@@ -85,6 +85,10 @@ Phases, each raising on failure (non-zero exit):
    1 to 4 on two captures; the streams at L in 2..129 and T in
    129..50,001 around their tile, halo and zero tail, with a hit at the
    last lag, against kernel #1's rows bit for bit and the plain version);
+   the probe and the offset add on the edge inputs of
+   tests/test_torch_probe_offset_design.py (the probe where x + c rounds,
+   near 2^24, at ties, inf, NaN and -0.0, bit for bit; the offset add's
+   forms on N(0, 1) inputs within their f32 error bound of float64);
 2. the main paths, each with its kernels' launch counts set to 0 just
    before it and read just after: the flagship and fourb5b_b32 through
    ``decode_capture_fast`` (32 noisy captures of 64 frames of 128-byte
@@ -153,10 +157,12 @@ Phases, each raising on failure (non-zero exit):
    each kernel of sliding_dot.cu, xcorr_norm.cu, xcorr_hits.cu and
    xcorr_streams.cu, which share the register tile of xcorr_tile.cuh, and
    of spec_walk.cu, attempt_manchester.cu, attempt_4b5b.cu, ask_walk.cu,
-   ask_fire.cu, ask_chain.cu and attempt_tiles.cu (cuobjdump); the device
-   time of the window probe, of the offset add's three forms, of the
-   attempt tiles' noop and of the two-stream kernel, each beside an empty
-   kernel at its grid; the record chain on the exact scan's row
+   ask_fire.cu, ask_chain.cu, attempt_tiles.cu, seq_probe.cu and
+   offset_add.cu (cuobjdump); the device time of the window probe, of
+   the offset add's three forms, of the attempt tiles' noop and of the
+   two-stream kernel, each beside an empty
+   kernel at its grid (the probe's and the offset add's also at their
+   first design's grid); the record chain on the exact scan's row
    (4,096 columns) and on its first 512 columns, each one launch, and two
    yardsticks that compute part of #10's and #9's functions
    (``torch.cummax`` of the chain rows, ``max_pool1d`` of the masked rows);
@@ -1304,7 +1310,8 @@ def check_tools(torch, hp, exs, pf, sd, xh, xn, cfg, x, vlens, corr_p, tool) -> 
     want = hp.seq_probe_plain(xk)
     require(torch.equal(got, want), "seq_probe differs from its plain version")
     errs = {"seq_probe": (got - want).abs().max().item(), "xcorr_hits_2s": 0.0}
-    log("phase 1: seq_probe == plain (32 blocks x 128 stores of x + c; every block x + 127)")
+    log("phase 1: seq_probe == plain (128 blocks x 64 threads, 128 float4 stores of x + c into "
+        "shared memory a thread, then x + 127 written once)")
     pre = preamble_waveform(cfg)
     xt, pat_t = tool
     for tag, xx, pattern, thr, cp in (
@@ -1468,6 +1475,13 @@ def tiles_bound(et, variant: str, inputs, bf16_rate: bool = True) -> tuple[float
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def probe_bound() -> tuple[float, str]:
+    """(least ms, what sets it) of the window probe: x f32[8, 128] read
+    once, the f32[256, 128] output written once, 128 adds an element.
+    Whatever implements it; the stores it stages on chip are not counted."""
+    return bound(8 * 128 * 4 + 256 * 128 * 4, 128 * 256 * 128)
+
+
 def offset_bound(form: str) -> tuple[float, str]:
     """(least ms, what sets it) of one offset-add form: the rows of x and
     the columns of t it reads, the output, and its multiply-adds."""
@@ -1612,6 +1626,40 @@ def check_tiles_streams_edges(torch, et, exs, xh, dev) -> None:
         "last lag)")
 
 
+def check_probe_offset_edges(torch, hp, eo, dev) -> None:
+    """The window probe and the offset add on the edge inputs of
+    tests/test_torch_probe_offset_design.py: the probe where x + c rounds
+    (near 2^24, ties at 3 * 2^23, inf, NaN, -0.0), bit for bit as its plain
+    version (NaN as NaN); the offset add's forms on N(0, 1) inputs, C also
+    at the lane shifts 0, 63 and 59, within 2 * 768 * 2^-24 * sum |x_j t_jk|
+    of a float64 product and epilogue."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import test_torch_probe_offset_design as edges
+
+    for kind in edges.PROBE_EDGES:
+        x = edges.probe_edge_input(kind, dev)
+        got = hp.seq_probe(x)
+        torch.cuda.synchronize()
+        try:
+            edges.assert_probe_equal(got.cpu().numpy(), hp.seq_probe_plain(x).cpu().numpy())
+        except AssertionError as exc:
+            raise AssertionError(f"seq_probe differs from plain on the {kind} input") from exc
+    worst = 0.0
+    for form, head in [(form, None) for form in eo.FORMS] + [
+            ("C", h) for h, _ in edges.SHIFT_HEADS.values()]:
+        x, t = edges.offset_random_input(7, head, dev)
+        got = eo.offset_add(form, x, t)
+        torch.cuda.synchronize()
+        err = np.abs(got.cpu().numpy().astype(np.float64) - edges.reference64(form, x, t))
+        bnd = edges.error_bound(form, x, t)
+        require(bool(np.all(err <= bnd)), f"offset_add {form} (head {head}) is off the float64 "
+                f"product by {err.max()}, past its bound")
+        worst = max(worst, float((err / bnd).max()))
+    log(f"phase 1: seq_probe == plain bit for bit on {', '.join(edges.PROBE_EDGES)} (NaN as "
+        f"NaN); offset_add A, B, C on N(0, 1) inputs (C also at lane shifts 0, 63, 59) within "
+        f"2 * 768 * 2^-24 * sum |x t| of float64, at most {worst:.4f} of it")
+
+
 def run_experiments(torch, et, eo) -> dict[str, int]:
     """Phase 2 for the experiments: both tools' main(), the attempt tiles'
     over its default variants (5 calls a repeat), with the launch counts
@@ -1660,6 +1708,7 @@ def main() -> None:
     from trackmaker_tpu_torch.tools import exp_attempt_tiles as et
     from trackmaker_tpu_torch.tools import exp_fire_chain as efc
     from trackmaker_tpu_torch.tools import exp_offset_add as eo
+    from trackmaker_tpu_torch.tools import exp_probe_offset as epo
     from trackmaker_tpu_torch.tools import exp_xcorr_streams as exs
     from trackmaker_tpu_torch.tools import health as hp
     from trackmaker_tpu_torch.tools import prof_fused as pf
@@ -1780,6 +1829,7 @@ def main() -> None:
     exp_errs, exp_in = check_experiments(torch, et, eo, dev)
     errs.update(exp_errs)
     check_tiles_streams_edges(torch, et, exs, xh, dev)
+    check_probe_offset_edges(torch, hp, eo, dev)
     del corr_p, corr_p4, cp, rows_b     # the dense corr: keep it out of phase 4's peak memory
 
     rng = np.random.default_rng(args.seed + 17)
@@ -2441,9 +2491,7 @@ def main() -> None:
     xk = torch.ones((8, 128), dtype=torch.float32, device=dev)
     ms["seq_probe"] = time_ms(torch, lambda: hp.seq_probe(xk))
     plain_ms["seq_probe"] = time_ms(torch, lambda: hp.seq_probe_plain(xk))
-    # 128 stores of the 128 KiB output and the input read once; an add per
-    # store
-    bounds["seq_probe"] = bound(128 * 256 * 128 * 4 + 8 * 128 * 4, 128 * 256 * 128)
+    bounds["seq_probe"] = probe_bound()
     ms["attempt_sum"] = time_ms(torch, lambda: sd.attempt_manchester(
         x, cand, n_valid, vlens, sync, sync_e))
     plain_ms["attempt_sum"] = time_ms(torch, lambda: sd.attempt_manchester_plain(
@@ -2457,25 +2505,29 @@ def main() -> None:
     # the grids of the attempt tiles (#13) and the two streams (#15)
     xo, to = exp_in["offset"]
     n_tiles_13 = -(-et.NV // et.GROUP)
+    # (what, call, kernel, its grid, the first design's grid or None)
     launch_calls = (
-        ("seq_probe (#12)", lambda: hp.seq_probe(xk), "seq_probe_kernel", (32, 1024)),
-        ("offset_add A (#14)", lambda: eo.offset_add("A", xo, to), "offset_add_a_kernel",
-         (32, 128)),
-        ("offset_add B (#14)", lambda: eo.offset_add("B", xo, to), "offset_add_b_kernel",
-         (1, 128)),
-        ("offset_add C (#14)", lambda: eo.offset_add("C", xo, to), "offset_add_c_kernel",
-         (32, 128)),
+        ("seq_probe (#12)", lambda: hp.seq_probe(xk), "seq_probe_kernel", epo.PROBE_GRID,
+         epo.PROBE_FIRST_GRID),
+        *((f"offset_add {form} (#14)", lambda form=form: eo.offset_add(form, xo, to),
+           f"offset_add_{form.lower()}_kernel", epo.OFFSET_GRIDS[form],
+           epo.OFFSET_FIRST_GRIDS[form]) for form in eo.FORMS),
         ("attempt_tiles noop (#13)", lambda: et.attempt_tiles("noop", *exp_in["tiles"]),
-         "attempt_tiles_kernel", (exp_in["tiles"][0].shape[0] * n_tiles_13, 128)),
+         "attempt_tiles_kernel", (exp_in["tiles"][0].shape[0] * n_tiles_13, 128), None),
         ("xcorr_hits_2s (#15)", lambda: exs.xcorr_hits_2s(xt, pat_t, exs.THR, streams=streams_t),
-         "xcorr_hits_2s_kernel", (xt.shape[0] * n_tiles_t, 128)))
-    for what, fn, kernel, (blocks, threads) in launch_calls:
+         "xcorr_hits_2s_kernel", (xt.shape[0] * n_tiles_t, 128), None))
+
+    def empty_ms(grid):
+        none = device_ms(torch, lambda g=grid[0], n=grid[1]: empty(g, n), "empty_kernel")
+        return "not measured" if none is None else f"{none[0]:.4f} ms"
+
+    for what, fn, kernel, grid, first in launch_calls:
         got = device_ms(torch, fn, kernel)
-        none = device_ms(torch, lambda g=blocks, n=threads: empty(g, n), "empty_kernel")
         log(f"phase 4: device time {what}: "
             + ("not measured" if got is None else f"{got[0]:.4f} ms")
-            + f"; an empty kernel at its grid ({blocks} x {threads}): "
-            + ("not measured" if none is None else f"{none[0]:.4f} ms") + f" [{card}]")
+            + f"; an empty kernel at its grid ({grid[0]} x {grid[1]}): {empty_ms(grid)}"
+            + ("" if first is None else f", at the first design's grid ({first[0]} x "
+               f"{first[1]}): {empty_ms(first)}") + f" [{card}]")
     stage_fns = pf.stages(cfg, x, vlens)
     stage_fns["xcorr+extract+attempt (fold on)"] = lambda xx: pf.attempt_sum(cfg, xx, vlens, True)
     for stage, fn in stage_fns.items():
@@ -2536,7 +2588,7 @@ def main() -> None:
     # profiler's sessions after one lose their last launches
     for src in ("sliding_dot", "xcorr_norm", "xcorr_hits", "spec_walk", "attempt_manchester",
                 "attempt_4b5b", "ask_walk", "ask_fire", "ask_chain", "attempt_tiles",
-                "xcorr_streams"):
+                "xcorr_streams", "seq_probe", "offset_add"):
         for fn_name, res in kernel_resources(_build, src).items():
             require(res["LOCAL"] == 0, f"{fn_name} in {src}.cu spills ({res})")
             log(f"phase 4: {src}.cu {fn_name}: {res['REG']} registers, {res['LOCAL']} bytes of "

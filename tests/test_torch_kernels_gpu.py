@@ -91,6 +91,15 @@ from test_torch_ask_walk_4b5b_design import (
     attempt_4b5b_call,
     fourb5b_edge_inputs,
 )
+from test_torch_probe_offset_design import (
+    PROBE_EDGES,
+    SHIFT_HEADS,
+    assert_probe_equal,
+    error_bound,
+    offset_random_input,
+    probe_edge_input,
+    reference64,
+)
 from test_torch_tiles_streams_design import (
     STREAM_LS,
     STREAM_THR,
@@ -1049,6 +1058,57 @@ def test_offset_add_kernel_matches_plain_and_oracles(cuda, head):
         assert eo.offset_add.launches == before + 1
         assert torch.equal(got, eo.offset_add_plain(form, x, t)), form
         assert eo.errors(form, got, x, t) == (0.0, 0.0), form
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", PROBE_EDGES)
+def test_seq_probe_kernel_on_the_edges(cuda, kind):
+    """Where x + c rounds (near 2^24, ties at 3 * 2^23, inf, NaN, -0.0):
+    bit for bit as the plain version, NaN as NaN; one launch a call."""
+    x = probe_edge_input(kind, cuda)
+    before = health.seq_probe.launches
+    got = health.seq_probe(x)
+    torch.cuda.synchronize()
+    assert health.seq_probe.launches == before + 1
+    assert_probe_equal(got.cpu().numpy(), health.seq_probe_plain(x).cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_seq_probe_refuses_a_misaligned_x(cuda):
+    x = torch.zeros(1025, device=cuda)[1:].view(8, 128)
+    before = health.seq_probe.launches
+    with pytest.raises(ValueError):
+        health.seq_probe(x)
+    assert health.seq_probe.launches == before
+
+
+OFFSET_RANDOM_CASES = [(form, None) for form in eo.FORMS] + [("C", h) for h in SHIFT_HEADS]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form, head", OFFSET_RANDOM_CASES,
+                         ids=[f"{f}-{h}" for f, h in OFFSET_RANDOM_CASES])
+def test_offset_add_kernel_on_random_input(cuda, form, head):
+    """N(0, 1) f32 inputs: within 2 * 768 * 2^-24 * sum |x_j t_jk| of a
+    float64 product and epilogue (the kernel sums its slices, then the
+    slices, in f32); C also at the lane shifts 0, 63 and 59."""
+    x, t = offset_random_input(7, None if head is None else SHIFT_HEADS[head][0], cuda)
+    before = eo.offset_add.launches
+    got = eo.offset_add(form, x, t)
+    torch.cuda.synchronize()
+    assert eo.offset_add.launches == before + 1
+    err = np.abs(got.cpu().numpy().astype(np.float64) - reference64(form, x, t))
+    assert np.all(err <= error_bound(form, x, t)), (form, head, float(err.max()))
+
+
+@pytest.mark.gpu
+def test_offset_add_refuses_a_misaligned_x(cuda):
+    x, t = eo.tool_input(cuda)
+    x = torch.zeros(x.numel() + 1, device=cuda)[1:].view(eo.X_SHAPE)
+    before = eo.offset_add.launches
+    with pytest.raises(ValueError):
+        eo.offset_add("A", x, t)
+    assert eo.offset_add.launches == before
 
 
 # --- the register-tiled hit kernel (lags that share samples) -------------------

@@ -581,4 +581,6 @@ def test_empty_grids_are_the_kernels():
     grids = dict((what, (blocks, threads)) for what, blocks, threads in ets.empty_grids())
     assert grids["#13 attempt_tiles"] == (32 * 33, 128)
     assert grids["#15 xcorr_hits_2s"] == (32 * 424, 128)
-    assert grids["#12 seq_probe"] == (32, 1024)
+    assert grids["#12 seq_probe"] == (128, 64)
+    assert grids["#14 offset_add A"] == grids["#14 offset_add C"] == (64, 256)
+    assert grids["#14 offset_add B"] == (16, 256)

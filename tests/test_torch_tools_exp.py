@@ -67,12 +67,16 @@ def _run_statements(path: Path, statements: list, ns: dict) -> dict:
 
 # --- kernel #14: the offset-add experiment -----------------------------------
 
-@pytest.fixture(scope="module")
-def offset_tool():
+def _load_offset_tool():
     spec = importlib.util.spec_from_file_location("exp_offset_add_tool", OFFSET_TOOL)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+@pytest.fixture(scope="module")
+def offset_tool():
+    return _load_offset_tool()
 
 
 def _pallas_form(tool, form: str, x: np.ndarray, t: np.ndarray) -> np.ndarray:

@@ -13,11 +13,14 @@ and t f32[384, 256] it returns out f32[32, 128]:
   ``L[i + 1, k + ql - 128]``, with L = o[:, 0:128].  The TPU kernel builds
   that shift as a (128, 256) one-hot product; here it is an index.
 
-Each kernel computes only the sums its form needs (A and C: 32 x 128 sums
-of 768 products, B: one row).  On the tool's inputs (``tool_input``:
-small integers and a 0/1 table) every sum is exact, so the kernels, the
-plain versions and the NumPy oracles ``oa``, ``ob`` and ``oc`` (the JAX
-tool's, copied) agree bit for bit.
+Each kernel computes only the sums its form needs (A: 32 x 128 sums of
+768 products, C of 384, B: one row of 768), each cut into 32 slices
+summed in ascending order and then added in ascending slice order (the
+header of ``csrc/offset_add.cu``); the plain version sums as
+``matmul_f32`` does.  On the tool's inputs (``tool_input``: small
+integers and a 0/1 table) every sum is exact in any order, so the
+kernels, the plain versions and the NumPy oracles ``oa``, ``ob`` and
+``oc`` (the JAX tool's, copied) agree bit for bit.
 
     python -m trackmaker_tpu_torch.tools.exp_offset_add
 
@@ -122,6 +125,8 @@ def offset_add(form: str, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     if not _build.on_cuda(x, t):
         return offset_add_plain(form, x, t)
     _check(form, x, t)
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned on the card (the kernels load it as float4)")
     out = torch.empty((OUT_ROWS, LANES), dtype=torch.float32, device=x.device)
     fn = _build.entry("offset_add", f"tm_offset_add_{form.lower()}", _ARGTYPES)
     _build.check(fn(x.data_ptr(), t.data_ptr(), out.data_ptr(), _build.stream_ptr(x)),

@@ -25,10 +25,10 @@ source, every anchor required, as in ``tools/exp_walk_attempt.py``):
   host before every launch;
 
 and ``empty``, an empty kernel at the grid of each kernel: #13's, #15's,
-the window probe's (#12, 32 blocks of 1,024 threads) and the offset add's
-(#14: A and C 32 blocks of 128, B one), beside the device time of #12
-and #14's forms at their tools' inputs.  The attempt tiles run the
-``base`` variant on the tool's corpus (32 captures), the streams the
+and the window probe's (#12) and the offset add's (#14), each at its grid
+and at its first design's (``tools/exp_probe_offset.py``), beside the
+device time of #12 and #14's forms at their tools' inputs.  The attempt
+tiles run the ``base`` variant on the tool's corpus (32 captures), the streams the
 tool's input (32 x 433,464, L = 96); each variant's outputs must equal
 the plain version's (the tiles) or kernel #1's rows (the streams) where
 it computes the function.  Then each one's device time (torch.profiler,
@@ -43,7 +43,6 @@ library for their turn only.  Needs a card.
 from __future__ import annotations
 
 import ctypes
-import statistics
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
@@ -52,9 +51,9 @@ import torch
 from trackmaker_tpu_torch import _build
 from trackmaker_tpu_torch.sync.xcorr_hits import xcorr_hits
 from trackmaker_tpu_torch.tools import exp_attempt_tiles as et
-from trackmaker_tpu_torch.tools import exp_offset_add as eo
+from trackmaker_tpu_torch.tools import exp_probe_offset as epo
 from trackmaker_tpu_torch.tools import exp_xcorr_streams as ex
-from trackmaker_tpu_torch.tools import health
+from trackmaker_tpu_torch.tools.exp_probe_offset import event_ms
 from trackmaker_tpu_torch.tools.exp_walk_attempt import (
     EMPTY_SOURCE, RUNS, build_source, device_ms, install, patched)
 from trackmaker_tpu_torch.tools.health import card_line
@@ -151,21 +150,6 @@ VARIANTS = {
 }
 
 
-def event_ms(fn, runs: int) -> float:
-    """Median CUDA-event milliseconds of a call of fn, after warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def calls_of(device) -> dict:
     """source -> (kernel call taking its keywords, check of its output) on
     the tool's inputs."""
@@ -184,26 +168,18 @@ def calls_of(device) -> dict:
 
 
 def empty_grids() -> tuple[tuple[str, int, int], ...]:
-    """(what, blocks, threads) of each kernel's grid on the tool's inputs."""
+    """(what, blocks, threads) of each kernel's grid on the tool's inputs,
+    and of #12's and #14's (``tools/exp_probe_offset.py``)."""
     n_rows = -(-ex.T // 128)
     n_tiles = -(-n_rows // 8)
     return (("#13 attempt_tiles", et.B * -(-et.NV // et.GROUP), 128),
-            ("#15 xcorr_hits_2s", ex.B * n_tiles, 128),
-            ("#12 seq_probe", 32, 1024),
-            ("#14 offset_add A and C", 32, 128),
-            ("#14 offset_add B", 1, 128))
+            ("#15 xcorr_hits_2s", ex.B * n_tiles, 128), *epo.empty_grids())
 
 
 def launch_calls(device) -> dict:
     """The kernels whose time is a launch, at their tools' inputs: name ->
     (call, kernel function)."""
-    xk = torch.ones((8, 128), dtype=torch.float32, device=device)
-    xo, to = eo.tool_input(device)
-    calls = {"#12 seq_probe": (lambda: health.seq_probe(xk), "seq_probe_kernel")}
-    for form in eo.FORMS:
-        calls[f"#14 offset_add {form}"] = (lambda form=form: eo.offset_add(form, xo, to),
-                                           f"offset_add_{form.lower()}_kernel")
-    return calls
+    return {what: (fn, kernel) for what, (_, fn, kernel, _) in epo.launch_calls(device).items()}
 
 
 def main(argv: list[str] | None = None) -> None:

@@ -5,11 +5,13 @@ code's state from the card's:
 
 * ``rtt_ms``: the median of 5 round trips of a one-element add read back
   with ``.item()``, the host's dispatch and synchronise floor;
-* ``noop_kernel_us``: the time of one launch of the probe kernel
-  ``csrc/seq_probe.cu`` (32 blocks, each a 128-step store loop), 400
-  launches back to back between two CUDA events, the median of 3 repeats:
-  the card's launch and loop floor, against which the port's tiny kernels
-  are read;
+* ``noop_kernel_us``: the time of one call of the probe kernel
+  ``csrc/seq_probe.cu`` (128 blocks of 64 threads, each thread a 128-step
+  loop of float4 stores into shared memory, then one store of its float4
+  of the output; the launch bounds it, then shared memory's store rate),
+  400 calls back to back between two CUDA events, the median of 3
+  repeats.  It holds the wrapper's host path, which takes longer than the
+  kernel on the card: the kernel's own time is read by torch.profiler;
 * ``stream_gbps``: the rate of ``x * 1.0000001 + 1e-12`` over 2^24 f32,
   200 calls between two events, the median of 3 repeats.  It counts the
   bytes the two eager passes really move, 16 a element (each pass reads
@@ -71,10 +73,14 @@ def seq_probe_plain(x: torch.Tensor) -> torch.Tensor:
 
 def seq_probe(x: torch.Tensor) -> torch.Tensor:
     """The probe kernel on x f32[8, 128]: out f32[256, 128], every (8, 128)
-    block of it x + 127, stored 128 times (x + 0, x + 1, ..., x + 127)."""
+    block of it x + 127, staged 128 times in shared memory (x + 0, x + 1,
+    ..., x + 127) and then written once.  The kernel loads x as float4: on
+    the card x must be 16-byte aligned."""
     if not _build.on_cuda(x):
         return seq_probe_plain(x)
     _check_probe(x)
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned on the card")
     out = torch.empty((PROBE_BLOCKS * PROBE_SHAPE[0], PROBE_SHAPE[1]), dtype=torch.float32,
                       device=x.device)
     fn = _build.entry("seq_probe", "tm_seq_probe", [ctypes.c_void_p] * 3)
