@@ -89,6 +89,14 @@ Phases, each raising on failure (non-zero exit):
    tests/test_torch_probe_offset_design.py (the probe where x + c rounds,
    near 2^24, at ties, inf, NaN and -0.0, bit for bit; the offset add's
    forms on N(0, 1) inputs within their f32 error bound of float64);
+   at the robustness paths' shapes, kernels #1, #3 and #4 against their
+   plain versions on every batch those paths decode: the clock search's
+   resampled batch (7 x 433,464, equal to the CPU's bit for bit), the
+   timing gate's retry batch (16 windows at max_frames=1) on both gate
+   captures, each sweep's batch, the decision-directed capture, its
+   preamble-trained equalization and its first refit FIR's output (and
+   #8's row stats on the capture); the candidate extraction of the timing
+   gate's dense hits and its drift estimates against the CPU's;
 2. the main paths, each with its kernels' launch counts set to 0 just
    before it and read just after: the flagship and fourb5b_b32 through
    ``decode_capture_fast`` (32 noisy captures of 64 frames of 128-byte
@@ -118,7 +126,26 @@ Phases, each raising on failure (non-zero exit):
    off and on each launching one correlation entry, one attempt and no
    walk, and the two-stream experiment's row check; then both
    experiments' ``main()`` (the attempt tiles' six default variants, 5
-   calls a repeat, and the three offset-add forms against their oracles);
+   calls a repeat, and the three offset-add forms against their
+   oracles); then the robustness paths (``dsp/timing.py``,
+   ``dsp/equalizer.py``, ``bench/ber.py``), each with #1, #3, #4 and #8's
+   counts set to 0 just before it: ``decode_with_clock_search`` on the flagship's 64 frames in
+   one capture of 433,464 samples skewed +1000 ppm (the ppm chosen within
+   500 of it, the frames in order with the payload digest of the JAX
+   package's search, SEARCH_DIGEST: 63 frames, since the grid's -1000 ppm
+   row is not the exact inverse of +1000 ppm and loses frame 60 there as
+   well); ``decode_with_timing_gate`` on 64 frames, six
+   at +-400 ppm, each skewed one followed by 6,600 samples of quiet (the
+   exact decode gives the 58 on-clock frames, the gate the six skewed
+   ones, fewer than 16 hits retried), and the same frames at the
+   flagship's 200-sample gaps (frames and starts equal to the port's CPU
+   run; a retry window spans the next frame, and the gate recovers none);
+   ``decode_capture_dd`` on a mid-burst capture of 64 frames (echo 0.6 at
+   delay 9, the head cut at 0.6 of a frame: the payload digest of the JAX
+   package's decode, DD_DIGEST, a strict superset of the stock exact
+   scan's); ``ber_sweep`` and ``clock_offset_sweep`` at their defaults and
+   20,000 ppm (no loss at 15 dB and at 0 ppm, more than half at 20,000
+   ppm);
 3. the fallbacks: a Manchester capture that overflows the candidate table,
    a 4B5B capture with a zeroed level inside an attempted frame, and an
    ASK capture of 150 back-to-back chirps before three frames (more fire
@@ -170,13 +197,20 @@ Phases, each raising on failure (non-zero exit):
    variant of phase 1 (CUDA events and device time) and every offset-add
    form against its plain version and its bound (bf16b's also at the f32
    rate), beside torch.bmm of the body products and torch.matmul with the
-   sliced add; each printed beside the card's name and power limit.
+   sliced add; the robustness paths end to end (the clock search median
+   of 30 and its real-time multiple, the timing gate of 10 on each of
+   its two captures, the
+   decision-directed decode of 5, each sweep of 3) and their steps (the
+   grid's resample and batch decode; the gate's decode and dense
+   correlation; the decision-directed bootstraps, one host refit and one
+   refit decode, median of 5 each); each printed beside the card's name
+   and power limit.
 
 The line before the last is a JSON object with the kernels' measurements:
 ``launches`` counts each kernel's launches in the main-path runs of
-phase 2 (the line-coded paths, the blocked runs and the profiler path; the
-probe's in phase 0's health run; the batch-folded hit rows are on no path
-and count 0),
+phase 2 (the line-coded paths, the blocked runs, the profiler path and
+the robustness paths; the probe's in phase 0's health run; the
+batch-folded hit rows are on no path and count 0),
 ``ms`` and ``plain_ms`` time it at the shapes of its first path, and
 ``bound_ms`` is the least time the card could take for that work (bytes
 over 3.35 TB/s or operations over 67 TFLOP/s, the attempt tiles' bf16
@@ -222,6 +256,34 @@ BLOCKED_PAYLOAD = 64
 BLOCKED_MFPB = 8            # max_frames_per_block
 SEAM_SECONDS = 60           # the 4B5B seam capture: a frame across every seam
 SEAM_BLOCKS = 8
+# the decision-directed corpus: DD_FRAMES frames of PAYLOAD random bytes
+# back to back through an echo of 0.6 at delay 9, noise sigma 0.02, the
+# head cut at 0.6 of a frame (tests/test_equalizer.py's mid-burst corpus
+# at the flagship's payloads); DD_DIGEST is the payload digest of the JAX
+# package's decode_capture_dd on it (tests/test_torch_equalizer_dd.py)
+DD_FRAMES = 64
+DD_SEED = 0
+DD_ECHO = (9, 0.6)
+DD_NOISE = 0.02
+DD_CUT = 0.6
+DD_DIGEST = "34feb2ef1e9a7864"
+# the clock search's capture: the flagship's frames (seed SEARCH_SEED) with
+# GAP samples between them, 433,464 samples without noise, skewed by
+# SEARCH_PPM; SEARCH_DIGEST is the payload digest of the JAX package's
+# decode_with_clock_search on it (tests/test_torch_channel_timing.py)
+SEARCH_SEED = 0
+SEARCH_PPM = 1000.0
+SEARCH_DIGEST = "03bcea581fef4402"
+# the timing gate's capture: the flagship's frames, each followed by GAP
+# samples of silence, six of them skewed (frame index: ppm) and followed by
+# GATE_QUIET samples (a retry window spans 12,768 samples, and a frame
+# inside it beyond the skewed one spoils its drift estimate), noise sigma
+# 0.02 from NumPy
+GATE_SKEWS = {5: 400.0, 16: -400.0, 27: 400.0, 38: -400.0, 49: 400.0, 60: -400.0}
+GATE_QUIET = 6_600
+GATE_SEED = 5
+GATE_NOISE = 0.02
+SWEEP_PPMS = (0, 50, 100, 200, 500, 1000, 2000, 5000, 20000)   # the defaults and 2%
 SWEEP_B, SWEEP_T = 3, 50_001  # the tap sweep's captures: T not a multiple of a block's lags
 # the raw sliding dot's sweep: every remainder of an 8-tap step near 8, 16
 # and 128, the dense dots' 30, the chirp's 440 and the kernel's last 512
@@ -343,6 +405,68 @@ def eq_captures(torch, cfg, seed: int, dev):
     gen = torch.Generator(device=dev).manual_seed(seed)
     noise = torch.randn((BATCH, ech.shape[0]), generator=gen, device=dev) * EQ_NOISE
     return frames, (ech[None] + noise).contiguous()
+
+
+def dd_capture(torch, cfg, dev):
+    """(the decision-directed corpus f32[T] on `dev`, the payloads sent):
+    encoded on the host, the echo added in float64 and the noise drawn by
+    NumPy, so that every machine builds the same samples."""
+    from trackmaker_tpu_torch.core.framing import Frame
+    from trackmaker_tpu_torch.phy.encoder import PhyEncoder
+
+    rng = np.random.default_rng(DD_SEED)
+    frames = [Frame.new_data(i & 0xFF, 1, 2, rng.integers(0, 256, PAYLOAD, dtype=np.uint8).tobytes())
+              for i in range(DD_FRAMES)]
+    wave = PhyEncoder(cfg, device="cpu").encode_frames(frames, gap_samples=0).numpy()
+    wave = np.concatenate([wave, np.zeros(600, np.float32)])
+    delay, amp = DD_ECHO
+    ech = wave.astype(np.float64)
+    ech[delay:] += amp * wave[:-delay].astype(np.float64)
+    ech = (ech + rng.normal(0, DD_NOISE, len(ech))).astype(np.float32)
+    cut = int((cfg.preamble_len + cfg.frame_samples(PAYLOAD)) * DD_CUT)
+    return torch.from_numpy(ech[cut:]).to(dev), [f.data for f in frames]
+
+
+def search_capture(torch, cfg, dev):
+    """(the clock search's capture f32[T] on `dev`, its frames)."""
+    from trackmaker_tpu_torch.dsp import channel
+    from trackmaker_tpu_torch.phy.encoder import PhyEncoder
+
+    frames = bench_frames(np.random.default_rng(SEARCH_SEED))
+    wave = PhyEncoder(cfg, device=dev).encode_frames(frames, gap_samples=GAP)
+    return channel.clock_offset(wave, SEARCH_PPM), frames
+
+
+def gate_capture(torch, cfg, dev, quiet: int = GATE_QUIET):
+    """(the timing gate's capture f32[T] on `dev`, its frames): built on the
+    host, each frame of GATE_SKEWS resampled at its ppm by the port's
+    ``clock_offset`` (bit for bit the JAX package's) and followed by `quiet`
+    samples of silence, the others by GAP, the noise from NumPy."""
+    from trackmaker_tpu_torch.dsp import channel
+    from trackmaker_tpu_torch.phy.encoder import PhyEncoder
+
+    rng = np.random.default_rng(GATE_SEED)
+    frames = bench_frames(rng)
+    enc = PhyEncoder(cfg, device="cpu")
+    parts = []
+    for i, f in enumerate(frames):
+        w = enc.encode_frame(f)
+        if i in GATE_SKEWS:
+            w = channel.clock_offset(w, GATE_SKEWS[i])
+        parts += [w.numpy(), np.zeros(quiet if i in GATE_SKEWS else GAP, np.float32)]
+    wave = np.concatenate(parts)
+    x = (wave + rng.normal(0, GATE_NOISE, len(wave))).astype(np.float32)
+    return torch.from_numpy(x).to(dev), frames
+
+
+def payload_digest(payloads) -> str:
+    """A short SHA-256 of a set of payloads, sorted, each after its length."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in sorted(payloads):
+        h.update(len(p).to_bytes(2, "big") + p)
+    return h.hexdigest()[:16]
 
 
 def frame_list(res, row: int | None = None):
@@ -841,6 +965,238 @@ def check_fallback(torch, decode_capture_fast, decode_captures, sd, cfg, small, 
             f"{tag} fallback frames {merged.count.tolist()}, expected {want_frames}")
     log(f"phase 3 ({tag}): fallback row ({what}) re-decoded by the exact scan on the card; "
         f"merged batch equals it ({merged.count.tolist()} frames)")
+
+
+def payloads_in_order(res) -> tuple[list[bytes], list[int], list[int]]:
+    """(payloads, sequence numbers, starts) of a one-capture decode's valid
+    slots, in slot order."""
+    valid = res.valid.cpu().numpy()
+    fb, ln = res.frame_bytes.cpu().numpy(), res.length.cpu().numpy()
+    seq, start = res.sequence.cpu().numpy(), res.start.cpu().numpy()
+    ks = np.nonzero(valid)[0]
+    return ([fb[k, 7:7 + int(ln[k])].tobytes() for k in ks], [int(seq[k]) for k in ks],
+            [int(start[k]) for k in ks])
+
+
+def check_path_batch(torch, sd, xcorr_hits, xcorr_hits_plain, cfg, y, max_frames: int,
+                     tag: str) -> float:
+    """Kernels #1, #3 and #4 on one batch y f32[B, T] that a robustness path
+    decodes, against their plain versions: the hit rows as check_xcorr
+    holds them, the attempts and the walk (at `max_frames`, the path's own)
+    equal.  Returns #1's max |err|."""
+    from trackmaker_tpu_torch.phy.line_coding import preamble_waveform
+    from trackmaker_tpu_torch.sync.correlate import preamble_energy
+
+    pre = preamble_waveform(cfg)
+    sync = pre[cfg.preamble_len - cfg.sync_len:]
+    err, rows, _ = check_xcorr(torch, xcorr_hits, xcorr_hits_plain, y, pre,
+                               cfg.correlation_threshold, tag)
+    cand, _, n_valid, _ = sd.compact_hit_rows(rows, N_CAND)
+    vlens = torch.full((y.shape[0],), y.shape[1], dtype=torch.int32, device=y.device)
+    got = sd.attempt_manchester(y, cand, n_valid, vlens, sync, preamble_energy(sync))
+    torch.cuda.synchronize()
+    want = sd.attempt_manchester_plain(y, cand, n_valid, vlens, sync, preamble_energy(sync))
+    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+            f"attempt_manchester differs on the {tag}")
+    a = sd.spec_phase_a(cfg, y, LOCAL_ADDR, N_CAND, vlens)
+    zeros = torch.zeros_like(vlens)
+    no_limit = torch.full_like(vlens, 2**30)
+    walk = sd.spec_walk(a.fields, zeros, no_limit, max_frames)
+    torch.cuda.synchronize()
+    walk_p = sd.spec_walk_plain(a.fields, zeros, no_limit, max_frames)
+    require(all(torch.equal(g, w) for g, w in zip(walk, walk_p)),
+            f"spec_walk differs on the {tag}")
+    log(f"phase 1: the {tag} ({y.shape[0]} x {y.shape[1]}): attempt_manchester and spec_walk "
+        f"(max_frames={max_frames}) == plain ({int(n_valid.sum())} candidates, "
+        f"{int(walk.keep.sum())} frames kept)")
+    return err
+
+
+def check_robustness_kernels(torch, sd, xn, channel, timing, equalizer, ber, xcorr_hits,
+                             xcorr_hits_plain, cfg, robust_in, dev) -> dict[str, float]:
+    """Phase 1 at the shapes of the robustness paths, each batch as its path
+    decodes it (check_path_batch): the clock search's resampled batch
+    (len(PPM_GRID) x 433,464, equal to the CPU's bit for bit); the timing
+    gate's retry batch (16 windows at max_frames=1, the padded slots'
+    windows clamped at the capture's end) on both gate captures; each
+    sweep's batch; the decision-directed capture, its preamble-trained
+    equalization and its first refit FIR's output (the capture's row stats,
+    #8, too).  The gate's dense hits are extracted on the card as on the
+    CPU, and its drift estimate on the skewed frames' windows lies within
+    0.01 ppm of the CPU's.  Returns the max |err| per kernel."""
+    import inspect
+
+    from trackmaker_tpu_torch.phy.decoder import decode_capture, decode_capture_fast
+    from trackmaker_tpu_torch.phy.line_coding import preamble_waveform
+    from trackmaker_tpu_torch.sync import auto_xcorr
+
+    (xs, _), (xg, _), (xd, _), (xgg, _) = robust_in
+    pre = preamble_waveform(cfg)
+    errs = {"xcorr_hits": 0.0, "attempt_manchester": 0, "spec_walk": 0}
+
+    def batch(y, max_frames: int, tag: str) -> None:
+        err = check_path_batch(torch, sd, xcorr_hits, xcorr_hits_plain, cfg, y, max_frames, tag)
+        errs["xcorr_hits"] = max(errs["xcorr_hits"], err)
+
+    grid = torch.tensor(timing.PPM_GRID, device=dev)[:, None]
+    y = channel.clock_offset(xs, -grid)
+    require(torch.equal(y.cpu(), channel.clock_offset(xs.cpu(), -grid.cpu())),
+            "clock_offset on the card differs from the CPU's")
+    batch(y, MAX_FRAMES, "clock search batch")
+    for layout, x in (("quiet", xg), ("flagship gaps", xgg)):
+        res = decode_capture_fast(cfg, x, LOCAL_ADDR, max_frames=MAX_FRAMES)
+        _, n_real, retry = timing._retry_batch(cfg, x, res, 16, 8)
+        batch(retry, 1, f"timing gate retry batch, {layout} corpus ({n_real} real windows)")
+    for sweep, make in (("ber_sweep", ber._ber_batch), ("clock_offset_sweep", ber._clock_batch)):
+        kw = {k: p.default for k, p in inspect.signature(getattr(ber, sweep)).parameters.items()
+              if k not in ("cfg", "device")}
+        if sweep == "clock_offset_sweep":
+            kw["ppms"] = SWEEP_PPMS
+        _, noisy = make(cfg, device=dev, **kw)
+        batch(noisy, kw["n_frames"] + 8, f"{sweep} batch")
+    errs["xcorr_rowstats"] = check_rowstats(torch, xn, xcorr_hits, xd[None], pre,
+                                            "decode_dd capture")
+    batch(xd[None], DD_FRAMES + 8, "decode_dd capture")
+    eq, _ = equalizer.equalize_capture(cfg, xd)
+    batch(eq[None], DD_FRAMES + 8, "decode_dd preamble-trained equalization")
+    boot = equalizer.decode_capture_eq(cfg, xd, LOCAL_ADDR, max_frames=DD_FRAMES + 8)
+    stock = decode_capture(cfg, xd, LOCAL_ADDR, DD_FRAMES + 8)
+    boot = stock if int(stock.count) > int(boot.count) else boot
+    h, lam = equalizer.refit_channel(cfg, xd.cpu().numpy(), boot.to_frames(),
+                                     boot.start.cpu().numpy()[boot.valid.cpu().numpy()])
+    g = torch.from_numpy(equalizer._mmse_taps_np(h, lam)).to(dev)
+    batch(equalizer._apply_fir(xd[None], g[None]), DD_FRAMES + 8, "decode_dd first refit FIR")
+
+    hits = (auto_xcorr(xg, pre) >= cfg.correlation_threshold)[None]
+    for n_cand in (16, 128):
+        got = sd.extract_candidates(hits, n_cand)
+        want = sd.extract_candidates(hits.cpu(), n_cand)
+        require(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+                f"extract_candidates on the card differs from the CPU's ({n_cand})")
+    starts = torch.nonzero(hits[0]).flatten()
+    max_window = cfg.samples_for_bits((7 + cfg.max_frame_bytes) * 8)
+    wins = torch.nn.functional.pad(xg, (0, max_window))[
+        starts[:, None] + cfg.preamble_len + torch.arange(max_window, device=dev)]
+    n_levels = max_window // cfg.samples_per_level
+    est, _ = timing.estimate_frame_ppm(cfg, wins, n_levels)
+    est_p, _ = timing.estimate_frame_ppm(cfg, wins.cpu(), n_levels)
+    ppm_err = (est.cpu() - est_p).abs().max().item()
+    require(ppm_err <= 0.01, f"estimate_frame_ppm on the card differs by {ppm_err} ppm")
+    log(f"phase 1: the clock search batch equals the CPU's resample bit for bit; "
+        f"extract_candidates on the card == the CPU's on the timing gate capture's "
+        f"{int(hits.sum())} hits; estimate_frame_ppm on its {len(starts)} hit windows within "
+        f"{ppm_err:.3g} ppm of the CPU's")
+    return errs
+
+
+def count_launches(torch, kernels, fn):
+    """(fn(), launches of each kernel in `kernels` during it, wall seconds),
+    the counts set to 0 just before."""
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k.__name__: k.launches for k in kernels}, time.perf_counter() - t0
+
+
+def run_robustness_paths(torch, timing, equalizer, ber, decode_capture, cfg, kernels,
+                         inputs) -> dict[str, dict[str, int]]:
+    """Phase 2's robustness paths, each with its gates: the clock search,
+    the timing gate, the decision-directed decode and the two sweeps.
+    Returns each path's launches of `kernels` (#1, #3, #4, #8)."""
+    from trackmaker_tpu_torch.phy.line_coding import preamble_waveform
+    from trackmaker_tpu_torch.sync import auto_xcorr
+
+    (xs, frames_s), (xg, frames_g), (xd, pays_d), (xgg, _) = inputs
+    need = {"search": ("xcorr_hits", "attempt_manchester", "spec_walk"),
+            "timing_gate": ("xcorr_hits", "attempt_manchester", "spec_walk"),
+            "timing_gate_gaps": ("xcorr_hits", "attempt_manchester", "spec_walk"),
+            "decode_dd": ("xcorr_hits", "attempt_manchester", "spec_walk", "xcorr_rowstats"),
+            "sweeps": ("xcorr_hits", "attempt_manchester", "spec_walk")}
+    out = {}
+
+    (res, ppm), out["search"], wall = count_launches(torch, kernels, lambda: (
+        timing.decode_with_clock_search(cfg, xs, LOCAL_ADDR, max_frames=MAX_FRAMES)))
+    pays, seqs, starts = payloads_in_order(res)
+    require(abs(ppm - SEARCH_PPM) <= 500, f"the clock search chose {ppm} ppm")
+    require(payload_digest(pays) == SEARCH_DIGEST,
+            f"clock search payload digest {payload_digest(pays)}, the JAX package's {SEARCH_DIGEST}")
+    require(seqs == sorted(set(seqs)) and starts == sorted(starts)
+            and all(p == frames_s[q].data for p, q in zip(pays, seqs)),
+            "the clock search's frames are out of order or wrong")
+    log(f"phase 2 (clock_search): decode_with_clock_search of one {xs.shape[0]}-sample capture "
+        f"skewed {SEARCH_PPM:+.0f} ppm took {wall * 1e3:.1f} ms (first call), kernel launches "
+        f"{out['search']}; chose {ppm:+.0f} ppm; {len(pays)} of {len(frames_s)} frames in order "
+        f"(frames lost: {sorted(set(range(len(frames_s))) - set(seqs))}), payload digest "
+        f"{SEARCH_DIGEST} = the JAX package's")
+
+    (exact, rec), out["timing_gate"], wall = count_launches(torch, kernels, lambda: (
+        timing.decode_with_timing_gate(cfg, xg, LOCAL_ADDR, max_frames=MAX_FRAMES)))
+    got_exact, _, starts_e = payloads_in_order(exact)
+    got_rec = payloads_in_order(rec)[0]
+    skewed = sorted(frames_g[i].data for i in GATE_SKEWS)
+    on_clock = sorted(f.data for i, f in enumerate(frames_g) if i not in GATE_SKEWS)
+    require(sorted(got_exact) == on_clock, "the timing gate's exact decode found "
+            f"{len(got_exact)} frames, not the {len(on_clock)} on-clock ones")
+    require(sorted(got_rec) == skewed, f"the timing gate recovered {len(got_rec)} frames, "
+            f"not the {len(skewed)} skewed ones")
+    require(sorted(got_exact + got_rec) == sorted(f.data for f in frames_g),
+            "exact and recovered do not give every frame once")
+    corr = auto_xcorr(xg, preamble_waveform(cfg))
+    lens = exact.length[exact.valid].tolist()
+    hit_pos = torch.nonzero(corr >= cfg.correlation_threshold).flatten().tolist()
+    left = [h for h in hit_pos if not any(
+        s <= h < s + cfg.preamble_len + cfg.frame_samples(n) for s, n in zip(starts_e, lens))]
+    require(len(left) < 16, f"the timing gate needs {len(left)} retries, its table holds 16")
+    log(f"phase 2 (timing_gate): decode_with_timing_gate of one {xg.shape[0]}-sample capture "
+        f"took {wall * 1e3:.1f} ms (first call), kernel launches {out['timing_gate']}; exact "
+        f"{len(got_exact)} frames (every on-clock one), {len(left)} hits retried, recovered "
+        f"{len(got_rec)} (every skewed one: {sorted(GATE_SKEWS.values())} ppm; each followed "
+        f"by {GATE_QUIET} samples of quiet)")
+
+    (exact, rec), out["timing_gate_gaps"], wall = count_launches(torch, kernels, lambda: (
+        timing.decode_with_timing_gate(cfg, xgg, LOCAL_ADDR, max_frames=MAX_FRAMES)))
+    exact_c, rec_c = timing.decode_with_timing_gate(cfg, xgg.cpu(), LOCAL_ADDR,
+                                                    max_frames=MAX_FRAMES)
+    require(frame_list(exact) == frame_list(exact_c) and frame_list(rec) == frame_list(rec_c),
+            "the timing gate on the flagship-gap capture differs from the port's CPU run")
+    log(f"phase 2 (timing_gate, flagship gaps): decode_with_timing_gate of the same frames "
+        f"with {GAP}-sample gaps after the skewed ones too ({xgg.shape[0]} samples) took "
+        f"{wall * 1e3:.1f} ms (first call), kernel launches {out['timing_gate_gaps']}; exact "
+        f"{len(frame_list(exact))} frames, recovered {len(frame_list(rec))} (a retry window "
+        f"spans the next frame), frames and starts equal to the port's CPU run (which "
+        f"tests/test_torch_channel_timing.py holds to the JAX package's)")
+
+    res, out["decode_dd"], wall = count_launches(torch, kernels, lambda: (
+        equalizer.decode_capture_dd(cfg, xd, LOCAL_ADDR, max_frames=DD_FRAMES + 8)))
+    pays = payloads_in_order(res)[0]
+    stock = payloads_in_order(decode_capture(cfg, xd, LOCAL_ADDR, DD_FRAMES + 8))[0]
+    require(payload_digest(pays) == DD_DIGEST,
+            f"decode_capture_dd payload digest {payload_digest(pays)}, the JAX package's {DD_DIGEST}")
+    require(set(stock) < set(pays) and set(pays) <= set(pays_d),
+            "decode_capture_dd's payloads are not a strict superset of the stock decode's")
+    log(f"phase 2 (decode_dd): decode_capture_dd of one {xd.shape[0]}-sample mid-burst capture "
+        f"took {wall * 1e3:.1f} ms (first call), kernel launches {out['decode_dd']}; "
+        f"{len(pays)} of {DD_FRAMES} frames (the stock exact scan {len(stock)}), payload digest "
+        f"{DD_DIGEST} = the JAX package's")
+
+    (rows_b, rows_c), out["sweeps"], wall = count_launches(torch, kernels, lambda: (
+        ber.ber_sweep(cfg), ber.clock_offset_sweep(cfg, ppms=SWEEP_PPMS)))
+    require(rows_b[-1]["frame_loss_pct"] == 0.0, f"ber_sweep loses frames at the top SNR: {rows_b[-1]}")
+    require(rows_c[0]["frame_loss_pct"] == 0.0, f"clock_offset_sweep loses frames at 0 ppm: {rows_c[0]}")
+    require(rows_c[-1]["clock_ppm"] == 20000 and rows_c[-1]["frame_loss_pct"] > 50.0,
+            f"clock_offset_sweep at 20,000 ppm: {rows_c[-1]}")
+    log(f"phase 2 (sweeps): ber_sweep and clock_offset_sweep took {wall * 1e3:.1f} ms (first "
+        f"call), kernel launches {out['sweeps']}; frame loss % by SNR "
+        + ", ".join(f"{r['snr_db']:g} dB {r['frame_loss_pct']:g}" for r in rows_b)
+        + "; by clock offset " + ", ".join(f"{r['clock_ppm']:g} ppm {r['frame_loss_pct']:g}"
+                                           for r in rows_c))
+    for path, names in need.items():
+        for k_name in names:
+            require(out[path][k_name] > 0, f"the {path} path never launched {k_name}")
+    return out
 
 
 def ask_captures(torch, ask, cfg, dev):
@@ -1691,8 +2047,9 @@ def main() -> None:
         from trackmaker_tpu_torch import PhyConfig, _build
     except ImportError as exc:
         raise SystemExit(f"chip_smoke.py must run from a checkout of the repository: {exc}")
+    from trackmaker_tpu_torch.bench import ber
     from trackmaker_tpu_torch.core.framing import Frame
-    from trackmaker_tpu_torch.dsp import equalizer
+    from trackmaker_tpu_torch.dsp import channel, equalizer, timing
     from trackmaker_tpu_torch.parallel import stream
     from trackmaker_tpu_torch.phy import ask, ask_spec
     from trackmaker_tpu_torch.phy import spec_decode as sd
@@ -1750,11 +2107,16 @@ def main() -> None:
     frames_a, xa = ask_captures(torch, ask, acfg, dev)
     frames_b, starts_b, xb = blocked_input(torch, cfg, args.seed + 3, dev)
     frames_s, starts_s, xs = seam_input(torch, stream, cfg4, args.seed + 4, dev)
+    robust_in = (search_capture(torch, cfg, dev), gate_capture(torch, cfg, dev),
+                 dd_capture(torch, cfg, dev), gate_capture(torch, cfg, dev, quiet=GAP))
     log(f"flagship input: {b} x {t} samples; fourb5b_b32 input: {b} x {t4} samples; "
         f"equalized_b32 input: {b} x {xe.shape[1]} samples; {N_FRAMES} frames per capture; "
         f"ask_b16 input: {xa.shape[0]} x {xa.shape[1]} samples, {ASK_FRAMES} frames per capture; "
         f"blocked_600s input: {xb.shape[0]} samples, {len(frames_b)} frames; 4B5B seam input: "
-        f"{xs.shape[0]} samples, {len(frames_s)} frames")
+        f"{xs.shape[0]} samples, {len(frames_s)} frames; clock search input: "
+        f"{robust_in[0][0].shape[0]} samples; timing gate inputs: {robust_in[1][0].shape[0]} "
+        f"samples (quiet after the skewed frames) and {robust_in[3][0].shape[0]} (flagship "
+        f"gaps); decision-directed input: {robust_in[2][0].shape[0]} samples")
     pre, pre4 = preamble_waveform(cfg), preamble_waveform(cfg4)
     sync = pre[cfg.preamble_len - cfg.sync_len:]
     sync4 = pre4[cfg4.preamble_len - cfg4.sync_len:]
@@ -1875,6 +2237,10 @@ def main() -> None:
                                  check_rowstats(torch, xn, xcorr_hits, x4, pre4, "fourb5b_b32"),
                                  check_rowstats(torch, xn, xcorr_hits, xa, chirp, "ask_b16"))
     errs["normalized_xcorr"] = check_dense(torch, xn, xcorr_hits, xa, chirp, xe, pre)
+    for k_name, v in check_robustness_kernels(torch, sd, xn, channel, timing, equalizer, ber,
+                                              xcorr_hits, xcorr_hits_plain, cfg, robust_in,
+                                              dev).items():
+        errs[k_name] = max(errs.get(k_name, 0), v)
 
     # --- phase 2: the main paths -----------------------------------------------
     xh.xcorr_hits_batched.launches = 0     # no path runs it: it must stay 0
@@ -1981,6 +2347,12 @@ def main() -> None:
     launches["attempt_sum"] = prof["attempt_manchester"] + prof["attempt_manchester_fold"]
     launches["seq_probe"] = probe_launches
     launches.update(run_experiments(torch, et, eo))
+    robust = run_robustness_paths(torch, timing, equalizer, ber, decode_capture, cfg,
+                                  (xcorr_hits, sd.attempt_manchester, sd.spec_walk,
+                                   xn.xcorr_rowstats), robust_in)
+    for got in robust.values():
+        for k_name, n in got.items():
+            launches[k_name] = launches.get(k_name, 0) + n
 
     # --- phase 3: the fallbacks ----------------------------------------------
     enc = PhyEncoder(cfg, device=dev)
@@ -2584,6 +2956,56 @@ def main() -> None:
     library_ms["offset_add"] = time_ms(torch, matmul_add)
     log(f"phase 4: offset_add A yardstick: torch.matmul + the sliced add (two calls, TF32 off) "
         f"{library_ms['offset_add']:.4f} ms [{card}]")
+    # the robustness paths end to end, one capture each, and the sweeps
+    (xs_r, _), (xg_r, _), (xd_r, _), (xgg_r, _) = robust_in
+    robust_calls = {
+        "decode_with_clock_search": (lambda: timing.decode_with_clock_search(
+            cfg, xs_r, LOCAL_ADDR, max_frames=MAX_FRAMES), xs_r.shape[0], RUNS),
+        "decode_with_timing_gate (quiet-padded corpus)": (lambda: timing.decode_with_timing_gate(
+            cfg, xg_r, LOCAL_ADDR, max_frames=MAX_FRAMES), xg_r.shape[0], 10),
+        "decode_with_timing_gate (flagship gaps)": (lambda: timing.decode_with_timing_gate(
+            cfg, xgg_r, LOCAL_ADDR, max_frames=MAX_FRAMES), xgg_r.shape[0], 10),
+        "decode_capture_dd": (lambda: equalizer.decode_capture_dd(
+            cfg, xd_r, LOCAL_ADDR, max_frames=DD_FRAMES + 8), xd_r.shape[0], 5),
+        "ber_sweep": (lambda: ber.ber_sweep(cfg), None, 3),
+        "clock_offset_sweep": (lambda: ber.clock_offset_sweep(cfg, ppms=SWEEP_PPMS), None, 3),
+    }
+    for what, (fn, n_samples, runs) in robust_calls.items():
+        med = time_ms(torch, fn, runs=runs)
+        rt = "" if n_samples is None else (
+            f", {n_samples / cfg.sample_rate / (med / 1e3):.1f}x real time of its capture")
+        log(f"phase 4: {what}: {med:.4f} ms (median of {runs}){rt} [{card}]")
+    # their steps: the search's resample and batch decode; the gate's exact
+    # decode and dense correlation (the rest is its retry batch and host
+    # work); the decision-directed decode's bootstraps, one host refit on
+    # its final frames and one refit decode
+    grid_r = -torch.tensor(timing.PPM_GRID, device=dev)[:, None]
+    y_r = channel.clock_offset(xs_r, grid_r)
+    dd_res = equalizer.decode_capture_dd(cfg, xd_r, LOCAL_ADDR, max_frames=DD_FRAMES + 8)
+    dd_valid = dd_res.valid.cpu().numpy()
+    rx_r = xd_r.cpu().numpy()
+    h_r, lam_r = equalizer.refit_channel(cfg, rx_r, dd_res.to_frames(),
+                                         dd_res.start.cpu().numpy()[dd_valid])
+    g_r = torch.from_numpy(equalizer._mmse_taps_np(h_r, lam_r)).to(dev)
+    robust_steps = {
+        "clock search: clock_offset of the grid": lambda: channel.clock_offset(xs_r, grid_r),
+        "clock search: decode_capture_fast of the grid": lambda: decode_capture_fast(
+            cfg, y_r, LOCAL_ADDR, max_frames=MAX_FRAMES),
+        "timing gate: decode_capture_fast": lambda: decode_capture_fast(
+            cfg, xg_r, LOCAL_ADDR, max_frames=MAX_FRAMES),
+        "timing gate: auto_xcorr": lambda: auto_xcorr(xg_r, pre),
+        "decode_dd: decode_capture_eq": lambda: equalizer.decode_capture_eq(
+            cfg, xd_r, LOCAL_ADDR, max_frames=DD_FRAMES + 8),
+        "decode_dd: stock exact scan": lambda: decode_capture(cfg, xd_r, LOCAL_ADDR,
+                                                              DD_FRAMES + 8),
+        f"decode_dd: refit_channel on {int(dd_valid.sum())} frames (host)": lambda: (
+            equalizer.refit_channel(cfg, rx_r, dd_res.to_frames(),
+                                    dd_res.start.cpu().numpy()[dd_valid])),
+        "decode_dd: _apply_taps_decode": lambda: equalizer._apply_taps_decode(
+            cfg, xd_r, g_r, LOCAL_ADDR, DD_FRAMES + 8),
+    }
+    for step, fn in robust_steps.items():
+        log(f"phase 4: {step}: {time_ms(torch, fn, runs=5):.4f} ms (median of 5) [{card}]")
     # registers and spills last: cuobjdump runs as a child process, and the
     # profiler's sessions after one lose their last launches
     for src in ("sliding_dot", "xcorr_norm", "xcorr_hits", "spec_walk", "attempt_manchester",

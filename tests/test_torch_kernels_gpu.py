@@ -33,7 +33,10 @@ return.  The experiments' kernels (attempt tiles, offset add) equal their
 plain versions exactly: both sum in k order, and the tools' inputs make
 every product exact (ternary and 0/1 tables, small integers).  The hit
 kernel's corr at a lag that ties the threshold equals the plain version's
-bit for bit (both divide, and the sums are exact integers there)."""
+bit for bit (both divide, and the sums are exact integers there).  The
+robustness paths on the card (clock search, timing gate,
+decision-directed decode): every field but the correlation equal to the
+CPU's run; ``clock_offset`` bit for bit; the dense-hit extraction exactly."""
 
 import numpy as np
 import pytest
@@ -41,7 +44,7 @@ import torch
 
 from trackmaker_tpu_torch import PhyConfig, _build, decode_blocked_exact, decode_blocked_single_chip
 from trackmaker_tpu_torch.core.framing import Frame
-from trackmaker_tpu_torch.dsp import channel, equalizer
+from trackmaker_tpu_torch.dsp import channel, equalizer, timing
 from trackmaker_tpu_torch.dsp.osc import chirp_np
 from trackmaker_tpu_torch.parallel.stream import spec_block
 from trackmaker_tpu_torch.phy import ask, ask_spec
@@ -91,6 +94,8 @@ from test_torch_ask_walk_4b5b_design import (
     attempt_4b5b_call,
     fourb5b_edge_inputs,
 )
+from test_torch_channel_timing import GATE_CORPORA, gate_corpus, hit_vectors, skewed_capture
+from test_torch_equalizer_dd import CORPORA as DD_CORPORA
 from test_torch_probe_offset_design import (
     PROBE_EDGES,
     SHIFT_HEADS,
@@ -629,6 +634,93 @@ def test_equalized_decode_on_the_card_equals_the_cpu(cuda):
     numpy_in = equalizer.decode_capture_eq(CFG, x.numpy(), 2, max_frames=10)
     assert numpy_in.valid.device.type == "cuda"
     assert numpy_in.count.tolist() == [6] * 3
+
+
+# --- the clock-offset search, the timing gate, the decision-directed decode -----
+
+LINE_KERNELS = (xcorr_hits, sd.attempt_manchester, sd.attempt_4b5b, sd.spec_walk,
+                xcorr_rowstats)
+
+
+def _launched(before: list[int]) -> dict[str, int]:
+    return {f.__name__: f.launches - b for f, b in zip(LINE_KERNELS, before)}
+
+
+def _same_frames(got, want) -> None:
+    for name, g, w in zip(got._fields, got, want):
+        if name != "corr":
+            assert torch.equal(g.cpu(), w), name
+
+
+@pytest.mark.gpu
+def test_extract_candidates_on_the_card_equals_the_cpu(cuda):
+    hits = torch.from_numpy(hit_vectors())
+    for n_cand in (1, 16, 40, 200):
+        got = sd.extract_candidates(hits.to(cuda), n_cand)
+        want = sd.extract_candidates(hits, n_cand)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_clock_offset_on_the_card_equals_the_cpu_bit_for_bit(cuda):
+    x = torch.from_numpy(np.random.default_rng(3).normal(0, 1, (2, 433_464)).astype(np.float32))
+    for ppm in (-400.0, 1000.0, 20_000.0):
+        assert torch.equal(channel.clock_offset(x.to(cuda), ppm).cpu(),
+                           channel.clock_offset(x, ppm))
+    ppms = torch.tensor([[-2000.0], [500.0]])
+    assert torch.equal(channel.clock_offset(x.to(cuda), ppms.to(cuda)).cpu(),
+                       channel.clock_offset(x, ppms))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ppm,n_frames,seed", [(1000.0, 8, 0), (0.0, 4, 2)])
+def test_clock_search_on_the_card_equals_the_cpu(cuda, ppm, n_frames, seed):
+    """The resampled batch decodes through #1, #3 and #4 on the card, and
+    the chosen ppm and every frame equal the CPU's."""
+    _, x = skewed_capture(ppm, n_frames=n_frames, seed=seed)
+    before = [f.launches for f in LINE_KERNELS]
+    got, got_ppm = timing.decode_with_clock_search(CFG, torch.from_numpy(x).to(cuda), 2,
+                                                   max_frames=12)
+    launched = _launched(before)
+    want, want_ppm = timing.decode_with_clock_search(CFG, torch.from_numpy(x), 2, max_frames=12)
+    assert got.valid.device.type == "cuda" and got_ppm == want_ppm
+    _same_frames(got, want)
+    assert int(got.count) == n_frames
+    assert launched["xcorr_hits"] == launched["attempt_manchester"] == launched["spec_walk"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", GATE_CORPORA)
+def test_timing_gate_on_the_card_equals_the_cpu(cuda, name):
+    cfg, x, _, _ = gate_corpus(name)
+    attempt = sd.attempt_manchester if cfg.line_coding == "manchester" else sd.attempt_4b5b
+    before = [f.launches for f in LINE_KERNELS]
+    exact, rec = timing.decode_with_timing_gate(cfg, torch.from_numpy(x).to(cuda), 2)
+    launched = _launched(before)
+    want_exact, want_rec = timing.decode_with_timing_gate(cfg, torch.from_numpy(x), 2)
+    _same_frames(exact, want_exact)
+    _same_frames(rec, want_rec)
+    # the exact decode and the retry batch each launch #1, the attempt and #4
+    assert launched["xcorr_hits"] == 3     # and auto_xcorr's dense corr
+    assert launched[attempt.__name__] == launched["spec_walk"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(DD_CORPORA))
+def test_decode_capture_dd_on_the_card_equals_the_cpu(cuda, name):
+    x, want = DD_CORPORA[name]()
+    mf = len(want) + 4
+    before = [f.launches for f in LINE_KERNELS]
+    got = equalizer.decode_capture_dd(CFG, torch.from_numpy(x).to(cuda), 2, max_frames=mf)
+    launched = _launched(before)
+    cpu = equalizer.decode_capture_dd(CFG, torch.from_numpy(x), 2, max_frames=mf)
+    assert got.valid.device.type == "cuda"
+    _same_frames(got, cpu)
+    assert launched["xcorr_rowstats"] == 1 and launched["attempt_manchester"] >= 1
+    assert launched["xcorr_hits"] >= 2 and launched["spec_walk"] >= 1
+    numpy_in = equalizer.decode_capture_dd(CFG, x, 2, max_frames=mf)
+    assert numpy_in.valid.device.type == "cuda"
+    _same_frames(numpy_in, cpu)
 
 
 # --- the sync-refine fold and the batch-folded hit rows ----------------------

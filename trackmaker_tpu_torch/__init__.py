@@ -2,22 +2,34 @@
 
 It mirrors the JAX package's layout, so each module's counterpart sits at
 the same path under ``trackmaker_tpu/``.  The batch decode of the
-Manchester and 4B5B line codes, the MMSE equalizer in front of it and the
+Manchester and 4B5B line codes, the MMSE equalizer in front of it (and its
+decision-directed refit), the clock-offset recovery around it and the
 ASK/chirp modem's receiver run on an NVIDIA Hopper card through
-hand-written CUDA kernel sources (``csrc/``, eleven with the tools'
-two), built with ``nvcc`` at first use; on CPU tensors every kernel
-wrapper runs its plain PyTorch version.  One long recording decodes in
-blocks of time through ``decode_blocked_single_chip``.  Importing the
-package touches no device and builds nothing.
+hand-written CUDA kernel sources (``csrc/``, thirteen with the tools'),
+built with ``nvcc`` at first use; on CPU tensors every kernel wrapper runs
+its plain PyTorch version.  One long recording decodes in blocks of time
+through ``decode_blocked_single_chip``.  Importing the package touches no
+device and builds nothing.
+
+On the CPU, ``tests/test_torch_*.py`` hold each module against the JAX
+package (``tests/test_torch_channel_timing.py`` and
+``tests/test_torch_equalizer_dd.py`` this package's robustness modules);
+on a card, ``python3 chip_smoke.py`` runs every path, its ``phase 2
+(clock_search)``, ``(timing_gate)``, ``(timing_gate, flagship gaps)``,
+``(decode_dd)`` and ``(sweeps)`` lines the robustness ones.
 
     trackmaker_tpu_torch.core   PhyConfig, bit ops, CRC8, frame codec, block index
-    trackmaker_tpu_torch.dsp    carrier and chirp synthesis, EMA power, the echo
-                                channel, the preamble-trained MMSE equalizer
+    trackmaker_tpu_torch.dsp    carrier and chirp synthesis, EMA power, the channel
+                                models (noise, gain, clock offset, delay, echo, mix),
+                                the preamble-trained MMSE equalizer and its
+                                decision-directed decode, the clock-offset search
+                                and the per-frame timing gate
     trackmaker_tpu_torch.sync   correlation sync, the correlation, normalized-
                                 correlation, row-stats and sliding-dot kernels
     trackmaker_tpu_torch.phy    line code, encoder, exact and speculative decode;
                                 the ASK modem and its speculative receiver
     trackmaker_tpu_torch.parallel  the blocked decode of one long capture
+    trackmaker_tpu_torch.bench  frame loss against noise and clock offset
     trackmaker_tpu_torch.tools  the window health probe, the flagship stage
                                 profiler and the two-stream correlation
                                 experiment; each runs on the card as

@@ -1,3 +1,4 @@
-"""Oscillators, filters, the echo channel and the MMSE equalizer."""
+"""Oscillators, filters, the channel models, the MMSE equalizer and the
+clock-offset recovery."""
 
-from trackmaker_tpu_torch.dsp import channel, equalizer, filters, osc  # noqa: F401
+from trackmaker_tpu_torch.dsp import channel, equalizer, filters, osc, timing  # noqa: F401

@@ -20,6 +20,12 @@ Batched over captures f32[B, T] (or one f32[T]):
 5. *Gate*: a capture whose training correlation is below ``min_quality``
    passes through bit for bit.
 
+``decode_capture_dd`` is the decision-directed decode for captures with no
+clean preamble to train on (a burst whose head was cut): it refits the
+channel on the interiors of the frames already decoded (host float64, as
+in the JAX package), applies the refit taps with the same banded product
+and decodes again while the frame count grows.
+
 The output feeds the unmodified decoder.  The LS and FIR products decide
 which anchor wins and what the decoder sees, so they run in full float32
 (``filters.matmul_f32``) whatever the caller set for TF32.
@@ -35,7 +41,13 @@ import torch
 from trackmaker_tpu_torch.core.config import PhyConfig
 from trackmaker_tpu_torch.dsp.filters import matmul_f32
 from trackmaker_tpu_torch.phy import line_coding
-from trackmaker_tpu_torch.phy.decoder import DecodedFrames, decode_capture_fast
+from trackmaker_tpu_torch.phy.decoder import (
+    DecodedFrames,
+    as_capture,
+    decode_capture,
+    decode_capture_fast,
+)
+from trackmaker_tpu_torch.phy.encoder import PhyEncoder
 from trackmaker_tpu_torch.sync import auto_xcorr_row_stats
 
 N_CH = 48          # estimated channel taps
@@ -191,9 +203,106 @@ def decode_capture_eq(cfg: PhyConfig, samples, local_addr: int, max_frames: int 
     speculative decode, the exact scan for the rows it flags).  `samples`
     f32[T] or f32[B, T] is a tensor, which stays on its device, or a NumPy
     array, which goes to the card; `device` moves either."""
-    if not isinstance(samples, torch.Tensor):
-        samples = torch.from_numpy(np.asarray(samples, np.float32))
-        device = "cuda" if device is None else device
-    x = samples.to(device=device, dtype=torch.float32)
-    eq, _ = equalize_capture(cfg, x)
+    eq, _ = equalize_capture(cfg, as_capture(samples, device))
     return decode_capture_fast(cfg, eq, local_addr, max_frames=max_frames)
+
+
+# --- decision-directed refinement (captures with no clean leading preamble) ---------
+
+
+def refit_channel(cfg: PhyConfig, rx: np.ndarray, frames, starts) -> tuple[np.ndarray, float]:
+    """(h f32[N_CH], lam): an LS channel estimate trained on decoded frames
+    instead of the preamble and the silence before it.
+
+    Each frame is encoded again (``PhyEncoder`` on the host) and only its
+    interior rows enter the fit: sample i of the frame's window counts when
+    every regressor s[i + K0 - k] lies inside the known waveform, so
+    nothing is assumed about what surrounds the frame.  A frame with fewer
+    than 4·N_CH such rows is skipped; with none left, ValueError.  Host
+    float64 NumPy, as in the JAX package; lam is the fit's
+    residual-to-signal ratio clipped to [1e-4, 1]."""
+    enc = PhyEncoder(cfg, device="cpu")
+    a_rows, b_rows = [], []
+    t = len(rx)
+    rx64 = np.asarray(rx, np.float64)
+    for f, p in zip(frames, starts):
+        s = enc.encode_frame(f).numpy().astype(np.float64)
+        n = len(s)
+        i_lo = N_CH - 1 - K0            # j = i + K0 - k stays in [0, n)
+        i_hi = min(n - 1 - K0, t - 1 - int(p))
+        if i_hi - i_lo + 1 < 4 * N_CH:
+            continue
+        idx = np.arange(i_lo, i_hi + 1)
+        a_rows.append(s[idx[:, None] + K0 - np.arange(N_CH)[None, :]])
+        b_rows.append(rx64[int(p) + idx])
+    if not a_rows:
+        raise ValueError("no frame long enough to train on")
+    a = np.concatenate(a_rows)
+    b = np.concatenate(b_rows)
+    ata = a.T @ a + 1e-4 * np.eye(N_CH)
+    h = np.linalg.solve(ata, a.T @ b)
+    res = float(np.mean((a @ h - b) ** 2))
+    sig = max(float(np.mean(b ** 2)), 1e-12)
+    lam = float(np.clip(res / sig, 1e-4, 1.0))
+    return h.astype(np.float32), lam
+
+
+def _mmse_taps_np(h: np.ndarray, lam: float) -> np.ndarray:
+    """NumPy twin of :func:`_mmse_taps` for host-refit taps (float64 FFTs,
+    returned as float32)."""
+    hf = np.fft.rfft(h, n=N_FFT)
+    g = np.conj(hf) / (np.abs(hf) ** 2 + lam)
+    g_full = np.fft.irfft(g, n=N_FFT)
+    lags = np.arange(-L_HALF, L_HALF + 1) % N_FFT
+    return g_full[lags].astype(np.float32)
+
+
+def _apply_taps_decode(cfg: PhyConfig, rx: torch.Tensor, g_t: torch.Tensor, local_addr: int,
+                       max_frames: int) -> DecodedFrames:
+    """The capture rx f32[T] through the FIR g_t f32[2·L_HALF+1]
+    (:func:`_apply_fir`), then ``decode_capture_fast``."""
+    eq = _apply_fir(rx[None], g_t[None])[0]
+    return decode_capture_fast(cfg, eq, local_addr, max_frames=max_frames)
+
+
+def decode_capture_dd(cfg: PhyConfig, samples, local_addr: int, max_frames: int = 8,
+                      max_iters: int = 3,
+                      device: torch.device | str | None = None) -> DecodedFrames:
+    """The decision-directed equalized decode of one capture f32[T] (a
+    tensor stays on its device, a NumPy array goes to the card; `device`
+    moves either).
+
+    Bootstrap: the preamble-trained decode (``decode_capture_eq``), or the
+    stock exact scan (``decode_capture``) when it finds strictly more frames
+    (training mid-burst can make the equalized capture worse than the raw
+    one).  Then up to `max_iters` times: refit the channel on every decoded
+    frame's interior (:func:`refit_channel`), equalize with the refit taps,
+    decode again, and keep the result only if it finds strictly more
+    frames; stop at the first that does not.  Returns the best decode.
+
+    The starts of either bootstrap are valid refit anchors: the stock
+    decode's are the direct path's arrival in the raw capture, the
+    equalized decode's are aligned to the transmission; both lie within the
+    fit's K0 acausal taps."""
+    x = as_capture(samples, device)
+    rx = x.cpu().numpy()
+    best = decode_capture_eq(cfg, x, local_addr, max_frames=max_frames)
+    stock = decode_capture(cfg, x, local_addr, max_frames=max_frames)
+    if int(stock.count) > int(best.count):
+        best = stock
+    for _ in range(max_iters):
+        valid = best.valid.cpu().numpy()
+        if not valid.any():
+            break
+        frames = best.to_frames()
+        starts = best.start.cpu().numpy()[valid]
+        try:
+            h, lam = refit_channel(cfg, rx, frames, starts)
+        except ValueError:
+            break
+        g_t = torch.from_numpy(_mmse_taps_np(h, lam)).to(x.device)
+        res = _apply_taps_decode(cfg, x, g_t, local_addr, max_frames)
+        if int(res.count) <= int(best.count):
+            break
+        best = res
+    return best

@@ -40,13 +40,12 @@ from trackmaker_tpu_torch import _build
 from trackmaker_tpu_torch.dsp.filters import matmul_f32
 from trackmaker_tpu_torch.phy import ask
 from trackmaker_tpu_torch.phy.ask import AskConfig, AskDecoded
-from trackmaker_tpu_torch.phy.spec_decode import _compact
+from trackmaker_tpu_torch.phy.spec_decode import extract_candidates as _extract
 
 BIGI = 2**30
 ROW = 512           # chain windows start on multiples of ROW, as in the JAX package
 CHAIN_WINDOW = 512  # the chain covers CHAIN_WINDOW + ROW samples from its window's start
-CAND_BLOCK = 512    # candidate extraction block ...
-CAND_PER_BLOCK = 8  # ... and the candidates it may hold before the table overflows
+CAND_PER_BLOCK = 8  # candidates a 512-sample block may hold before the table overflows
 
 
 def spec_supported_cfg(cfg: AskConfig) -> bool:
@@ -106,21 +105,10 @@ dense_fire_candidates.launches = 0
 
 def extract_candidates(hits: torch.Tensor, n_cand: int):
     """(cand int32[B, n_cand], n_valid int32[B], overflow bool[B]) from
-    hits bool[B, T].
-
-    Each CAND_BLOCK-sample block gives its first CAND_PER_BLOCK hits; cand
-    holds the first n_cand of those, ascending, padded with 2^30, and
-    n_valid counts them all.  The table overflows when a block holds more
-    than CAND_PER_BLOCK hits or the capture more than n_cand."""
-    b, t = hits.shape
-    hb = -(-t // CAND_BLOCK)
-    rows = torch.nn.functional.pad(hits, (0, hb * CAND_BLOCK - t)).reshape(b, hb, CAND_BLOCK)
-    keep = (rows & (rows.cumsum(-1) <= CAND_PER_BLOCK)).reshape(b, hb * CAND_BLOCK)
-    pos = torch.arange(hb * CAND_BLOCK, dtype=torch.int32, device=hits.device).expand(b, -1)
-    cand = _compact(pos, keep, n_cand, BIGI)
-    per_block = rows.sum(-1)
-    overflow = (per_block > CAND_PER_BLOCK).any(-1) | (per_block.sum(-1) > n_cand)
-    return cand, keep.sum(-1, dtype=torch.int32), overflow
+    hits bool[B, T]: ``spec_decode.extract_candidates`` with
+    CAND_PER_BLOCK hits a block (fire candidates are denser than preamble
+    hits)."""
+    return _extract(hits, n_cand, CAND_PER_BLOCK)
 
 
 # --- step 3 ------------------------------------------------------------------------

@@ -258,6 +258,15 @@ def decode_captures(cfg: PhyConfig, x: torch.Tensor, local_addr: int,
     return DecodedFrames(*(torch.stack(col) for col in zip(*rows)))
 
 
+def as_capture(samples, device: torch.device | str | None = None) -> torch.Tensor:
+    """`samples` as float32 for the decode entry points: a tensor stays on
+    its own device, a NumPy array goes to the card; `device` moves either."""
+    if not isinstance(samples, torch.Tensor):
+        samples = torch.from_numpy(np.asarray(samples, np.float32))
+        device = "cuda" if device is None else device
+    return samples.to(device=device, dtype=torch.float32)
+
+
 def decode_capture_fast(
     cfg: PhyConfig,
     samples: torch.Tensor,       # f32[T] or f32[B, T]

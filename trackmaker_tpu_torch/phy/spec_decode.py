@@ -13,6 +13,10 @@
 6. ``spec_compact``: the kept frames, in position order, into the leading
    slots.
 
+``extract_candidates`` is the table's other source, from a dense hit
+vector (the timing gate's retry candidates, and the ASK receiver's at 8
+a block).
+
 Because every hit is in the table, the walk replays the exact scan's cursor
 decisions.  A capture goes to the exact scan (``phy/decoder.py:
 decode_capture_fast`` does this) only when its table overflowed, or, for
@@ -61,6 +65,8 @@ from trackmaker_tpu_torch.sync.xcorr_hits import (
 
 GROUP_ROWS = 32     # hit rows per first-stage compaction group
 GROUP_SLOTS = 16    # hits a group may hold before the table overflows
+HIT_BLOCK = 512     # the dense-hit extraction's block ...
+HITS_PER_BLOCK = 4  # ... and the hits it takes from each before the table overflows
 SYNC_POSITIONS = 13
 FRAME_BYTES = PHY_HEADER_BYTES + 256   # 263, the largest frame
 BIT_SAMPLES = 6
@@ -171,6 +177,27 @@ def compact_hit_rows(rows: torch.Tensor, n_cand: int, with_fs: bool = False):
         return cand, corr, n_valid, overflow
     fs = torch.where(cand < BIGI, cand + delta[0], 0).to(torch.int32)   # live slots hold a hit
     return cand, corr, n_valid, overflow, fs
+
+
+def extract_candidates(hits: torch.Tensor, n_cand: int, per_block: int = HITS_PER_BLOCK):
+    """(cand int32[B, n_cand], n_valid int32[B], overflow bool[B]) from a
+    dense hit vector bool[B, T].
+
+    Each HIT_BLOCK-sample block gives its first `per_block` hits; cand holds
+    the first n_cand of those, ascending, padded with 2^30, and n_valid
+    counts them all.  The table overflows when a block holds more than
+    `per_block` hits or the capture more than n_cand.  The defaults are
+    the line-coded decode's (the timing gate's retry candidates); the ASK
+    receiver keeps 8 a block."""
+    b, t = hits.shape
+    hb = -(-t // HIT_BLOCK)
+    rows = torch.nn.functional.pad(hits, (0, hb * HIT_BLOCK - t)).reshape(b, hb, HIT_BLOCK)
+    keep = (rows & (rows.cumsum(-1) <= per_block)).reshape(b, hb * HIT_BLOCK)
+    pos = torch.arange(hb * HIT_BLOCK, dtype=torch.int32, device=hits.device).expand(b, -1)
+    cand = _compact(pos, keep, n_cand, BIGI)
+    per_row = rows.sum(-1)
+    overflow = (per_row > per_block).any(-1) | (per_row.sum(-1) > n_cand)
+    return cand, keep.sum(-1, dtype=torch.int32), overflow
 
 
 # --- step 3: the attempt kernels -----------------------------------------------
