@@ -96,7 +96,16 @@ Phases, each raising on failure (non-zero exit):
    captures, each sweep's batch, the decision-directed capture, its
    preamble-trained equalization and its first refit FIR's output (and
    #8's row stats on the capture); the candidate extraction of the timing
-   gate's dense hits and its drift estimates against the CPU's;
+   gate's dense hits and its drift estimates against the CPU's; then the
+   streaming receive path and the MAC: #1, #3 (#5 on 4B5B) and #4 on every
+   buffer those paths decode in phase 2, recorded there by a wrapper of
+   ``StreamingDecodePipeline._decode_segment`` and
+   ``PhyDecoder._decode_with_cursor`` (the latency warm pass's padded
+   segments; the padded buffers of every decode call of the seven MAC
+   runs, each at its true length, address and max_frames), stacked by
+   bucket, address and max_frames, each path's longest buffer also alone
+   (B = 1, as the path launches it); these checks run once phase 2 has
+   read its counts;
 2. the main paths, each with its kernels' launch counts set to 0 just
    before it and read just after: the flagship and fourb5b_b32 through
    ``decode_capture_fast`` (32 noisy captures of 64 frames of 128-byte
@@ -145,7 +154,20 @@ Phases, each raising on failure (non-zero exit):
    package's decode, DD_DIGEST, a strict superset of the stock exact
    scan's); ``ber_sweep`` and ``clock_offset_sweep`` at their defaults and
    20,000 ppm (no loss at 15 dB and at 0 ppm, more than half at 20,000
-   ppm);
+   ppm); then the streaming receive path and the MAC
+   (``link/stream.py``, ``phy/decoder.py:PhyDecoder``, ``link/``), each with
+   #1, #3, #5 and #4's counts set to 0 just before it: stream_latency,
+   bench.py's latency row (6 s at 48 kHz, 12 frames of 64 B at 1/13
+   spacing, noise sigma 0.01, pushed in 25 ms chunks through a new
+   ``StreamingDecodePipeline``; every frame out of a push with its
+   payload, none from the flush; latency p50 and p99, segments, samples
+   shipped), and the MAC runs of MAC_RUNS through ``transfer_over_bus``,
+   ``gbn_transfer`` and ``sr_transfer`` on the card (CSMA 1,024 B clean,
+   512 B at sigma 0.12, 512 B in 4B5B; GBN and SR with a window of 8,
+   1,024 B clean and 4,096 B at sigma 0.45 with the energy threshold at
+   3.0): the data arrives and each stats dict equals MAC_EXPECT, the JAX
+   package's, with airtime over wall time, decode calls and their
+   time;
 3. the fallbacks: a Manchester capture that overflows the candidate table,
    a 4B5B capture with a zeroed level inside an attempted frame, and an
    ASK capture of 150 back-to-back chirps before three frames (more fire
@@ -154,7 +176,10 @@ Phases, each raising on failure (non-zero exit):
    equalizer bit for bit; the 4B5B seam capture with a level zeroed in the
    frame across seam 1 makes the blocked decode's speculative route not
    ok, and decode_blocked_single_chip returns the exact blocked route's
-   frames, equal to the sequential exact scan's;
+   frames, equal to the sequential exact scan's; 150 back-to-back
+   preambles before three frames in one ``PhyDecoder`` call and as one
+   streaming segment: the speculative decode not ok, the exact scan on
+   the card, the frames and the buffer kept equal to the port's CPU run;
 4. timings with CUDA events (median of 30 runs after warm-up) of each
    kernel against its plain version (the sliding dot and the normalized
    correlation also against ``conv1d``), of the equalizer's steps, of
@@ -203,13 +228,16 @@ Phases, each raising on failure (non-zero exit):
    decision-directed decode of 5, each sweep of 3) and their steps (the
    grid's resample and batch decode; the gate's decode and dense
    correlation; the decision-directed bootstraps, one host refit and one
-   refit decode, median of 5 each); each printed beside the card's name
-   and power limit.
+   refit decode, median of 5 each); a ``PhyDecoder`` decode of the clean
+   CSMA run's longest buffer, of a 4B5B buffer that falls to the exact
+   scan (median of 5), and a streaming segment's pack and readback; each
+   printed beside the card's name and power limit.
 
 The line before the last is a JSON object with the kernels' measurements:
 ``launches`` counts each kernel's launches in the main-path runs of
-phase 2 (the line-coded paths, the blocked runs, the profiler path and
-the robustness paths; the probe's in phase 0's health run; the
+phase 2 (the line-coded paths, the blocked runs, the profiler path, the
+robustness paths, the streaming latency run and the MAC runs; the
+probe's in phase 0's health run; the
 batch-folded hit rows are on no path and count 0),
 ``ms`` and ``plain_ms`` time it at the shapes of its first path, and
 ``bound_ms`` is the least time the card could take for that work (bytes
@@ -284,6 +312,55 @@ GATE_QUIET = 6_600
 GATE_SEED = 5
 GATE_NOISE = 0.02
 SWEEP_PPMS = (0, 50, 100, 200, 500, 1000, 2000, 5000, 20000)   # the defaults and 2%
+# the streaming latency run (bench.py's latency row): STREAM_FRAMES frames of
+# bytes([i]) * STREAM_PAYLOAD at (i + 1) / (STREAM_FRAMES + 1) of a capture of
+# STREAM_SECONDS at 48 kHz, noise sigma STREAM_NOISE from NumPy, pushed in
+# chunks of STREAM_CHUNK samples (25 ms)
+STREAM_SECONDS = 6
+STREAM_FRAMES = 12
+STREAM_PAYLOAD = 64
+STREAM_NOISE = 0.01
+STREAM_CHUNK = 1200
+CHECK_ROWS = 128     # buffers a phase-1 batch of a recorded path stacks
+# the MAC runs over the port's PHY: name -> (ARQ, bytes of bytes(range(256))
+# repeated, options: the transfer's keywords, and line_coding and
+# energy_threshold for its PhyConfig and MacConfig); the noisy CSMA run is
+# tests/test_link.py's, the noisy window runs tests/test_sr.py's, at
+# sigma 0.45 where frames drop and the ARQ paths run
+MAC_RUNS = {
+    "csma_transfer": ("csma", 1024, {"max_duration_s": 60.0}),
+    "csma_transfer, noise": ("csma", 512, {"noise_std": 0.12, "seed": 5,
+                                           "max_duration_s": 120.0}),
+    "csma_transfer, 4b5b": ("csma", 512, {"line_coding": "4b5b", "max_duration_s": 60.0}),
+    "gbn_transfer": ("gbn", 1024, {"window": 8}),
+    "sr_transfer": ("sr", 1024, {"window": 8}),
+    "gbn_transfer, noise": ("gbn", 4096, {"window": 8, "noise_std": 0.45, "seed": 5,
+                                          "max_duration_s": 300.0, "energy_threshold": 3.0}),
+    "sr_transfer, noise": ("sr", 4096, {"window": 8, "noise_std": 0.45, "seed": 5,
+                                        "max_duration_s": 300.0, "energy_threshold": 3.0}),
+}
+# the JAX package's stats of each MAC run (tests/test_torch_link.py); the
+# port's must equal them, on the card as on the CPU
+MAC_EXPECT = {
+    "csma_transfer": {"airtime_samples": 72704, "airtime_s": 1.5146666666666666, "acked": 8,
+                      "retransmissions": 0, "duplicates": 0,
+                      "throughput_bps": 5408.450704225353},
+    "csma_transfer, noise": {"airtime_samples": 38016, "airtime_s": 0.792, "acked": 4,
+                             "retransmissions": 0, "duplicates": 0,
+                             "throughput_bps": 5171.717171717171},
+    "csma_transfer, 4b5b": {"airtime_samples": 26112, "airtime_s": 0.544, "acked": 4,
+                            "retransmissions": 0, "duplicates": 0,
+                            "throughput_bps": 7529.411764705882},
+    "gbn_transfer": {"airtime_s": 1.152, "throughput_bps": 7111.111111111111,
+                     "retransmit_bursts": 0, "window": 8},
+    "sr_transfer": {"airtime_s": 1.1573333333333333, "throughput_bps": 7078.341013824885,
+                    "retransmit_bursts": 0, "frames_retransmitted": 0, "window": 8},
+    "gbn_transfer, noise": {"airtime_s": 13.677333333333333,
+                            "throughput_bps": 2395.7886527588225, "retransmit_bursts": 8,
+                            "window": 8},
+    "sr_transfer, noise": {"airtime_s": 6.544, "throughput_bps": 5007.334963325184,
+                           "retransmit_bursts": 4, "frames_retransmitted": 11, "window": 8},
+}
 SWEEP_B, SWEEP_T = 3, 50_001  # the tap sweep's captures: T not a multiple of a block's lags
 # the raw sliding dot's sweep: every remainder of an 8-tap step near 8, 16
 # and 128, the dense dots' 30, the chirp's 440 and the kernel's last 512
@@ -457,6 +534,37 @@ def gate_capture(torch, cfg, dev, quiet: int = GATE_QUIET):
     wave = np.concatenate(parts)
     x = (wave + rng.normal(0, GATE_NOISE, len(wave))).astype(np.float32)
     return torch.from_numpy(x).to(dev), frames
+
+
+def mac_run(name: str, link, phy_config, mac_config, **kw):
+    """(data, received, stats) of MAC_RUNS[name] through `link`, a mapping of
+    "csma", "gbn" and "sr" to a package's transfer_over_bus, gbn_transfer and
+    sr_transfer, with its PhyConfig and MacConfig classes; `kw` goes to the
+    transfer (the port's `device`)."""
+    arq, n_bytes, opts = MAC_RUNS[name]
+    opts = dict(opts)
+    cfg = phy_config(line_coding=opts.pop("line_coding", "manchester"))
+    mac_cfg = mac_config(energy_threshold=opts.pop("energy_threshold", 0.5))
+    data = bytes(range(256)) * (n_bytes // 256)
+    received, stats = link[arq](data, cfg=cfg, mac_cfg=mac_cfg, **opts, **kw)
+    return data, received, stats
+
+
+def stream_capture(encode_frame, rng):
+    """(payloads, arrival chunk of each frame, wave) of the streaming latency
+    run: `encode_frame(i, payload)` gives frame i's waveform as NumPy."""
+    total = 48_000 * STREAM_SECONDS
+    wave = np.zeros(total, np.float32)
+    step = total // (STREAM_FRAMES + 1)
+    payloads, arrival = [], []
+    for i in range(STREAM_FRAMES):
+        payloads.append(bytes([i]) * STREAM_PAYLOAD)
+        w = encode_frame(i, payloads[-1])
+        p = (i + 1) * step
+        wave[p:p + len(w)] = w
+        arrival.append((p + len(w)) // STREAM_CHUNK)
+    wave += rng.normal(0, STREAM_NOISE, total).astype(np.float32)
+    return payloads, arrival, wave
 
 
 def payload_digest(payloads) -> str:
@@ -979,11 +1087,13 @@ def payloads_in_order(res) -> tuple[list[bytes], list[int], list[int]]:
 
 
 def check_path_batch(torch, sd, xcorr_hits, xcorr_hits_plain, cfg, y, max_frames: int,
-                     tag: str) -> float:
-    """Kernels #1, #3 and #4 on one batch y f32[B, T] that a robustness path
-    decodes, against their plain versions: the hit rows as check_xcorr
-    holds them, the attempts and the walk (at `max_frames`, the path's own)
-    equal.  Returns #1's max |err|."""
+                     tag: str, vlens=None, local_addr: int = LOCAL_ADDR) -> float:
+    """Kernels #1, #3 (or #5 for 4B5B) and #4 on one batch y f32[B, T] that
+    a path decodes, against their plain versions: the hit rows as
+    check_xcorr holds them, the attempts and the walk (at `max_frames`, the
+    path's own) equal, each row at its true length vlens int32[B] where
+    given, else T, the walk's keep flags for `local_addr`.  Returns #1's
+    max |err|."""
     from trackmaker_tpu_torch.phy.line_coding import preamble_waveform
     from trackmaker_tpu_torch.sync.correlate import preamble_energy
 
@@ -992,13 +1102,17 @@ def check_path_batch(torch, sd, xcorr_hits, xcorr_hits_plain, cfg, y, max_frames
     err, rows, _ = check_xcorr(torch, xcorr_hits, xcorr_hits_plain, y, pre,
                                cfg.correlation_threshold, tag)
     cand, _, n_valid, _ = sd.compact_hit_rows(rows, N_CAND)
-    vlens = torch.full((y.shape[0],), y.shape[1], dtype=torch.int32, device=y.device)
-    got = sd.attempt_manchester(y, cand, n_valid, vlens, sync, preamble_energy(sync))
+    if vlens is None:
+        vlens = torch.full((y.shape[0],), y.shape[1], dtype=torch.int32, device=y.device)
+    attempt, attempt_plain = ((sd.attempt_manchester, sd.attempt_manchester_plain)
+                              if cfg.line_coding == "manchester"
+                              else (sd.attempt_4b5b, sd.attempt_4b5b_plain))
+    got = attempt(y, cand, n_valid, vlens, sync, preamble_energy(sync))
     torch.cuda.synchronize()
-    want = sd.attempt_manchester_plain(y, cand, n_valid, vlens, sync, preamble_energy(sync))
+    want = attempt_plain(y, cand, n_valid, vlens, sync, preamble_energy(sync))
     require(all(torch.equal(g, w) for g, w in zip(got, want)),
-            f"attempt_manchester differs on the {tag}")
-    a = sd.spec_phase_a(cfg, y, LOCAL_ADDR, N_CAND, vlens)
+            f"{attempt.__name__} differs on the {tag}")
+    a = sd.spec_phase_a(cfg, y, local_addr, N_CAND, vlens)
     zeros = torch.zeros_like(vlens)
     no_limit = torch.full_like(vlens, 2**30)
     walk = sd.spec_walk(a.fields, zeros, no_limit, max_frames)
@@ -1006,7 +1120,7 @@ def check_path_batch(torch, sd, xcorr_hits, xcorr_hits_plain, cfg, y, max_frames
     walk_p = sd.spec_walk_plain(a.fields, zeros, no_limit, max_frames)
     require(all(torch.equal(g, w) for g, w in zip(walk, walk_p)),
             f"spec_walk differs on the {tag}")
-    log(f"phase 1: the {tag} ({y.shape[0]} x {y.shape[1]}): attempt_manchester and spec_walk "
+    log(f"phase 1: the {tag} ({y.shape[0]} x {y.shape[1]}): {attempt.__name__} and spec_walk "
         f"(max_frames={max_frames}) == plain ({int(n_valid.sum())} candidates, "
         f"{int(walk.keep.sum())} frames kept)")
     return err
@@ -1197,6 +1311,251 @@ def run_robustness_paths(torch, timing, equalizer, ber, decode_capture, cfg, ker
         for k_name in names:
             require(out[path][k_name] > 0, f"the {path} path never launched {k_name}")
     return out
+
+
+# --- the streaming receive path and the MAC ----------------------------------------
+
+
+class Recorder:
+    """While open, wraps the method `name` of class `cls` to keep
+    keep(obj, *args) of each call in `kept`: what a path decoded, for
+    phase 1, with no hook in the package and no second run."""
+
+    def __init__(self, cls, name: str, keep):
+        self.cls, self.name, self.keep = cls, name, keep
+        self.kept = []
+
+    def __enter__(self):
+        self.orig = orig = getattr(self.cls, self.name)
+        kept, keep = self.kept, self.keep
+
+        def method(obj, *args):
+            kept.append(keep(obj, *args))
+            return orig(obj, *args)
+
+        setattr(self.cls, self.name, method)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.name, self.orig)
+
+
+def check_recorded(torch, sd, xcorr_hits, xcorr_hits_plain, cfg, inputs, tag: str) -> float:
+    """check_path_batch on every recorded buffer [(f32[bucket] on the card,
+    true length, local address, max_frames)]: stacked by bucket, address
+    and max_frames in batches of at most CHECK_ROWS, and the longest buffer
+    once more alone, as the path launches it (B = 1).  Returns #1's max
+    |err|."""
+    groups = {}
+    for padded, n, addr, max_frames in inputs:
+        groups.setdefault((padded.shape[0], addr, max_frames), []).append((padded, n))
+    longest = max(inputs, key=lambda rec: rec[1])
+    batches = [((longest[0].shape[0], longest[2], longest[3]), [longest[:2]],
+                "the longest buffer alone")]
+    for key, group in sorted(groups.items()):
+        for i in range(0, len(group), CHECK_ROWS):
+            part = group[i:i + CHECK_ROWS]
+            batches.append((key, part, f"buffers {i + 1}-{i + len(part)} of {len(group)}"))
+    err = 0.0
+    for (b, addr, max_frames), group, part in batches:
+        y = torch.stack([p for p, _ in group])
+        vlens = torch.tensor([n for _, n in group], dtype=torch.int32, device=y.device)
+        err = max(err, check_path_batch(
+            torch, sd, xcorr_hits, xcorr_hits_plain, cfg, y, max_frames,
+            f"{tag}: {part} in buckets of {b} samples at address {addr}", vlens=vlens,
+            local_addr=addr))
+    log(f"phase 1: the {tag}: {len(inputs)} buffers, each held against plain")
+    return err
+
+
+class DecodeTally:
+    """While open, wraps PhyDecoder.process_samples to add up the decodes
+    its calls make (the decoder's own decode_calls and exact_calls) and the
+    wall time of the calls that decoded."""
+
+    def __init__(self, phy_decoder):
+        self.cls = phy_decoder
+        self.calls = self.exact = 0
+        self.seconds = 0.0
+
+    def __enter__(self):
+        self.orig = orig = self.cls.process_samples
+        tally = self
+
+        def process_samples(dec, samples):
+            calls, exact = dec.decode_calls, dec.exact_calls
+            t0 = time.perf_counter()
+            out = orig(dec, samples)
+            if dec.decode_calls > calls:
+                tally.seconds += time.perf_counter() - t0
+            tally.calls += dec.decode_calls - calls
+            tally.exact += dec.exact_calls - exact
+            return out
+
+        self.cls.process_samples = process_samples
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.process_samples = self.orig
+
+
+def time_stream_paths(torch, sd, phy_decoder, lstream, cfg, cfg4, mac_in, segments, card,
+                      dev) -> None:
+    """Phase 4 on the streaming receive path: a PhyDecoder decode of the
+    clean CSMA run's longest recorded buffer (with the card's busy share of
+    it, and its decode_capture_spec alone), of a 4B5B buffer that falls to
+    the exact scan (a frame cut by the buffer's end reads the zero padding;
+    median of 5), and the latency pass's longest segment's pack and
+    readback."""
+    padded, n, addr, max_frames = max(mac_in["csma_transfer"], key=lambda rec: rec[1])
+    dec = phy_decoder(cfg, addr, max_frames, device=dev)
+    dec_ms = time_ms(torch, lambda: dec._decode_with_cursor(padded, n))
+    busy = busy_share(torch, lambda: dec._decode_with_cursor(padded, n))
+    spec_ms = time_ms(torch, lambda: sd.decode_capture_spec(
+        cfg, padded[None], addr, max_frames=max_frames, valid_len=n, with_cursor=True))
+    log(f"phase 4: PhyDecoder decode of a {n}-sample buffer in a bucket of {padded.shape[0]} "
+        f"(the clean CSMA run's longest): {dec_ms:.4f} ms, the card busy "
+        + ("not measured" if busy is None else f"{busy:.3f}")
+        + f" of it; its decode_capture_spec alone (no readback) {spec_ms:.4f} ms [{card}]")
+    dec4 = phy_decoder(cfg4, LOCAL_ADDR, 8, device=dev)
+    for padded4, n4, addr4, max_frames4 in mac_in["csma_transfer, 4b5b"]:
+        dec4.local_addr, dec4.max_frames = addr4, max_frames4
+        exact = dec4.exact_calls
+        dec4._decode_with_cursor(padded4, n4)
+        if dec4.exact_calls > exact:
+            dec_ms = time_ms(torch, lambda: dec4._decode_with_cursor(padded4, n4), runs=5)
+            log(f"phase 4: PhyDecoder decode of a {n4}-sample 4B5B buffer that falls to the "
+                f"exact scan: {dec_ms:.4f} ms (median of 5) [{card}]")
+            break
+    seg = max((seg for seg, _ in segments), key=len)
+    xn, n = torch.from_numpy(lstream.padded_segment(seg)).to(dev), len(seg)
+    seg_ms = time_ms(torch, lambda: lstream.packed_decode(cfg, xn, LOCAL_ADDR, 32).cpu())
+    log(f"phase 4: streaming segment of {n} samples in a bucket of {xn.shape[0] - 1}, "
+        f"packed_decode and its readback: {seg_ms:.4f} ms [{card}]")
+
+
+def run_stream_latency(torch, pipeline_cls, cfg, stream_in, kernels,
+                       dev) -> tuple[dict, dict, list]:
+    """Phase 2 (stream_latency), bench.py's latency row: the capture pushed in
+    25 ms chunks through a StreamingDecodePipeline on the card, a warm pass
+    that records each segment it decodes, then the timed pass in a new
+    one; a frame's latency is (emit chunk - arrival chunk) x 25 ms + the
+    emitting push's wall time.  Every frame must come out of a push, none
+    of the flush, with its payload.  Returns (the timed pass's launches of
+    `kernels`, figures, the warm pass's segments [(samples, max_frames)])."""
+    payloads, arrival, wave = stream_in
+    with Recorder(pipeline_cls, "_decode_segment",
+                  lambda pipe, seg: (seg.copy(), pipe.max_frames)) as rec:
+        warm = pipeline_cls(cfg, LOCAL_ADDR, device=dev)
+        for i in range(0, len(wave), STREAM_CHUNK):
+            warm.push(wave[i:i + STREAM_CHUNK])
+        warm.flush()
+    pipe = pipeline_cls(cfg, LOCAL_ADDR, device=dev)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    lat, got, decode_s = [], [], 0.0
+    t_run = time.perf_counter()
+    for ci, i in enumerate(range(0, len(wave), STREAM_CHUNK)):
+        segments = pipe.segments_decoded
+        t0 = time.perf_counter()
+        frames = pipe.push(wave[i:i + STREAM_CHUNK])
+        dt = time.perf_counter() - t0
+        if pipe.segments_decoded > segments:
+            decode_s += dt
+        for f in frames:
+            got.append(f)
+            lat.append((ci - arrival[f.sequence]) * 25.0 + dt * 1e3)
+    flushed = pipe.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    launches = {k.__name__: k.launches for k in kernels}
+    require(not flushed and [f.data for f in got] == payloads,
+            f"stream_latency gate: {len(got)} of {STREAM_FRAMES} frames before the flush, "
+            f"{len(flushed)} from it")
+    for k_name, n in launches.items():
+        require(n > 0, f"the stream_latency path never launched {k_name}")
+    lat.sort()
+    fig = {"p50": lat[len(lat) // 2], "p99": lat[min(len(lat) - 1, int(len(lat) * 0.99))],
+           "segments": pipe.segments_decoded, "shipped": pipe.samples_shipped,
+           "ms_per_segment": decode_s * 1e3 / pipe.segments_decoded}
+    log(f"phase 2 (stream_latency): {len(wave)} samples ({STREAM_SECONDS} s, {STREAM_FRAMES} "
+        f"frames of {STREAM_PAYLOAD} B, noise sigma {STREAM_NOISE}) pushed in {STREAM_CHUNK}-"
+        f"sample chunks took {wall * 1e3:.1f} ms; latency p50 {fig['p50']:.3f} ms, p99 "
+        f"{fig['p99']:.3f} ms; {fig['segments']} segments, {fig['shipped']} of "
+        f"{pipe.samples_seen} samples shipped, {fig['ms_per_segment']:.3f} ms a decoding "
+        f"push; kernel launches {launches}; {STREAM_FRAMES} of {STREAM_FRAMES} frames "
+        "before the flush, payloads equal")
+    return launches, fig, rec.kept
+
+
+def run_mac_paths(torch, phy_decoder, link, phy_config, mac_config, kernels,
+                  dev) -> tuple[dict, dict, dict]:
+    """Phase 2's MAC runs (MAC_RUNS) through the port's transfer entry points
+    on the card, each with the launch counts set to 0 just before it: the
+    data must arrive and the stats equal MAC_EXPECT, the JAX package's.
+    Returns (each run's launches of `kernels`, its figures, the buffers its
+    PhyDecoders decoded [(f32[bucket] on the card, true length, local
+    address, max_frames)])."""
+    launches, figs, inputs = {}, {}, {}
+    for name, (arq, n_bytes, opts) in MAC_RUNS.items():
+        with DecodeTally(phy_decoder) as tally, Recorder(
+                phy_decoder, "_decode_with_cursor",
+                lambda dec, padded, n: (padded, n, dec.local_addr, dec.max_frames)) as rec:
+            (data, received, stats), launches[name], wall = count_launches(
+                torch, kernels, lambda: mac_run(name, link, phy_config, mac_config, device=dev))
+        inputs[name] = rec.kept
+        require(received == data, f"{name}: {len(received)} of {len(data)} bytes arrived intact")
+        require(stats == MAC_EXPECT[name],
+                f"{name} stats {stats}, the JAX package's {MAC_EXPECT[name]}")
+        attempt = "attempt_4b5b" if opts.get("line_coding") == "4b5b" else "attempt_manchester"
+        for k_name in ("xcorr_hits", attempt, "spec_walk"):
+            require(launches[name][k_name] > 0, f"the {name} path never launched {k_name}")
+        figs[name] = {"airtime_s": stats["airtime_s"], "wall_s": wall, "calls": tally.calls,
+                      "exact": tally.exact, "ms_per_call": tally.seconds * 1e3 / tally.calls}
+        log(f"phase 2 ({name}): {arq} transfer of {n_bytes} B took {wall * 1e3:.1f} ms of wall "
+            f"time for {stats['airtime_s']:.4f} s of airtime (airtime / wall "
+            f"{stats['airtime_s'] / wall:.3f}); {tally.calls} decode calls ({tally.exact} by "
+            f"the exact scan), {figs[name]['ms_per_call']:.3f} ms a call; kernel launches "
+            f"{launches[name]}; the data arrived and the stats equal MAC_EXPECT, the JAX "
+            f"package's: {stats}")
+    return launches, figs, inputs
+
+
+def check_stream_fallbacks(torch, phy_decoder, stream_mod, cfg, crowded, dev) -> None:
+    """Phase 3 (phy_decoder): a buffer that overflows the candidate table
+    (150 back-to-back preambles before three frames) in one PhyDecoder call,
+    and as one streaming segment: the speculative decode is not ok, the
+    exact scan decodes it on the card, and the frames and the buffer left
+    (the searched prefix) equal the port's CPU run."""
+    x = crowded.cpu().numpy()
+    runs = {}
+    for where in (dev, "cpu"):
+        dec = phy_decoder(cfg, LOCAL_ADDR, MAX_FRAMES, device=where)
+        frames = dec.process_samples(x)
+        runs[str(where)] = ([(f.sequence, f.dst, f.data) for f in frames], len(dec._buf),
+                            dec.decode_calls, dec.exact_calls)
+    card, cpu = runs[str(dev)], runs["cpu"]
+    require(card[2:] == (1, 1), f"the crowded buffer took {card[3]} exact decodes of {card[2]}")
+    require(card == cpu and len(card[0]) == 3,
+            f"PhyDecoder on the card {card[:2]} differs from the CPU's {cpu[:2]}")
+    seg = np.concatenate([x, np.zeros(2_000, np.float32)])
+    xn, n = torch.from_numpy(stream_mod.padded_segment(seg)).to(dev), len(seg)
+    pack = stream_mod.packed_decode(cfg, xn, LOCAL_ADDR, MAX_FRAMES).cpu().numpy()
+    require(not stream_mod.parse_packed(pack)[0], "the crowded segment's pack is ok")
+    segs = {}
+    for where in (dev, "cpu"):
+        pipe = stream_mod.StreamingDecodePipeline(cfg, LOCAL_ADDR, device=where,
+                                                  max_frames_per_segment=MAX_FRAMES)
+        frames = pipe.push(x) + pipe.flush()
+        segs[str(where)] = ([(f.sequence, f.data) for f in frames], pipe.segments_decoded)
+    require(segs[str(dev)] == segs["cpu"] and len(segs["cpu"][0]) == 3,
+            f"the pipeline on the card {segs[str(dev)]} differs from the CPU's {segs['cpu']}")
+    log(f"phase 3 (phy_decoder): a {len(x)}-sample buffer of 150 back-to-back preambles before "
+        f"3 frames: PhyDecoder's speculative decode not ok, the exact scan on the card gives "
+        f"{len(card[0])} frames and keeps {card[1]} samples, as on the CPU; as one streaming "
+        f"segment ({n} samples in a bucket of {xn.shape[0] - 1}): the pack not ok, "
+        f"decode_capture_fast on the card gives the CPU's {len(segs['cpu'][0])} frames")
 
 
 def ask_captures(torch, ask, cfg, dev):
@@ -2048,13 +2407,16 @@ def main() -> None:
     except ImportError as exc:
         raise SystemExit(f"chip_smoke.py must run from a checkout of the repository: {exc}")
     from trackmaker_tpu_torch.bench import ber
+    from trackmaker_tpu_torch.core.config import MacConfig
     from trackmaker_tpu_torch.core.framing import Frame
     from trackmaker_tpu_torch.dsp import channel, equalizer, timing
+    from trackmaker_tpu_torch.link import gbn, sr, transfer
+    from trackmaker_tpu_torch.link import stream as lstream
     from trackmaker_tpu_torch.parallel import stream
     from trackmaker_tpu_torch.phy import ask, ask_spec
     from trackmaker_tpu_torch.phy import spec_decode as sd
     from trackmaker_tpu_torch.phy.decoder import (
-        decode_capture, decode_capture_fast, decode_captures)
+        PhyDecoder, decode_capture, decode_capture_fast, decode_captures)
     from trackmaker_tpu_torch.phy.encoder import PhyEncoder
     from trackmaker_tpu_torch.phy.line_coding import preamble_waveform
     from trackmaker_tpu_torch.sync import auto_xcorr
@@ -2076,7 +2438,6 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     card = hp.card_line()
     log(card)
-    name = torch.cuda.get_device_name(0)
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     for path in _build.build_all():
@@ -2109,6 +2470,11 @@ def main() -> None:
     frames_s, starts_s, xs = seam_input(torch, stream, cfg4, args.seed + 4, dev)
     robust_in = (search_capture(torch, cfg, dev), gate_capture(torch, cfg, dev),
                  dd_capture(torch, cfg, dev), gate_capture(torch, cfg, dev, quiet=GAP))
+    enc = PhyEncoder(cfg, device=dev)
+    stream_in = stream_capture(lambda i, p: enc.encode_frame(
+        Frame.new_data(i, 1, LOCAL_ADDR, p)).cpu().numpy(), np.random.default_rng(args.seed + 29))
+    mac_link = {"csma": transfer.transfer_over_bus, "gbn": gbn.gbn_transfer,
+                "sr": sr.sr_transfer}
     log(f"flagship input: {b} x {t} samples; fourb5b_b32 input: {b} x {t4} samples; "
         f"equalized_b32 input: {b} x {xe.shape[1]} samples; {N_FRAMES} frames per capture; "
         f"ask_b16 input: {xa.shape[0]} x {xa.shape[1]} samples, {ASK_FRAMES} frames per capture; "
@@ -2116,7 +2482,8 @@ def main() -> None:
         f"{xs.shape[0]} samples, {len(frames_s)} frames; clock search input: "
         f"{robust_in[0][0].shape[0]} samples; timing gate inputs: {robust_in[1][0].shape[0]} "
         f"samples (quiet after the skewed frames) and {robust_in[3][0].shape[0]} (flagship "
-        f"gaps); decision-directed input: {robust_in[2][0].shape[0]} samples")
+        f"gaps); decision-directed input: {robust_in[2][0].shape[0]} samples; stream_latency "
+        f"input: {len(stream_in[2])} samples, {STREAM_FRAMES} frames")
     pre, pre4 = preamble_waveform(cfg), preamble_waveform(cfg4)
     sync = pre[cfg.preamble_len - cfg.sync_len:]
     sync4 = pre4[cfg4.preamble_len - cfg4.sync_len:]
@@ -2242,6 +2609,7 @@ def main() -> None:
                                               dev).items():
         errs[k_name] = max(errs.get(k_name, 0), v)
 
+
     # --- phase 2: the main paths -----------------------------------------------
     xh.xcorr_hits_batched.launches = 0     # no path runs it: it must stay 0
     launches = run_main_path(torch, decode_capture_fast, decode_capture, sd, cfg, x, frames,
@@ -2353,6 +2721,26 @@ def main() -> None:
     for got in robust.values():
         for k_name, n in got.items():
             launches[k_name] = launches.get(k_name, 0) + n
+    stream_launches, _, rec_segments = run_stream_latency(
+        torch, lstream.StreamingDecodePipeline, cfg, stream_in,
+        (xcorr_hits, sd.attempt_manchester, sd.spec_walk), dev)
+    mac_launches, _, mac_in = run_mac_paths(torch, PhyDecoder, mac_link, PhyConfig, MacConfig,
+                                            (xcorr_hits, sd.attempt_manchester, sd.attempt_4b5b,
+                                             sd.spec_walk), dev)
+    for got in (stream_launches, *mac_launches.values()):
+        for k_name, n in got.items():
+            launches[k_name] = launches.get(k_name, 0) + n
+    # phase 1 on what these paths decoded, recorded as they ran: the
+    # latency segments and every MAC run's buffers
+    seg_in = [(torch.from_numpy(lstream.padded_segment(seg)[:-1]).to(dev), len(seg),
+               LOCAL_ADDR, max_frames) for seg, max_frames in rec_segments]
+    err = check_recorded(torch, sd, xcorr_hits, xcorr_hits_plain, cfg, seg_in,
+                         "stream_latency segments")
+    for name, (_, _, opts) in MAC_RUNS.items():
+        c = cfg4 if opts.get("line_coding") == "4b5b" else cfg
+        err = max(err, check_recorded(torch, sd, xcorr_hits, xcorr_hits_plain, c, mac_in[name],
+                                      f"{name} decode buffers"))
+    errs["xcorr_hits"] = max(errs["xcorr_hits"], err)
 
     # --- phase 3: the fallbacks ----------------------------------------------
     enc = PhyEncoder(cfg, device=dev)
@@ -2376,6 +2764,7 @@ def main() -> None:
     check_ask_fallback(torch, ask, ask_spec, acfg, dev)
     check_equalizer_noise(torch, equalizer, cfg, dev, args.seed + 23)
     check_blocked_fallback(torch, stream, decode_capture, cfg4, xs, starts_s)
+    check_stream_fallbacks(torch, PhyDecoder, lstream, cfg, crowded, dev)
 
     # --- phase 4: timings ------------------------------------------------------
     ms = {
@@ -3006,6 +3395,8 @@ def main() -> None:
     }
     for step, fn in robust_steps.items():
         log(f"phase 4: {step}: {time_ms(torch, fn, runs=5):.4f} ms (median of 5) [{card}]")
+    time_stream_paths(torch, sd, PhyDecoder, lstream, cfg, cfg4, mac_in, rec_segments, card,
+                      dev)
     # registers and spills last: cuobjdump runs as a child process, and the
     # profiler's sessions after one lose their last launches
     for src in ("sliding_dot", "xcorr_norm", "xcorr_hits", "spec_walk", "attempt_manchester",
@@ -3058,7 +3449,8 @@ def main() -> None:
          "library_ms": library_ms.get(k_name)}
         for k_name in ms]}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

@@ -8,17 +8,26 @@ ASK/chirp modem's receiver run on an NVIDIA Hopper card through
 hand-written CUDA kernel sources (``csrc/``, thirteen with the tools'),
 built with ``nvcc`` at first use; on CPU tensors every kernel wrapper runs
 its plain PyTorch version.  One long recording decodes in blocks of time
-through ``decode_blocked_single_chip``.  Importing the package touches no
+through ``decode_blocked_single_chip``; live capture decodes through
+``PhyDecoder`` (the chunked feed the MAC polls) and the energy-gated
+``link.stream.StreamingDecodePipeline``, and the link layer moves files
+between simulated nodes with CSMA/stop-and-wait, Go-Back-N or
+Selective-Repeat ARQ over the port's PHY.  Importing the package touches no
 device and builds nothing.
 
 On the CPU, ``tests/test_torch_*.py`` hold each module against the JAX
 package (``tests/test_torch_channel_timing.py`` and
-``tests/test_torch_equalizer_dd.py`` this package's robustness modules);
-on a card, ``python3 chip_smoke.py`` runs every path, its ``phase 2
-(clock_search)``, ``(timing_gate)``, ``(timing_gate, flagship gaps)``,
-``(decode_dd)`` and ``(sweeps)`` lines the robustness ones.
+``tests/test_torch_equalizer_dd.py`` this package's robustness modules,
+``tests/test_torch_phy_decoder_stream.py`` and ``tests/test_torch_link.py``
+its streaming receive path and link layer); on a card, ``python3
+chip_smoke.py`` runs every path, its ``phase 2 (clock_search)``,
+``(timing_gate)``, ``(timing_gate, flagship gaps)``, ``(decode_dd)`` and
+``(sweeps)`` lines the robustness ones, ``phase 2 (stream_latency)`` and
+the ``phase 2 (csma_transfer ...)``, ``(gbn_transfer ...)`` and
+``(sr_transfer ...)`` lines the streaming path and the MAC.
 
-    trackmaker_tpu_torch.core   PhyConfig, bit ops, CRC8, frame codec, block index
+    trackmaker_tpu_torch.core   PhyConfig, MacConfig, bit ops, CRC8, frame codec,
+                                block index
     trackmaker_tpu_torch.dsp    carrier and chirp synthesis, EMA power, the channel
                                 models (noise, gain, clock offset, delay, echo, mix),
                                 the preamble-trained MMSE equalizer and its
@@ -26,8 +35,12 @@ on a card, ``python3 chip_smoke.py`` runs every path, its ``phase 2
                                 and the per-frame timing gate
     trackmaker_tpu_torch.sync   correlation sync, the correlation, normalized-
                                 correlation, row-stats and sliding-dot kernels
-    trackmaker_tpu_torch.phy    line code, encoder, exact and speculative decode;
-                                the ASK modem and its speculative receiver
+    trackmaker_tpu_torch.phy    line code, encoder, exact and speculative decode,
+                                the streaming PhyDecoder; the ASK modem and its
+                                speculative receiver
+    trackmaker_tpu_torch.link   the streaming decode pipeline, the simulated
+                                bus and endpoints, the CSMA, Go-Back-N and
+                                Selective-Repeat nodes and transfers
     trackmaker_tpu_torch.parallel  the blocked decode of one long capture
     trackmaker_tpu_torch.bench  frame loss against noise and clock offset
     trackmaker_tpu_torch.tools  the window health probe, the flagship stage

@@ -1,8 +1,8 @@
 """Moving state between the JAX package and the port.
 
 The system has no weights: its state is the ``PhyConfig`` of the line-coded
-PHY and the ``AskConfig`` of the ASK modem (the pattern tables follow from
-them).  These helpers take plain Python and numpy values,
+PHY, the ``MacConfig`` of the link layer and the ``AskConfig`` of the ASK
+modem (the pattern tables follow from them).  These helpers take plain Python and numpy values,
 so neither side imports the other.
 """
 
@@ -13,7 +13,7 @@ from collections.abc import Mapping
 
 import numpy as np
 
-from trackmaker_tpu_torch.core.config import PhyConfig
+from trackmaker_tpu_torch.core.config import MacConfig, PhyConfig
 from trackmaker_tpu_torch.phy.ask import AskConfig
 from trackmaker_tpu_torch.phy.decoder import DecodedFrames
 
@@ -30,6 +30,12 @@ def phy_config_from_fields(fields: Mapping) -> PhyConfig:
     """The port's PhyConfig from ``dataclasses.asdict`` of the JAX one, or
     any mapping of the same fields; a field the port lacks raises."""
     return _config_from_fields(PhyConfig, fields)
+
+
+def mac_config_from_fields(fields: Mapping) -> MacConfig:
+    """The port's MacConfig from ``dataclasses.asdict`` of the JAX one, or
+    any mapping of the same fields; a field the port lacks raises."""
+    return _config_from_fields(MacConfig, fields)
 
 
 def ask_config_from_fields(fields: Mapping) -> AskConfig:

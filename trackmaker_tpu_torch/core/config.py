@@ -1,6 +1,6 @@
-"""Runtime PHY configuration (counterpart of ``trackmaker_tpu/core/config.py``).
+"""Runtime PHY and MAC configuration (counterpart of ``trackmaker_tpu/core/config.py``).
 
-A field-for-field copy of the JAX package's frozen dataclass and frame
+Field-for-field copies of the JAX package's frozen dataclasses and frame
 constants.  The port cannot import the original: importing any module
 under ``trackmaker_tpu.core`` runs that package's ``__init__``, which pulls
 in jax.  ``tests/test_torch_bitops_framing.py`` holds the two copies equal.
@@ -83,3 +83,17 @@ class PhyConfig:
     def frame_samples(self, data_len: int) -> int:
         """Samples for one encoded frame body (without preamble)."""
         return self.samples_for_bits((PHY_HEADER_BYTES + data_len) * 8)
+
+
+@dataclass(frozen=True)
+class MacConfig:
+    """MAC parameters: carrier sense, backoff and ACK timing."""
+
+    ack_timeout_ms: int = 200
+    energy_threshold: float = 0.5
+    energy_detection_samples: int = 20
+    difs_duration_ms: int = 20
+    cw_min: int = 1
+    cw_max: int = 100
+    slot_time_ms: int = 5
+    max_retries: int = 16

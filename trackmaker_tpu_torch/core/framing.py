@@ -34,6 +34,10 @@ class Frame:
     def new_data(cls, sequence: int, src: int, dst: int, data: bytes) -> "Frame":
         return cls(FRAME_TYPE_DATA, sequence, src, dst, bytes(data))
 
+    @classmethod
+    def new_ack(cls, sequence: int, src: int, dst: int, data: bytes = b"") -> "Frame":
+        return cls(FRAME_TYPE_ACK, sequence, src, dst, bytes(data))
+
     def to_bytes(self) -> bytes:
         n = len(self.data)
         hdr = bytes([

@@ -1,1 +1,2 @@
-"""Line code, encoder, the exact and speculative decoders, and the ASK modem."""
+"""Line code, encoder, the exact and speculative decoders, the streaming
+PhyDecoder, and the ASK modem."""

@@ -11,6 +11,11 @@ stop at an invalid symbol, and then the cursor moves by the valid part
 only, so each 4B5B step decodes its body and checks its CRC in the scan.
 It is the fallback and the oracle of the speculative decode
 (``phy/spec_decode.py``), which ``decode_capture_fast`` runs first.
+
+``PhyDecoder`` is the receiver's chunked-feed facade, the one the MAC
+(``link/``) polls: it buffers samples on the host and decodes the whole
+buffer on every call, through the speculative decode's cursor where it
+applies and the exact scan's elsewhere.
 """
 
 from __future__ import annotations
@@ -303,3 +308,77 @@ def decode_capture_fast(
     else:
         res = decode_captures(cfg, xb, local_addr, max_frames, vlens)
     return res if batched else DecodedFrames(*(f[0] for f in res))
+
+
+class PhyDecoder:
+    """Host streaming facade with the receiver's chunked-feed API.
+
+    Buffers incoming sample chunks (host NumPy) and, on every call that
+    leaves at least a preamble and a header buffered, decodes the whole
+    buffer, zero-padded to a power-of-two bucket of at least 4,096 samples
+    and copied to `device` (the card unless the caller asks for another),
+    with ``valid_len`` its true length.  The speculative decode runs where
+    ``spec_decode.spec_supported_cfg`` holds (its kernels on the card, their
+    plain versions on the CPU); a row it flags not ``ok``, and every other
+    configuration, takes the exact scan.  Either way the searched prefix is
+    dropped after the call, so a frame cut by the buffer's end is decoded
+    again, whole, on a later call.  ``decode_calls`` counts the decodes and
+    ``exact_calls`` those the exact scan made.
+    """
+
+    def __init__(self, cfg: PhyConfig, local_addr: int,
+                 max_frames_per_call: int = 64,
+                 device: torch.device | str = "cuda"):
+        self.cfg = cfg
+        self.local_addr = local_addr
+        self.max_frames = max_frames_per_call
+        self.device = torch.device(device)
+        self._buf = np.zeros(0, dtype=np.float32)
+        self.decode_calls = 0
+        self.exact_calls = 0
+
+    def reset(self) -> None:
+        self._buf = np.zeros(0, dtype=np.float32)
+
+    @staticmethod
+    def _bucket(n: int, min_bucket: int = 4096) -> int:
+        b = min_bucket
+        while b < n:
+            b *= 2
+        return b
+
+    def process_samples(self, samples) -> list[Frame]:
+        self._buf = np.concatenate(
+            [self._buf, np.asarray(samples, np.float32)])
+        if len(self._buf) < self.cfg.preamble_len + self.cfg.header_samples:
+            return []
+        n = len(self._buf)
+        padded = np.zeros(self._bucket(n), np.float32)
+        padded[:n] = self._buf
+        res, searched = self._decode_with_cursor(
+            torch.from_numpy(padded).to(self.device), n)
+        frames = res.to_frames()
+        # drain the searched prefix even when nothing decoded: a noise-only
+        # stream would otherwise grow the buffer and decode it again and again
+        if searched > 0:
+            self._buf = self._buf[searched:]
+        return frames
+
+    def _decode_with_cursor(self, padded: torch.Tensor, n: int) -> tuple[DecodedFrames, int]:
+        """(frames, searched_until) of one padded buffer of true length n."""
+        from trackmaker_tpu_torch.phy import spec_decode
+
+        self.decode_calls += 1
+        if spec_decode.spec_supported_cfg(self.cfg):
+            res, ok, searched, _ = spec_decode.decode_capture_spec(
+                self.cfg, padded[None], self.local_addr,
+                max_frames=self.max_frames, valid_len=n, with_cursor=True)
+            ok_row, searched_row = torch.stack(
+                [ok[0].to(torch.int32), searched[0]]).tolist()
+            if ok_row:
+                return DecodedFrames(*(f[0] for f in res)), searched_row
+        self.exact_calls += 1
+        res, searched, _ = decode_capture(
+            self.cfg, padded, self.local_addr, max_frames=self.max_frames,
+            valid_len=n, with_cursor=True)
+        return res, searched
