@@ -102,7 +102,8 @@ Phases, each raising on failure (non-zero exit):
    ``StreamingDecodePipeline._decode_segment`` and
    ``PhyDecoder._decode_with_cursor`` (the latency warm pass's padded
    segments; the padded buffers of every decode call of the seven MAC
-   runs, each at its true length, address and max_frames), stacked by
+   runs and of the five network runs, each at its true length, address
+   and max_frames), stacked by
    bucket, address and max_frames, each path's longest buffer also alone
    (B = 1, as the path launches it); these checks run once phase 2 has
    read its counts;
@@ -167,7 +168,19 @@ Phases, each raising on failure (non-zero exit):
    1,024 B clean and 4,096 B at sigma 0.45 with the energy threshold at
    3.0): the data arrives and each stats dict equals MAC_EXPECT, the JAX
    package's, with airtime over wall time, decode calls and their
-   time;
+   time; then the network layer (``link/interface.py``, ``net/``), each
+   run with #1, #3, #5 and #4's counts set to 0 just before it: the runs of
+   PING_RUNS through ``run_ping_simulation`` on the card (3 pings; 2 of
+   300 B, over the 200 B MTU, fragmented and reassembled; 3 at sigma 0.12;
+   2 over a 4B5B stream PHY that ``phy_factory`` builds from PhyEncoder
+   and PhyDecoder, ``LineCodedPhy``) and the router run (an acoustic
+   node pings a host on the router's WiFi loopback through ``Router``
+   and an ``AcousticRouterPort``, as tests/test_router_acoustic.py
+   does): each result equals PING_EXPECT, the JAX package's, every ping
+   comes back, the router's reply has the WiFi host's address, ICMP type
+   0, the payload and a TTL under 64, and each run ends within 30 s of
+   wall time (the reassembler's one wall-clock rule), logged with its
+   airtime over wall time, decode calls, exact scans and ms a call;
 3. the fallbacks: a Manchester capture that overflows the candidate table,
    a 4B5B capture with a zeroed level inside an attempted frame, and an
    ASK capture of 150 back-to-back chirps before three frames (more fire
@@ -236,7 +249,8 @@ Phases, each raising on failure (non-zero exit):
 The line before the last is a JSON object with the kernels' measurements:
 ``launches`` counts each kernel's launches in the main-path runs of
 phase 2 (the line-coded paths, the blocked runs, the profiler path, the
-robustness paths, the streaming latency run and the MAC runs; the
+robustness paths, the streaming latency run, the MAC runs and the network
+runs; the
 probe's in phase 0's health run; the
 batch-folded hit rows are on no path and count 0),
 ``ms`` and ``plain_ms`` time it at the shapes of its first path, and
@@ -257,6 +271,7 @@ import os
 import statistics
 import sys
 import time
+from functools import partial
 
 import numpy as np
 
@@ -361,6 +376,50 @@ MAC_EXPECT = {
     "sr_transfer, noise": {"airtime_s": 6.544, "throughput_bps": 5007.334963325184,
                            "retransmit_bursts": 4, "frames_retransmitted": 11, "window": 8},
 }
+# the network layer's runs over the port's PHY (BASELINE.json config 5):
+# name -> run_ping_simulation's keywords, with line_coding for a stream PHY
+# that phy_factory builds over PhyEncoder and PhyDecoder (LineCodedPhy);
+# the clean and fragmented pings are tests/test_ping.py's, the noisy one at
+# tests/test_link.py's sigma; "router" is tests/test_router_acoustic.py's
+# scenario (router_run)
+PING_RUNS = {
+    "ping": {"count": 3, "max_duration_s": 30.0},
+    "ping, fragments": {"count": 2, "payload_size": 300, "max_duration_s": 60.0},
+    "ping, noise": {"count": 3, "noise_std": 0.12, "seed": 5, "max_duration_s": 60.0},
+    "ping, 4b5b": {"count": 2, "line_coding": "4b5b"},
+    "router": {},
+}
+ROUTER_PAYLOAD = b"crossing segments"
+# the JAX package's result of each network run (tests/test_torch_ping.py,
+# tests/test_torch_router.py); the port's must equal it, on the card as on
+# the CPU
+PING_EXPECT = {
+    "ping": {"sent": 3, "received": 3, "loss_pct": 0.0, "rtt_min_ms": 208.0,
+             "rtt_avg_ms": 208.0, "rtt_max_ms": 208.0, "responded": 3,
+             "airtime_s": 2.2106666666666666},
+    "ping, fragments": {"sent": 2, "received": 2, "loss_pct": 0.0, "rtt_min_ms": 856.0,
+                        "rtt_avg_ms": 861.3333333333333, "rtt_max_ms": 866.6666666666666,
+                        "responded": 2, "airtime_s": 1.8693333333333333},
+    "ping, noise": {"sent": 3, "received": 3, "loss_pct": 0.0, "rtt_min_ms": 208.0,
+                    "rtt_avg_ms": 208.0, "rtt_max_ms": 208.0, "responded": 3,
+                    "airtime_s": 2.2106666666666666},
+    "ping, 4b5b": {"sent": 2, "received": 2, "loss_pct": 0.0, "rtt_min_ms": 152.0,
+                   "rtt_avg_ms": 157.33333333333331, "rtt_max_ms": 162.66666666666666,
+                   "responded": 2, "airtime_s": 1.1653333333333333},
+    "router": {"pings_seen": 1, "forwarded": 2, "dropped": 0, "airtime_s": 0.184,
+               "reply": "4500002d000000003f01f77bc0a80202c0a80102000075fa0099000163726f737369"
+                        "6e67207365676d656e7473",
+               "frame_type": 1, "src_mac": 1, "src": "192.168.2.2", "dst": "192.168.1.2",
+               "ttl": 63, "icmp_type": 0, "payload": b"crossing segments"},
+}
+
+# the modules the network runs use, by short name, under either package
+NET_MODULES = {"config": "core.config", "audio": "link.audio", "bus": "link.bus",
+               "interface": "link.interface", "encoder": "phy.encoder",
+               "decoder": "phy.decoder", "ethernet": "net.ethernet", "icmp": "net.icmp",
+               "ip": "net.ip", "ports": "net.ports", "router": "net.router",
+               "tools": "net.tools"}
+WALL_LIMIT_S = 30.0     # the reassembler drops a partial packet after 30 s of wall time
 SWEEP_B, SWEEP_T = 3, 50_001  # the tap sweep's captures: T not a multiple of a block's lags
 # the raw sliding dot's sweep: every remainder of an 8-tap step near 8, 16
 # and 128, the dense dots' 30, the chirp's 440 and the kernel's last 512
@@ -548,6 +607,131 @@ def mac_run(name: str, link, phy_config, mac_config, **kw):
     data = bytes(range(256)) * (n_bytes // 256)
     received, stats = link[arq](data, cfg=cfg, mac_cfg=mac_cfg, **opts, **kw)
     return data, received, stats
+
+
+def net_modules(package: str) -> dict:
+    """The modules of NET_MODULES under `package`, by short name."""
+    return {short: importlib.import_module(f"{package}.{path}")
+            for short, path in NET_MODULES.items()}
+
+
+class LineCodedPhy:
+    """A stream PHY over a package's PhyEncoder and PhyDecoder: the duck
+    type (encode_frames, process_samples, reset) that phy_factory hands
+    AcousticInterface."""
+
+    def __init__(self, encoder, decoder):
+        self.encoder, self.decoder = encoder, decoder
+
+    def encode_frames(self, frames):
+        return self.encoder.encode_frames(frames)
+
+    def process_samples(self, samples):
+        return self.decoder.process_samples(samples)
+
+    def reset(self) -> None:
+        self.decoder.reset()
+
+
+def ping_run(name: str, mods, **kw) -> dict:
+    """The stats dict of PING_RUNS[name] through the run_ping_simulation of
+    `mods` (net_modules of a package); `kw` goes to it and to a stream
+    PHY's encoder and decoder (the port's `device`)."""
+    opts = dict(PING_RUNS[name])
+    coding = opts.pop("line_coding", None)
+    if coding is not None:
+        cfg = mods["config"].PhyConfig(line_coding=coding)
+        opts["phy_factory"] = lambda mac: LineCodedPhy(
+            mods["encoder"].PhyEncoder(cfg, **kw), mods["decoder"].PhyDecoder(cfg, mac, 8, **kw))
+    return mods["tools"].run_ping_simulation(**opts, **kw)
+
+
+class WifiHost:
+    """A host on the router's WiFi loopback (192.168.2.2, MAC ...:03): it
+    answers ARP for its address and echoes every ICMP echo request."""
+
+    def __init__(self, mods, port):
+        self.eth, self.icmp, self.ip = mods["ethernet"], mods["icmp"], mods["ip"]
+        self.port = port
+        self.addr = bytes([192, 168, 2, 2])
+        self.mac = bytes([0, 0, 0, 0, 0, 3])
+        self.pings_seen = 0
+
+    def poll(self) -> None:
+        eth, icmp_m, ip = self.eth, self.icmp, self.ip
+        while (raw := self.port.recv()) is not None:
+            frame = eth.EthernetFrame.from_bytes(raw)
+            if frame.ethertype == eth.ETHERTYPE_ARP:
+                arp = eth.ArpPacket.from_bytes(frame.payload)
+                if arp.opcode == eth.ARP_REQUEST and bytes(arp.target_ip) == self.addr:
+                    self.port.send(eth.ArpPacket.reply(self.mac, self.addr, arp.sender_mac,
+                                                       arp.sender_ip).to_ethernet())
+            elif frame.ethertype == eth.ETHERTYPE_IPV4:
+                hdr = ip.Ipv4Header.from_bytes(frame.payload)
+                if hdr.protocol != 1:
+                    continue
+                icmp = icmp_m.IcmpPacket.from_bytes(frame.payload[hdr.ihl_bytes:])
+                if icmp.icmp_type != icmp_m.ICMP_ECHO_REQUEST:
+                    continue
+                self.pings_seen += 1
+                reply = icmp_m.IcmpPacket.echo_reply(icmp.identifier, icmp.sequence_number,
+                                                     icmp.payload)
+                out = ip.build_ipv4_packet(1, hdr.dest_ip, hdr.source_ip, reply.to_bytes())
+                self.port.send(eth.EthernetFrame(frame.src_mac, self.mac, eth.ETHERTYPE_IPV4,
+                                                 out).to_bytes())
+
+
+def router_run(mods, **kw) -> dict:
+    """The router run of PING_RUNS through `mods` (net_modules of a
+    package): the acoustic node 192.168.1.2 (MAC 2) pings the WiFi host
+    192.168.2.2 through a Router whose acoustic side (MAC 1) is an
+    AcousticRouterPort and whose WiFi side a LoopbackPort pair, until the
+    reply comes back over sound or 30 s of airtime pass; `kw` goes to both
+    AcousticInterfaces (the port's `device`).  Returns the reply's fields
+    and the router's and the host's counters."""
+    config, rt, ports = mods["config"], mods["router"], mods["ports"]
+    cfg, mac_cfg, net_cfg = config.PhyConfig(), config.MacConfig(), config.NetConfig()
+    bus = mods["bus"].SimulatedBus()
+    ep_node, ep_router = mods["audio"].AudioEndpoint("node1"), mods["audio"].AudioEndpoint("router")
+    iface = mods["interface"].AcousticInterface
+    if_node = iface(ep_node, cfg, mac_cfg, net_cfg, local_mac=2, **kw)
+    if_router = iface(ep_router, cfg, mac_cfg, net_cfg, local_mac=1, **kw)
+    router = rt.Router(rt.RouterConfig(acoustic_mac=1))
+    router.register_port(rt.InterfaceType.ACOUSTIC, ports.AcousticRouterPort(if_router))
+    wifi_mine, wifi_theirs = ports.LoopbackPort.pair()
+    router.register_port(rt.InterfaceType.WIFI, wifi_mine)
+    host = WifiHost(mods, wifi_theirs)
+
+    class Node:
+        def __init__(self, *tickers):
+            self.tickers = tickers
+
+        def on_tick(self, now):
+            for tick in self.tickers:
+                tick(now)
+
+    bus.attach(ep_node, Node(if_node.on_tick))
+    bus.attach(ep_router, Node(if_router.on_tick, lambda now: router.poll(),
+                               lambda now: host.poll()))
+    echo = mods["icmp"].IcmpPacket.echo_request(0x99, 1, ROUTER_PAYLOAD)
+    if_node.send_packet(mods["ip"].build_ipv4_packet(
+        1, bytes([192, 168, 1, 2]), bytes([192, 168, 2, 2]), echo.to_bytes(), ttl=64),
+        dest_mac=1, frame_type=config.FRAME_TYPE_DATA)
+    reply = None
+    for _ in range(int(30 * bus.sample_rate / bus.chunk)):
+        bus.step()
+        if (reply := if_node.recv_packet()) is not None:
+            break
+    out = {"pings_seen": host.pings_seen, "forwarded": router.forwarded,
+           "dropped": router.dropped, "airtime_s": bus.now / bus.sample_rate, "reply": None}
+    if reply is not None:
+        packet, frame_type, src_mac = reply
+        hdr = mods["ip"].Ipv4Header.from_bytes(packet)
+        icmp = mods["icmp"].IcmpPacket.from_bytes(packet[hdr.ihl_bytes:])
+        out.update(reply=packet.hex(), frame_type=frame_type, src_mac=src_mac,
+                   src=".".join(map(str, hdr.source_ip)), dst=".".join(map(str, hdr.dest_ip)),
+                   ttl=hdr.ttl, icmp_type=icmp.icmp_type, payload=icmp.payload)
+    return out
 
 
 def stream_capture(encode_frame, rng):
@@ -1398,6 +1582,21 @@ class DecodeTally:
     def __exit__(self, *exc):
         self.cls.process_samples = self.orig
 
+    def figures(self, airtime_s: float, wall_s: float) -> dict:
+        return {"airtime_s": airtime_s, "wall_s": wall_s, "calls": self.calls,
+                "exact": self.exact, "ms_per_call": self.seconds * 1e3 / self.calls}
+
+
+def recorded_run(torch, phy_decoder, kernels, run):
+    """(run(), its launches of `kernels`, its DecodeTally, the buffers its
+    PhyDecoders decoded [(f32[bucket] on the card, true length, local
+    address, max_frames)], wall seconds), the counts set to 0 just before."""
+    with DecodeTally(phy_decoder) as tally, Recorder(
+            phy_decoder, "_decode_with_cursor",
+            lambda dec, padded, n: (padded, n, dec.local_addr, dec.max_frames)) as rec:
+        out, launches, wall = count_launches(torch, kernels, run)
+    return out, launches, tally, rec.kept, wall
+
 
 def time_stream_paths(torch, sd, phy_decoder, lstream, cfg, cfg4, mac_in, segments, card,
                       dev) -> None:
@@ -1499,26 +1698,67 @@ def run_mac_paths(torch, phy_decoder, link, phy_config, mac_config, kernels,
     address, max_frames)])."""
     launches, figs, inputs = {}, {}, {}
     for name, (arq, n_bytes, opts) in MAC_RUNS.items():
-        with DecodeTally(phy_decoder) as tally, Recorder(
-                phy_decoder, "_decode_with_cursor",
-                lambda dec, padded, n: (padded, n, dec.local_addr, dec.max_frames)) as rec:
-            (data, received, stats), launches[name], wall = count_launches(
-                torch, kernels, lambda: mac_run(name, link, phy_config, mac_config, device=dev))
-        inputs[name] = rec.kept
+        (data, received, stats), launches[name], tally, inputs[name], wall = recorded_run(
+            torch, phy_decoder, kernels,
+            partial(mac_run, name, link, phy_config, mac_config, device=dev))
         require(received == data, f"{name}: {len(received)} of {len(data)} bytes arrived intact")
         require(stats == MAC_EXPECT[name],
                 f"{name} stats {stats}, the JAX package's {MAC_EXPECT[name]}")
         attempt = "attempt_4b5b" if opts.get("line_coding") == "4b5b" else "attempt_manchester"
         for k_name in ("xcorr_hits", attempt, "spec_walk"):
             require(launches[name][k_name] > 0, f"the {name} path never launched {k_name}")
-        figs[name] = {"airtime_s": stats["airtime_s"], "wall_s": wall, "calls": tally.calls,
-                      "exact": tally.exact, "ms_per_call": tally.seconds * 1e3 / tally.calls}
+        figs[name] = tally.figures(stats["airtime_s"], wall)
         log(f"phase 2 ({name}): {arq} transfer of {n_bytes} B took {wall * 1e3:.1f} ms of wall "
             f"time for {stats['airtime_s']:.4f} s of airtime (airtime / wall "
             f"{stats['airtime_s'] / wall:.3f}); {tally.calls} decode calls ({tally.exact} by "
             f"the exact scan), {figs[name]['ms_per_call']:.3f} ms a call; kernel launches "
             f"{launches[name]}; the data arrived and the stats equal MAC_EXPECT, the JAX "
             f"package's: {stats}")
+    return launches, figs, inputs
+
+
+def run_ping_paths(torch, phy_decoder, mods, kernels, dev) -> tuple[dict, dict, dict]:
+    """Phase 2's network runs (PING_RUNS) through the port's entry points
+    on the card (`mods`: its net_modules), each with the launch counts set
+    to 0 just before it: each result must equal PING_EXPECT, the JAX
+    package's, every ping come back, the router's reply carry the WiFi
+    host's address, ICMP type 0, the payload and a TTL under 64, and each
+    run end within WALL_LIMIT_S of wall time.  Returns (each run's launches
+    of `kernels`, its figures, the buffers its PhyDecoders decoded
+    [(f32[bucket] on the card, true length, local address, max_frames)])."""
+    launches, figs, inputs = {}, {}, {}
+    for name, opts in PING_RUNS.items():
+        run = (partial(router_run, mods, device=dev) if name == "router"
+               else partial(ping_run, name, mods, device=dev))
+        got, launches[name], tally, inputs[name], wall = recorded_run(
+            torch, phy_decoder, kernels, run)
+        require(got == PING_EXPECT[name], f"{name}: {got}, the JAX package's {PING_EXPECT[name]}")
+        if name == "router":
+            require(got["src"] == "192.168.2.2" and got["dst"] == "192.168.1.2"
+                    and got["icmp_type"] == 0 and got["payload"] == ROUTER_PAYLOAD
+                    and got["ttl"] < 64 and got["pings_seen"] == 1,
+                    f"the router run's reply is wrong: {got}")
+            what = (f"the echo crossed the router to the WiFi host and its reply came back over "
+                    f"sound: {got['src']} -> {got['dst']}, ICMP type {got['icmp_type']}, TTL "
+                    f"{got['ttl']}, payload {got['payload']!r}; router forwarded "
+                    f"{got['forwarded']}, dropped {got['dropped']}")
+        else:
+            require(got["received"] == got["sent"] == got["responded"] == opts["count"],
+                    f"{name}: {got['received']} of {got['sent']} pings came back")
+            what = (f"{got['received']} of {got['sent']} pings back, RTT min / avg / max "
+                    f"{got['rtt_min_ms']:.3f} / {got['rtt_avg_ms']:.3f} / "
+                    f"{got['rtt_max_ms']:.3f} ms")
+        require(wall < WALL_LIMIT_S, f"{name} took {wall:.1f} s of wall time: the reassembler "
+                f"drops a partial packet after {WALL_LIMIT_S:.0f} s")
+        attempt = "attempt_4b5b" if opts.get("line_coding") == "4b5b" else "attempt_manchester"
+        for k_name in ("xcorr_hits", attempt, "spec_walk"):
+            require(launches[name][k_name] > 0, f"the {name} path never launched {k_name}")
+        figs[name] = tally.figures(got["airtime_s"], wall)
+        log(f"phase 2 ({name}): {got['airtime_s']:.4f} s of airtime took {wall * 1e3:.1f} ms of "
+            f"wall time (airtime / wall {got['airtime_s'] / wall:.3f}, under "
+            f"{WALL_LIMIT_S:.0f} s); {tally.calls} decode calls ({tally.exact} by the exact "
+            f"scan), {figs[name]['ms_per_call']:.3f} ms a call; kernel launches "
+            f"{launches[name]}; {what}; the result equals PING_EXPECT, the JAX package's")
     return launches, figs, inputs
 
 
@@ -2727,11 +2967,14 @@ def main() -> None:
     mac_launches, _, mac_in = run_mac_paths(torch, PhyDecoder, mac_link, PhyConfig, MacConfig,
                                             (xcorr_hits, sd.attempt_manchester, sd.attempt_4b5b,
                                              sd.spec_walk), dev)
-    for got in (stream_launches, *mac_launches.values()):
+    ping_launches, _, ping_in = run_ping_paths(
+        torch, PhyDecoder, net_modules("trackmaker_tpu_torch"),
+        (xcorr_hits, sd.attempt_manchester, sd.attempt_4b5b, sd.spec_walk), dev)
+    for got in (stream_launches, *mac_launches.values(), *ping_launches.values()):
         for k_name, n in got.items():
             launches[k_name] = launches.get(k_name, 0) + n
     # phase 1 on what these paths decoded, recorded as they ran: the
-    # latency segments and every MAC run's buffers
+    # latency segments and every MAC and network run's buffers
     seg_in = [(torch.from_numpy(lstream.padded_segment(seg)[:-1]).to(dev), len(seg),
                LOCAL_ADDR, max_frames) for seg, max_frames in rec_segments]
     err = check_recorded(torch, sd, xcorr_hits, xcorr_hits_plain, cfg, seg_in,
@@ -2739,6 +2982,10 @@ def main() -> None:
     for name, (_, _, opts) in MAC_RUNS.items():
         c = cfg4 if opts.get("line_coding") == "4b5b" else cfg
         err = max(err, check_recorded(torch, sd, xcorr_hits, xcorr_hits_plain, c, mac_in[name],
+                                      f"{name} decode buffers"))
+    for name, opts in PING_RUNS.items():
+        c = cfg4 if opts.get("line_coding") == "4b5b" else cfg
+        err = max(err, check_recorded(torch, sd, xcorr_hits, xcorr_hits_plain, c, ping_in[name],
                                       f"{name} decode buffers"))
     errs["xcorr_hits"] = max(errs["xcorr_hits"], err)
 

@@ -38,9 +38,14 @@ robustness paths on the card (clock search, timing gate,
 decision-directed decode): every field but the correlation equal to the
 CPU's run; ``clock_offset`` bit for bit; the dense-hit extraction exactly."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from trackmaker_tpu_torch import PhyConfig, _build, decode_blocked_exact, decode_blocked_single_chip
 from trackmaker_tpu_torch.core.framing import Frame
@@ -115,6 +120,59 @@ from test_torch_tiles_streams_design import (
     stream_edge_input,
     tile_edge_input,
 )
+
+
+CSRC = Path(_build.__file__).parent / "csrc"
+
+
+class CardWork(TorchDispatchMode):
+    """Every operator call of this thread that touches a tensor on the card:
+    the copies from the host to the card (`h2d`) and the calls that run
+    work there (`work`: any call but allocating a tensor or viewing one).
+    A dispatch mode sees each operator call, so none is lost, where a
+    profiler's trace can drop events.  The kernels themselves launch
+    through ctypes, past the dispatcher: each wrapper's `launches` counts
+    them, and `csrc_copies` reads what their sources could copy."""
+
+    ALLOC = frozenset({"aten.empty", "aten.empty_strided", "aten.empty_like", "aten.new_empty",
+                       "aten.new_empty_strided"})
+
+    def __init__(self, device_type: str = "cuda"):
+        super().__init__()
+        self.device_type = device_type
+        self.h2d, self.work = [], []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = str(func.overloadpacket)
+        tensors = [t for t in tree_leaves((args, kwargs, out)) if isinstance(t, torch.Tensor)]
+        if any(t.device.type == self.device_type for t in tensors):
+            if name in ("aten._to_copy", "aten.copy_"):
+                src, dst = (args[1], args[0]) if name == "aten.copy_" else (args[0], out)
+                if src.device.type == "cpu" and dst.device.type == self.device_type:
+                    self.h2d.append(name)
+                    return out
+            if name not in self.ALLOC and not func.is_view:
+                self.work.append(name)
+        return out
+
+
+def csrc_copies(*sources: str) -> list[str]:
+    """The CUDA copy calls (``cudaMemcpy*``, ``cuMemcpy*``) in
+    csrc/<source>.cu and the headers it includes from csrc/: a kernel's C
+    entry can copy host to device only through one."""
+    found = []
+    for source in sources:
+        text = (CSRC / f"{source}.cu").read_text()
+        for header in re.findall(r'#include "([^"]+)"', text):
+            text += (CSRC / header).read_text()
+        found += [f"{source}: {m}" for m in re.findall(r"\bcu(?:da)?Memcpy\w*", text)]
+    return found
+
+
+def launches_of(*wrappers) -> list[int]:
+    """Each wrapper's launches so far, its shared-capture form's included."""
+    return [w.launches + getattr(w, "shared_launches", 0) for w in wrappers]
 from test_torch_walk_attempt_design import (
     ATTEMPT_FORMS,
     WALK_CS,
@@ -1286,11 +1344,25 @@ def test_xcorr_hits_batched_on_ragged_captures(cuda, bc):
 
 
 @pytest.mark.gpu
+def test_card_work_sees_copies_and_work(cuda):
+    """The counter the copy tests below rely on: a copy to the card is a
+    copy to the card, an op on it and the copy back are work there, an
+    allocation and a view are neither."""
+    with CardWork() as card:
+        x = torch.ones(3).to(cuda)
+        y = torch.empty(4, device=cuda)[1:]
+        x.add_(1)
+        x.cpu()
+    torch.cuda.synchronize()
+    assert card.h2d == ["aten._to_copy"], card.h2d
+    assert card.work == ["aten.add_", "aten._to_copy"], card.work
+    assert y.shape == (3,)
+
+
+@pytest.mark.gpu
 def test_hit_kernel_entries_copy_nothing_to_the_card(cuda):
     """The pattern and the sync word go to the kernel by value: a call on
     captures already on the card makes no host-to-device copy."""
-    from torch.profiler import ProfilerActivity, profile
-
     x = torch.from_numpy(_ragged()).to(cuda)
     vlen = torch.full((3,), RAGGED_T, dtype=torch.int32, device=cuda)
     calls = (lambda: xcorr_hits(x, PRE, THR, emit_corr=True),
@@ -1299,13 +1371,15 @@ def test_hit_kernel_entries_copy_nothing_to_the_card(cuda):
     for call in calls:
         call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    wrappers = (xcorr_hits, xcorr_hits_batched, xcorr_hits_refine)
+    before = launches_of(*wrappers)
+    with CardWork() as card:
         for call in calls:
             call()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()]
-    assert sum("xcorr_hits_kernel" in n for n in names) >= len(calls), names
-    assert not [n for n in names if "HtoD" in n or "cudaMemcpy" in n], names
+    torch.cuda.synchronize()
+    assert launches_of(*wrappers) == [n + 1 for n in before]
+    assert not card.h2d, card.h2d
+    assert not csrc_copies("xcorr_hits")
 
 
 # The raw sliding dot and the normalized correlation's row stats on the
@@ -1405,8 +1479,6 @@ def test_rowstats_break_planted_ties_to_the_first_lag(cuda):
 def test_sliding_dot_and_normalized_kernels_copy_nothing_to_the_card(cuda):
     """The pattern goes to each kernel by value: a call on captures already
     on the card makes no host-to-device copy."""
-    from torch.profiler import ProfilerActivity, profile
-
     x = torch.from_numpy(_ragged()).to(cuda)
     chirp = chirp_np(440)
     calls = (lambda: sliding_dot_scaled(x, chirp, 1 / 200),
@@ -1415,16 +1487,16 @@ def test_sliding_dot_and_normalized_kernels_copy_nothing_to_the_card(cuda):
     for call in calls:
         call()
     torch.cuda.synchronize()
-    # three rounds: the profiler can drop the first kernel events of a session
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    wrappers = (sliding_dot_scaled, normalized_xcorr_dense, xcorr_rowstats)
+    before = launches_of(*wrappers)
+    with CardWork() as card:
         for _ in range(3):
             for call in calls:
                 call()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()]
-    for kernel in ("sliding_dot_kernel", "normalized_xcorr_kernel", "xcorr_rowstats_kernel"):
-        assert sum(kernel in n for n in names) >= 1, (kernel, names)
-    assert not [n for n in names if "HtoD" in n or "cudaMemcpy" in n], names
+    torch.cuda.synchronize()
+    assert launches_of(*wrappers) == [n + 3 for n in before]
+    assert not card.h2d, card.h2d
+    assert not csrc_copies("sliding_dot", "xcorr_norm")
 
 
 # The walk as a successor-table chase by pointer doubling and the Manchester
@@ -1485,8 +1557,6 @@ def test_walk_and_attempt_kernels_copy_nothing_to_the_card(cuda):
     """The sync word goes to the attempt kernel by value, and the walk
     writes every field it returns in its one launch: no call copies host to
     device, and a walk call launches one kernel and nothing else."""
-    from torch.profiler import ProfilerActivity, profile
-
     inputs = attempt_edge_inputs(cuda)
     table = [t.to(cuda) for t in _tables(np.random.default_rng(4))[:3]]
     calls = [lambda form=form: attempt_call(form)[0](inputs[form][0], *inputs[form][1])
@@ -1494,28 +1564,26 @@ def test_walk_and_attempt_kernels_copy_nothing_to_the_card(cuda):
     for call in calls:
         call()
     torch.cuda.synchronize()
-    # three rounds: the profiler can drop the first kernel events of a session
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    wrappers = (sd.attempt_manchester, sd.attempt_manchester_fold, sd.spec_walk)
+    before = launches_of(*wrappers)
+    with CardWork() as card:
         for _ in range(3):
             for call in calls:
                 call()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()]
-    for kernel in ("attempt_manchester_kernel", "spec_walk_kernel"):
-        assert sum(kernel in n for n in names) >= 1, (kernel, names)
-    assert not [n for n in names if "HtoD" in n or "cudaMemcpy" in n], names
+    torch.cuda.synchronize()
+    # each round: two forms of each attempt (a capture a row, one shared), one walk
+    assert launches_of(*wrappers) == [before[0] + 6, before[1] + 6, before[2] + 3]
+    assert not card.h2d, card.h2d
+    assert not csrc_copies("attempt_manchester", "spec_walk")
 
     before = sd.spec_walk.launches
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with CardWork() as card:
         for _ in range(3):
             calls[-1]()
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
     assert sd.spec_walk.launches == before + 3
-    on_card = [e.name for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert 1 <= len(on_card) <= 3 and all("spec_walk_kernel" in n for n in on_card), on_card
-    assert sum(n.startswith("cudaLaunchKernel") for n in names) >= 1
-    assert sum(e.name.startswith("cudaLaunchKernel") for e in prof.events()) <= 3
+    assert not card.h2d and not card.work, (card.h2d, card.work)
+    assert (CSRC / "spec_walk.cu").read_text().count("<<<") == 1    # one launch a call
 
 
 # The 4B5B attempt staged by the copy engine and the ASK walk by binary
@@ -1577,30 +1645,25 @@ def test_4b5b_attempt_and_ask_walk_copy_nothing_to_the_card(cuda):
     """The sync word goes to the 4B5B attempt kernel by value and the walk
     reads only its table: no call copies host to device, and each call
     launches its one kernel and nothing else."""
-    from torch.profiler import ProfilerActivity, profile
-
     inputs = fourb5b_edge_inputs(cuda)
     table = ask_edge_tables(97).to(cuda)
     calls = {form: (lambda form=form: attempt_4b5b_call(form)[0](inputs[form][0],
                                                                   *inputs[form][1]),
-                    "attempt_4b5b_kernel") for form in FOURB_FORMS}
-    calls["ask_walk"] = (lambda: ask_spec.ask_walk(table, 72), "ask_walk_kernel")
-    for call, _ in calls.values():
+                    attempt_4b5b_call(form)[0], "attempt_4b5b") for form in FOURB_FORMS}
+    calls["ask_walk"] = (lambda: ask_spec.ask_walk(table, 72), ask_spec.ask_walk, "ask_walk")
+    for call, _, _ in calls.values():
         call()
     torch.cuda.synchronize()
-    for what, (call, kernel) in calls.items():
-        # three calls: the profiler can drop the first kernel events of a session
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    for what, (call, wrapper, source) in calls.items():
+        before = launches_of(wrapper)[0]
+        with CardWork() as card:
             for _ in range(3):
                 call()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()]
-        assert not [n for n in names if "HtoD" in n or "cudaMemcpy" in n], (what, names)
-        on_card = [e.name for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        assert 1 <= len(on_card) <= 3 and all(kernel in n for n in on_card), (what, on_card)
-        assert 1 <= sum(n.startswith("cudaLaunchKernel") for n in names) <= 3, (what, names)
-
+        torch.cuda.synchronize()
+        assert launches_of(wrapper)[0] == before + 3, what
+        assert not card.h2d and not card.work, (what, card.h2d, card.work)
+        assert not csrc_copies(source), what
+        assert (CSRC / f"{source}.cu").read_text().count("<<<") == 1, what   # one launch a call
 
 
 # The record chain as warp scans over a tile already loaded and the fire
@@ -1670,36 +1733,30 @@ def test_ask_fire_and_chain_take_every_window_and_width(cuda):
 def test_ask_fire_and_chain_copy_nothing_to_the_card(cuda):
     """Each call launches its one kernel and nothing else, and copies
     nothing host to device."""
-    from torch.profiler import ProfilerActivity, profile
-
     sync, upd = fire_edge_inputs(201, 339_453, device=cuda)
     vals, base = (a.to(cuda) for a in chain_edge_rows(1024, 200))
-    calls = {"ask_fire": lambda: ask_spec.dense_fire_candidates(ACFG, sync, upd),
-             "ask_chain": lambda: ask.ask_chain(vals, base, 200)}
-    for call in calls.values():
+    calls = {"ask_fire": (lambda: ask_spec.dense_fire_candidates(ACFG, sync, upd),
+                          ask_spec.dense_fire_candidates),
+             "ask_chain": (lambda: ask.ask_chain(vals, base, 200), ask.ask_chain)}
+    for call, _ in calls.values():
         call()
     torch.cuda.synchronize()
-    for what, call in calls.items():
-        # three calls: the profiler can drop the first kernel events of a session
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    for what, (call, wrapper) in calls.items():
+        before = wrapper.launches
+        with CardWork() as card:
             for _ in range(3):
                 call()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()]
-        assert not [n for n in names if "HtoD" in n or "cudaMemcpy" in n], (what, names)
-        on_card = [e.name for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        assert 1 <= len(on_card) <= 3 and all(f"{what}_kernel" in n for n in on_card), (what, on_card)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 3, what
+        assert not card.h2d and not card.work, (what, card.h2d, card.work)
+        assert not csrc_copies(what), what
+        assert (CSRC / f"{what}.cu").read_text().count("<<<") == 1, what   # one launch a call
 
 
 @pytest.mark.gpu
 def test_xcorr_hits_2s_copies_nothing_to_the_card(cuda):
     """The pattern goes by value: a call on streams already on the card
-    makes no host-to-device copy.  (Last in the file: a profiler session
-    loses launches once a child process has run after an earlier one, and
-    the tools' tests above start ``nvidia-smi``.)"""
-    from torch.profiler import ProfilerActivity, profile
-
+    makes no host-to-device copy."""
     x, pattern = stream_edge_input(129, 50_001, cuda)
     streams = ex.two_streams(x)
     calls = (lambda: ex.xcorr_hits_2s(x, pattern, STREAM_THR, streams=streams),
@@ -1707,10 +1764,11 @@ def test_xcorr_hits_2s_copies_nothing_to_the_card(cuda):
     for call in calls:
         call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    before = ex.xcorr_hits_2s.launches
+    with CardWork() as card:
         for call in calls:
             call()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()]
-    assert sum("xcorr_hits_2s_kernel" in n for n in names) >= len(calls), names
-    assert not [n for n in names if "HtoD" in n or "cudaMemcpy" in n], names
+    torch.cuda.synchronize()
+    assert ex.xcorr_hits_2s.launches == before + len(calls)
+    assert not card.h2d, card.h2d
+    assert not csrc_copies("xcorr_streams")

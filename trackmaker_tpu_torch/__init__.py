@@ -12,21 +12,29 @@ through ``decode_blocked_single_chip``; live capture decodes through
 ``PhyDecoder`` (the chunked feed the MAC polls) and the energy-gated
 ``link.stream.StreamingDecodePipeline``, and the link layer moves files
 between simulated nodes with CSMA/stop-and-wait, Go-Back-N or
-Selective-Repeat ARQ over the port's PHY.  Importing the package touches no
-device and builds nothing.
+Selective-Repeat ARQ over the port's PHY.  Above it, the network layer
+carries IP over sound: ``link.interface.AcousticInterface`` fragments,
+CSMA-sends and reassembles IPv4 packets, and ``net`` holds the IPv4/ICMP,
+fragmentation, ARP, NAT, Ethernet, DNS and conntrack codecs and tables,
+the router with its ports, the TUN bridge and the ping and IP-host tools
+(``net.tools.run_ping_simulation``, a full PHY+MAC+NET round trip).
+Importing the package touches no device and builds nothing.
 
 On the CPU, ``tests/test_torch_*.py`` hold each module against the JAX
 package (``tests/test_torch_channel_timing.py`` and
 ``tests/test_torch_equalizer_dd.py`` this package's robustness modules,
 ``tests/test_torch_phy_decoder_stream.py`` and ``tests/test_torch_link.py``
-its streaming receive path and link layer); on a card, ``python3
+its streaming receive path and link layer, ``tests/test_torch_net.py``,
+``tests/test_torch_ping.py`` and ``tests/test_torch_router.py`` its network
+layer); on a card, ``python3
 chip_smoke.py`` runs every path, its ``phase 2 (clock_search)``,
 ``(timing_gate)``, ``(timing_gate, flagship gaps)``, ``(decode_dd)`` and
 ``(sweeps)`` lines the robustness ones, ``phase 2 (stream_latency)`` and
 the ``phase 2 (csma_transfer ...)``, ``(gbn_transfer ...)`` and
-``(sr_transfer ...)`` lines the streaming path and the MAC.
+``(sr_transfer ...)`` lines the streaming path and the MAC, the ``phase 2
+(ping ...)`` and ``(router)`` lines the network layer.
 
-    trackmaker_tpu_torch.core   PhyConfig, MacConfig, bit ops, CRC8, frame codec,
+    trackmaker_tpu_torch.core   PhyConfig, MacConfig, NetConfig, bit ops, CRC8, frame codec,
                                 block index
     trackmaker_tpu_torch.dsp    carrier and chirp synthesis, EMA power, the channel
                                 models (noise, gain, clock offset, delay, echo, mix),
@@ -40,7 +48,12 @@ the ``phase 2 (csma_transfer ...)``, ``(gbn_transfer ...)`` and
                                 speculative receiver
     trackmaker_tpu_torch.link   the streaming decode pipeline, the simulated
                                 bus and endpoints, the CSMA, Go-Back-N and
-                                Selective-Repeat nodes and transfers
+                                Selective-Repeat nodes and transfers, the
+                                acoustic packet interface
+    trackmaker_tpu_torch.net    IPv4, ICMP, fragmentation, ARP, NAT, Ethernet,
+                                DNS, conntrack, the router and its ports, the
+                                TUN bridge, the ping and IP-host tools
+    trackmaker_tpu_torch.utils  logging setup (``TM_LOG``)
     trackmaker_tpu_torch.parallel  the blocked decode of one long capture
     trackmaker_tpu_torch.bench  frame loss against noise and clock offset
     trackmaker_tpu_torch.tools  the window health probe, the flagship stage

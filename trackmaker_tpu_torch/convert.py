@@ -1,9 +1,10 @@
 """Moving state between the JAX package and the port.
 
 The system has no weights: its state is the ``PhyConfig`` of the line-coded
-PHY, the ``MacConfig`` of the link layer and the ``AskConfig`` of the ASK
-modem (the pattern tables follow from them).  These helpers take plain Python and numpy values,
-so neither side imports the other.
+PHY, the ``MacConfig`` of the link layer, the ``NetConfig`` of the network
+layer and the ``AskConfig`` of the ASK modem (the pattern tables follow
+from them).  These helpers take plain Python and numpy values, so neither
+side imports the other.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from collections.abc import Mapping
 
 import numpy as np
 
-from trackmaker_tpu_torch.core.config import MacConfig, PhyConfig
+from trackmaker_tpu_torch.core.config import MacConfig, NetConfig, PhyConfig
 from trackmaker_tpu_torch.phy.ask import AskConfig
 from trackmaker_tpu_torch.phy.decoder import DecodedFrames
 
@@ -36,6 +37,12 @@ def mac_config_from_fields(fields: Mapping) -> MacConfig:
     """The port's MacConfig from ``dataclasses.asdict`` of the JAX one, or
     any mapping of the same fields; a field the port lacks raises."""
     return _config_from_fields(MacConfig, fields)
+
+
+def net_config_from_fields(fields: Mapping) -> NetConfig:
+    """The port's NetConfig from ``dataclasses.asdict`` of the JAX one, or
+    any mapping of the same fields; a field the port lacks raises."""
+    return _config_from_fields(NetConfig, fields)
 
 
 def ask_config_from_fields(fields: Mapping) -> AskConfig:

@@ -1,4 +1,4 @@
-"""Runtime PHY and MAC configuration (counterpart of ``trackmaker_tpu/core/config.py``).
+"""Runtime PHY, MAC and network configuration (counterpart of ``trackmaker_tpu/core/config.py``).
 
 Field-for-field copies of the JAX package's frozen dataclasses and frame
 constants.  The port cannot import the original: importing any module
@@ -97,3 +97,16 @@ class MacConfig:
     cw_max: int = 100
     slot_time_ms: int = 5
     max_retries: int = 16
+
+
+@dataclass(frozen=True)
+class NetConfig:
+    """Network-layer parameters: TTL, MTUs and the ping tool's defaults."""
+
+    ip_ttl: int = 64
+    mtu: int = 200           # the interface's fragmentation MTU
+    acoustic_mtu: int = 140  # the router's acoustic egress MTU
+    ping_packet_count: int = 10
+    ping_payload_size: int = 32
+    ping_timeout_ms: int = 2000
+    ping_interval_ms: int = 1000
