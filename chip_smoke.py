@@ -106,7 +106,12 @@ Phases, each raising on failure (non-zero exit):
    and max_frames), stacked by
    bucket, address and max_frames, each path's longest buffer also alone
    (B = 1, as the path launches it); these checks run once phase 2 has
-   read its counts;
+   read its counts; the normalized correlation at L=440 with the chirp's
+   f32 norm, as the OFDM sync calls it, on the ofdm_v2_b32 and v1
+   captures and (after phase 2) on every bucket the two OFDM runs'
+   stream PHYs decoded, stacked by length and the largest alone, each
+   within CORR_ATOL of its plain version and the preamble starts walked
+   from the kernel's corr equal to those from the plain corr;
 2. the main paths, each with its kernels' launch counts set to 0 just
    before it and read just after: the flagship and fourb5b_b32 through
    ``decode_capture_fast`` (32 noisy captures of 64 frames of 128-byte
@@ -180,7 +185,18 @@ Phases, each raising on failure (non-zero exit):
    comes back, the router's reply has the WiFi host's address, ICMP type
    0, the payload and a TTL under 64, and each run ends within 30 s of
    wall time (the reassembler's one wall-clock rule), logged with its
-   airtime over wall time, decode calls, exact scans and ms a call;
+   airtime over wall time, decode calls, exact scans and ms a call; then
+   the OFDM modems (``phy/ofdm.py``, ``phy/ofdm_v2.py``), #2's count set to
+   0 before each step: ofdm_v2_b32, bench.py's ofdm_v2 row (32 captures of
+   32 frames of 64-byte payloads, 400-sample gaps, noise sigma 0.01, built
+   on the host), through the batched ``find_preambles`` and
+   ``demodulate_at_v2`` (#2 launched once, every payload, the decisions'
+   digest equal to OFDM_DIGEST, the JAX package's, each decision at least
+   1e-3 of the symbols' RMS from its boundary) and ``OfdmModemV2.decode``
+   of capture 0; the same frames through v1 (the batch and
+   ``OfdmModem.decode``, and 8 through Hamming(7,4)); the MAC run
+   "csma_transfer, ofdm_v2" and the network run "ping, ofdm_v2" above run
+   over ``OfdmStreamPhyV2``, logged with its stream calls;
 3. the fallbacks: a Manchester capture that overflows the candidate table,
    a 4B5B capture with a zeroed level inside an attempted frame, and an
    ASK capture of 150 back-to-back chirps before three frames (more fire
@@ -243,14 +259,20 @@ Phases, each raising on failure (non-zero exit):
    correlation; the decision-directed bootstraps, one host refit and one
    refit decode, median of 5 each); a ``PhyDecoder`` decode of the clean
    CSMA run's longest buffer, of a 4B5B buffer that falls to the exact
-   scan (median of 5), and a streaming segment's pack and readback; each
-   printed beside the card's name and power limit.
+   scan (median of 5), and a streaming segment's pack and readback; the
+   normalized correlation at the ofdm_v2_b32 shape against its plain
+   version, ``conv1d`` and its bound, with its device time; the ofdm_v2_b32
+   decode end to end (median of 30, and its real-time multiple), its steps
+   (sync's correlation and walk, the SC refine, windows and FFTs,
+   equalization and tracking), its peak memory and busy share, and one
+   ``OfdmStreamPhyV2.process_samples`` call on the largest bucket the OFDM
+   runs decoded; each printed beside the card's name and power limit.
 
 The line before the last is a JSON object with the kernels' measurements:
 ``launches`` counts each kernel's launches in the main-path runs of
 phase 2 (the line-coded paths, the blocked runs, the profiler path, the
-robustness paths, the streaming latency run, the MAC runs and the network
-runs; the
+robustness paths, the streaming latency run, the MAC runs, the network
+runs and the OFDM paths; the
 probe's in phase 0's health run; the
 batch-folded hit rows are on no path and count 0),
 ``ms`` and ``plain_ms`` time it at the shapes of its first path, and
@@ -337,11 +359,28 @@ STREAM_PAYLOAD = 64
 STREAM_NOISE = 0.01
 STREAM_CHUNK = 1200
 CHECK_ROWS = 128     # buffers a phase-1 batch of a recorded path stacks
+# ofdm_v2_b32, bench.py's ofdm_v2 row (bench.py:402-446): OFDM_FRAMES frames
+# Frame.new_data(i, 1, 2, p) of random OFDM_PAYLOAD-byte payloads,
+# OFDM_GAP samples apart, in OFDM_BATCH captures with noise sigma
+# OFDM_NOISE, payloads and noise from default_rng(OFDM_SEED), the waveform
+# from the port's modulator on the host; the v1 run sends the same frames
+# with noise from default_rng(OFDM_SEED + 1).  OFDM_DIGEST is the digest of
+# the JAX package's decisions on these captures, the coarse starts and the
+# bits (tests/test_torch_ofdm_v2.py)
+OFDM_BATCH = 32
+OFDM_FRAMES = 32
+OFDM_PAYLOAD = 64
+OFDM_GAP = 400
+OFDM_NOISE = 0.01
+OFDM_SEED = 0
+OFDM_DIGEST = "3db8047324c8e4ac"
 # the MAC runs over the port's PHY: name -> (ARQ, bytes of bytes(range(256))
-# repeated, options: the transfer's keywords, and line_coding and
-# energy_threshold for its PhyConfig and MacConfig); the noisy CSMA run is
+# repeated, options: the transfer's keywords, line_coding and
+# energy_threshold for its PhyConfig and MacConfig, and phy, the stream PHY
+# each node gets in place of the line-coded one); the noisy CSMA run is
 # tests/test_link.py's, the noisy window runs tests/test_sr.py's, at
-# sigma 0.45 where frames drop and the ARQ paths run
+# sigma 0.45 where frames drop and the ARQ paths run, the OFDM run
+# tests/test_ofdm_v2_mac.py's
 MAC_RUNS = {
     "csma_transfer": ("csma", 1024, {"max_duration_s": 60.0}),
     "csma_transfer, noise": ("csma", 512, {"noise_std": 0.12, "seed": 5,
@@ -353,6 +392,7 @@ MAC_RUNS = {
                                           "max_duration_s": 300.0, "energy_threshold": 3.0}),
     "sr_transfer, noise": ("sr", 4096, {"window": 8, "noise_std": 0.45, "seed": 5,
                                         "max_duration_s": 300.0, "energy_threshold": 3.0}),
+    "csma_transfer, ofdm_v2": ("csma", 512, {"phy": "ofdm_v2", "max_duration_s": 120.0}),
 }
 # the JAX package's stats of each MAC run (tests/test_torch_link.py); the
 # port's must equal them, on the card as on the CPU
@@ -375,18 +415,23 @@ MAC_EXPECT = {
                             "window": 8},
     "sr_transfer, noise": {"airtime_s": 6.544, "throughput_bps": 5007.334963325184,
                            "retransmit_bursts": 4, "frames_retransmitted": 11, "window": 8},
+    "csma_transfer, ofdm_v2": {"airtime_samples": 39936, "airtime_s": 0.832, "acked": 4,
+                               "retransmissions": 0, "duplicates": 0,
+                               "throughput_bps": 4923.076923076923},
 }
 # the network layer's runs over the port's PHY (BASELINE.json config 5):
 # name -> run_ping_simulation's keywords, with line_coding for a stream PHY
-# that phy_factory builds over PhyEncoder and PhyDecoder (LineCodedPhy);
-# the clean and fragmented pings are tests/test_ping.py's, the noisy one at
-# tests/test_link.py's sigma; "router" is tests/test_router_acoustic.py's
-# scenario (router_run)
+# that phy_factory builds over PhyEncoder and PhyDecoder (LineCodedPhy), or
+# phy for the OFDM v2 stream PHY; the clean, fragmented and OFDM pings are
+# tests/test_ping.py's, the noisy one at tests/test_link.py's sigma;
+# "router" is tests/test_router_acoustic.py's scenario (router_run)
 PING_RUNS = {
     "ping": {"count": 3, "max_duration_s": 30.0},
     "ping, fragments": {"count": 2, "payload_size": 300, "max_duration_s": 60.0},
     "ping, noise": {"count": 3, "noise_std": 0.12, "seed": 5, "max_duration_s": 60.0},
     "ping, 4b5b": {"count": 2, "line_coding": "4b5b"},
+    "ping, ofdm_v2": {"count": 2, "noise_std": 0.003, "max_duration_s": 60.0,
+                      "phy": "ofdm_v2"},
     "router": {},
 }
 ROUTER_PAYLOAD = b"crossing segments"
@@ -406,6 +451,9 @@ PING_EXPECT = {
     "ping, 4b5b": {"sent": 2, "received": 2, "loss_pct": 0.0, "rtt_min_ms": 152.0,
                    "rtt_avg_ms": 157.33333333333331, "rtt_max_ms": 162.66666666666666,
                    "responded": 2, "airtime_s": 1.1653333333333333},
+    "ping, ofdm_v2": {"sent": 2, "received": 2, "loss_pct": 0.0, "rtt_min_ms": 216.0,
+                      "rtt_avg_ms": 221.33333333333331, "rtt_max_ms": 226.66666666666666,
+                      "responded": 2, "airtime_s": 1.2293333333333334},
     "router": {"pings_seen": 1, "forwarded": 2, "dropped": 0, "airtime_s": 0.184,
                "reply": "4500002d000000003f01f77bc0a80202c0a80102000075fa0099000163726f737369"
                         "6e67207365676d656e7473",
@@ -416,9 +464,9 @@ PING_EXPECT = {
 # the modules the network runs use, by short name, under either package
 NET_MODULES = {"config": "core.config", "audio": "link.audio", "bus": "link.bus",
                "interface": "link.interface", "encoder": "phy.encoder",
-               "decoder": "phy.decoder", "ethernet": "net.ethernet", "icmp": "net.icmp",
-               "ip": "net.ip", "ports": "net.ports", "router": "net.router",
-               "tools": "net.tools"}
+               "decoder": "phy.decoder", "ofdm_v2": "phy.ofdm_v2", "ethernet": "net.ethernet",
+               "icmp": "net.icmp", "ip": "net.ip", "ports": "net.ports",
+               "router": "net.router", "tools": "net.tools"}
 WALL_LIMIT_S = 30.0     # the reassembler drops a partial packet after 30 s of wall time
 SWEEP_B, SWEEP_T = 3, 50_001  # the tap sweep's captures: T not a multiple of a block's lags
 # the raw sliding dot's sweep: every remainder of an 8-tap step near 8, 16
@@ -598,10 +646,14 @@ def gate_capture(torch, cfg, dev, quiet: int = GATE_QUIET):
 def mac_run(name: str, link, phy_config, mac_config, **kw):
     """(data, received, stats) of MAC_RUNS[name] through `link`, a mapping of
     "csma", "gbn" and "sr" to a package's transfer_over_bus, gbn_transfer and
-    sr_transfer, with its PhyConfig and MacConfig classes; `kw` goes to the
-    transfer (the port's `device`)."""
+    sr_transfer and of "ofdm_v2" to its OfdmStreamPhyV2, with its PhyConfig
+    and MacConfig classes; `kw` goes to the transfer and to a stream PHY
+    (the port's `device`)."""
     arq, n_bytes, opts = MAC_RUNS[name]
     opts = dict(opts)
+    phy = opts.pop("phy", None)
+    if phy is not None:
+        opts["phy_factory"] = lambda addr: link[phy](local_addr=addr, **kw)
     cfg = phy_config(line_coding=opts.pop("line_coding", "manchester"))
     mac_cfg = mac_config(energy_threshold=opts.pop("energy_threshold", 0.5))
     data = bytes(range(256)) * (n_bytes // 256)
@@ -639,6 +691,8 @@ def ping_run(name: str, mods, **kw) -> dict:
     PHY's encoder and decoder (the port's `device`)."""
     opts = dict(PING_RUNS[name])
     coding = opts.pop("line_coding", None)
+    if opts.pop("phy", None) == "ofdm_v2":
+        opts["phy_factory"] = lambda mac: mods["ofdm_v2"].OfdmStreamPhyV2(local_addr=mac, **kw)
     if coding is not None:
         cfg = mods["config"].PhyConfig(line_coding=coding)
         opts["phy_factory"] = lambda mac: LineCodedPhy(
@@ -749,6 +803,35 @@ def stream_capture(encode_frame, rng):
         arrival.append((p + len(w)) // STREAM_CHUNK)
     wave += rng.normal(0, STREAM_NOISE, total).astype(np.float32)
     return payloads, arrival, wave
+
+
+def ofdm_input(v1: bool = False):
+    """(frames, captures f32[OFDM_BATCH, T] in NumPy) of ofdm_v2_b32, or of
+    the v1 run: built on the host, so that every machine builds the same
+    samples."""
+    from trackmaker_tpu_torch.core.framing import Frame
+    from trackmaker_tpu_torch.phy.ofdm import OfdmModem
+    from trackmaker_tpu_torch.phy.ofdm_v2 import OfdmModemV2
+
+    rng = np.random.default_rng(OFDM_SEED)
+    frames = [Frame.new_data(i, 1, 2, rng.integers(0, 256, OFDM_PAYLOAD, dtype=np.uint8)
+                             .tobytes()) for i in range(OFDM_FRAMES)]
+    modem = OfdmModem(device="cpu") if v1 else OfdmModemV2(device="cpu")
+    wave = modem.encode_frames(frames, gap_samples=OFDM_GAP)
+    if v1:
+        rng = np.random.default_rng(OFDM_SEED + 1)
+    return frames, np.stack([(wave + rng.normal(0, OFDM_NOISE, len(wave))).astype(np.float32)
+                             for _ in range(OFDM_BATCH)])
+
+
+def ofdm_digest(starts, bits) -> str:
+    """A short SHA-256 of the OFDM decisions: the coarse starts as int32 and
+    the bits as uint8, NumPy arrays of any package."""
+    import hashlib
+
+    h = hashlib.sha256(np.ascontiguousarray(starts, np.int32).tobytes())
+    h.update(np.ascontiguousarray(bits, np.uint8).tobytes())
+    return h.hexdigest()[:16]
 
 
 def payload_digest(payloads) -> str:
@@ -1553,9 +1636,10 @@ def check_recorded(torch, sd, xcorr_hits, xcorr_hits_plain, cfg, inputs, tag: st
 
 
 class DecodeTally:
-    """While open, wraps PhyDecoder.process_samples to add up the decodes
-    its calls make (the decoder's own decode_calls and exact_calls) and the
-    wall time of the calls that decoded."""
+    """While open, wraps the stream PHY class's process_samples (PhyDecoder,
+    or OfdmStreamPhy and so its v2) to add up the decodes its calls make
+    (the PHY's own decode_calls and exact_calls, which OFDM has not) and
+    the wall time of the calls that decoded."""
 
     def __init__(self, phy_decoder):
         self.cls = phy_decoder
@@ -1567,13 +1651,13 @@ class DecodeTally:
         tally = self
 
         def process_samples(dec, samples):
-            calls, exact = dec.decode_calls, dec.exact_calls
+            calls, exact = dec.decode_calls, getattr(dec, "exact_calls", 0)
             t0 = time.perf_counter()
             out = orig(dec, samples)
             if dec.decode_calls > calls:
                 tally.seconds += time.perf_counter() - t0
             tally.calls += dec.decode_calls - calls
-            tally.exact += dec.exact_calls - exact
+            tally.exact += getattr(dec, "exact_calls", 0) - exact
             return out
 
         self.cls.process_samples = process_samples
@@ -1582,20 +1666,46 @@ class DecodeTally:
     def __exit__(self, *exc):
         self.cls.process_samples = self.orig
 
+    def describe(self, opts: dict) -> str:
+        if opts.get("phy") == "ofdm_v2":
+            return f"{self.calls} stream calls that decoded a bucket"
+        return f"{self.calls} decode calls ({self.exact} by the exact scan)"
+
     def figures(self, airtime_s: float, wall_s: float) -> dict:
         return {"airtime_s": airtime_s, "wall_s": wall_s, "calls": self.calls,
                 "exact": self.exact, "ms_per_call": self.seconds * 1e3 / self.calls}
 
 
-def recorded_run(torch, phy_decoder, kernels, run):
+def recorded_run(torch, phy_decoder, kernels, run, ofdm_phy=None):
     """(run(), its launches of `kernels`, its DecodeTally, the buffers its
     PhyDecoders decoded [(f32[bucket] on the card, true length, local
-    address, max_frames)], wall seconds), the counts set to 0 just before."""
-    with DecodeTally(phy_decoder) as tally, Recorder(
-            phy_decoder, "_decode_with_cursor",
-            lambda dec, padded, n: (padded, n, dec.local_addr, dec.max_frames)) as rec:
+    address, max_frames)], wall seconds), the counts set to 0 just before.
+    With `ofdm_phy` (the port's OfdmStreamPhy) the run's stream PHYs are
+    OFDM: the tally counts theirs and the buffers are the buckets they
+    decoded [f32[bucket] on the card]."""
+    if ofdm_phy is None:
+        cls, method = phy_decoder, "_decode_with_cursor"
+
+        def keep(dec, padded, n):
+            return padded, n, dec.local_addr, dec.max_frames
+    else:
+        cls, method = ofdm_phy, "_starts"
+
+        def keep(phy, padded):
+            return padded
+    with DecodeTally(cls) as tally, Recorder(cls, method, keep) as rec:
         out, launches, wall = count_launches(torch, kernels, run)
     return out, launches, tally, rec.kept, wall
+
+
+def path_kernels(opts: dict) -> tuple[str, ...]:
+    """The kernels a MAC or network run's stream PHY launches: the
+    normalized correlation on OFDM, else #1, the attempt of its line code
+    and #4."""
+    if opts.get("phy") == "ofdm_v2":
+        return ("normalized_xcorr_dense",)
+    attempt = "attempt_4b5b" if opts.get("line_coding") == "4b5b" else "attempt_manchester"
+    return ("xcorr_hits", attempt, "spec_walk")
 
 
 def time_stream_paths(torch, sd, phy_decoder, lstream, cfg, cfg4, mac_in, segments, card,
@@ -1688,36 +1798,38 @@ def run_stream_latency(torch, pipeline_cls, cfg, stream_in, kernels,
     return launches, fig, rec.kept
 
 
-def run_mac_paths(torch, phy_decoder, link, phy_config, mac_config, kernels,
+def run_mac_paths(torch, phy_decoder, link, phy_config, mac_config, kernels, ofdm_phy,
                   dev) -> tuple[dict, dict, dict]:
     """Phase 2's MAC runs (MAC_RUNS) through the port's transfer entry points
     on the card, each with the launch counts set to 0 just before it: the
     data must arrive and the stats equal MAC_EXPECT, the JAX package's.
     Returns (each run's launches of `kernels`, its figures, the buffers its
     PhyDecoders decoded [(f32[bucket] on the card, true length, local
-    address, max_frames)])."""
+    address, max_frames)], or, for an OFDM run, the buckets its stream PHYs
+    decoded)."""
     launches, figs, inputs = {}, {}, {}
     for name, (arq, n_bytes, opts) in MAC_RUNS.items():
         (data, received, stats), launches[name], tally, inputs[name], wall = recorded_run(
             torch, phy_decoder, kernels,
-            partial(mac_run, name, link, phy_config, mac_config, device=dev))
+            partial(mac_run, name, link, phy_config, mac_config, device=dev),
+            ofdm_phy if "phy" in opts else None)
         require(received == data, f"{name}: {len(received)} of {len(data)} bytes arrived intact")
         require(stats == MAC_EXPECT[name],
                 f"{name} stats {stats}, the JAX package's {MAC_EXPECT[name]}")
-        attempt = "attempt_4b5b" if opts.get("line_coding") == "4b5b" else "attempt_manchester"
-        for k_name in ("xcorr_hits", attempt, "spec_walk"):
+        for k_name in path_kernels(opts):
             require(launches[name][k_name] > 0, f"the {name} path never launched {k_name}")
         figs[name] = tally.figures(stats["airtime_s"], wall)
         log(f"phase 2 ({name}): {arq} transfer of {n_bytes} B took {wall * 1e3:.1f} ms of wall "
             f"time for {stats['airtime_s']:.4f} s of airtime (airtime / wall "
-            f"{stats['airtime_s'] / wall:.3f}); {tally.calls} decode calls ({tally.exact} by "
-            f"the exact scan), {figs[name]['ms_per_call']:.3f} ms a call; kernel launches "
+            f"{stats['airtime_s'] / wall:.3f}); {tally.describe(opts)}, "
+            f"{figs[name]['ms_per_call']:.3f} ms a call; kernel launches "
             f"{launches[name]}; the data arrived and the stats equal MAC_EXPECT, the JAX "
             f"package's: {stats}")
     return launches, figs, inputs
 
 
-def run_ping_paths(torch, phy_decoder, mods, kernels, dev) -> tuple[dict, dict, dict]:
+def run_ping_paths(torch, phy_decoder, mods, kernels, ofdm_phy,
+                   dev) -> tuple[dict, dict, dict]:
     """Phase 2's network runs (PING_RUNS) through the port's entry points
     on the card (`mods`: its net_modules), each with the launch counts set
     to 0 just before it: each result must equal PING_EXPECT, the JAX
@@ -1725,13 +1837,14 @@ def run_ping_paths(torch, phy_decoder, mods, kernels, dev) -> tuple[dict, dict, 
     host's address, ICMP type 0, the payload and a TTL under 64, and each
     run end within WALL_LIMIT_S of wall time.  Returns (each run's launches
     of `kernels`, its figures, the buffers its PhyDecoders decoded
-    [(f32[bucket] on the card, true length, local address, max_frames)])."""
+    [(f32[bucket] on the card, true length, local address, max_frames)], or,
+    for an OFDM run, the buckets its stream PHYs decoded)."""
     launches, figs, inputs = {}, {}, {}
     for name, opts in PING_RUNS.items():
         run = (partial(router_run, mods, device=dev) if name == "router"
                else partial(ping_run, name, mods, device=dev))
         got, launches[name], tally, inputs[name], wall = recorded_run(
-            torch, phy_decoder, kernels, run)
+            torch, phy_decoder, kernels, run, ofdm_phy if "phy" in opts else None)
         require(got == PING_EXPECT[name], f"{name}: {got}, the JAX package's {PING_EXPECT[name]}")
         if name == "router":
             require(got["src"] == "192.168.2.2" and got["dst"] == "192.168.1.2"
@@ -1750,16 +1863,209 @@ def run_ping_paths(torch, phy_decoder, mods, kernels, dev) -> tuple[dict, dict, 
                     f"{got['rtt_max_ms']:.3f} ms")
         require(wall < WALL_LIMIT_S, f"{name} took {wall:.1f} s of wall time: the reassembler "
                 f"drops a partial packet after {WALL_LIMIT_S:.0f} s")
-        attempt = "attempt_4b5b" if opts.get("line_coding") == "4b5b" else "attempt_manchester"
-        for k_name in ("xcorr_hits", attempt, "spec_walk"):
+        for k_name in path_kernels(opts):
             require(launches[name][k_name] > 0, f"the {name} path never launched {k_name}")
         figs[name] = tally.figures(got["airtime_s"], wall)
         log(f"phase 2 ({name}): {got['airtime_s']:.4f} s of airtime took {wall * 1e3:.1f} ms of "
             f"wall time (airtime / wall {got['airtime_s'] / wall:.3f}, under "
-            f"{WALL_LIMIT_S:.0f} s); {tally.calls} decode calls ({tally.exact} by the exact "
-            f"scan), {figs[name]['ms_per_call']:.3f} ms a call; kernel launches "
+            f"{WALL_LIMIT_S:.0f} s); {tally.describe(opts)}, "
+            f"{figs[name]['ms_per_call']:.3f} ms a call; kernel launches "
             f"{launches[name]}; {what}; the result equals PING_EXPECT, the JAX package's")
     return launches, figs, inputs
+
+
+# --- the OFDM modems -----------------------------------------------------------------
+
+
+def ofdm_chirp():
+    """(the OFDM preamble, the chirp f32[440], and its norm summed in f32:
+    the `pe` find_preambles passes the normalized correlation)."""
+    from trackmaker_tpu_torch.phy import ofdm
+    from trackmaker_tpu_torch.sync.correlate import pattern_norm
+
+    chirp = ofdm.chirp(ofdm.OfdmConfig())
+    return chirp, pattern_norm(chirp)
+
+
+def check_ofdm_corr(torch, xn, ofdm, inputs, tag: str) -> float:
+    """Phase 1 on the OFDM path: #2's normalized form at L=440 with the
+    chirp's f32 norm, as find_preambles calls it, against its plain version
+    on each batch of `inputs` [(captures f32[B, T] on the card,
+    max_frames)], within CORR_ATOL, and the starts walk_preambles takes from
+    the kernel's corr equal to those from the plain corr, -1 padding
+    included.  Returns the max |err|."""
+    cfg = ofdm.OfdmConfig()
+    chirp, pe = ofdm_chirp()
+    err, n_starts = 0.0, 0
+    for x, max_frames in inputs:
+        got = xn.normalized_xcorr_dense(x, chirp, pe)
+        torch.cuda.synchronize()
+        want = xn.normalized_xcorr_dense_plain(x, chirp, pe)
+        e = (got - want).abs().max().item()
+        require(e <= CORR_ATOL, f"normalized_xcorr on the {tag}: max |err| {e}")
+        err = max(err, e)
+        starts = ofdm.walk_preambles(cfg, got, max_frames)
+        require(torch.equal(starts, ofdm.walk_preambles(cfg, want, max_frames)),
+                f"the {tag}: the starts from the kernel's corr differ from the plain corr's")
+        n_starts += int((starts >= 0).sum())
+    shapes = sorted({tuple(x.shape) for x, _ in inputs})
+    log(f"phase 1: normalized_xcorr == plain at L={len(chirp)} with the chirp's f32 norm on the "
+        f"{tag} ({len(inputs)} batches, shapes {shapes}; max |err| {err:.3g}); the "
+        f"{n_starts} preamble starts found from the kernel's corr equal the plain corr's")
+    return err
+
+
+def bucket_batches(torch, buckets) -> list:
+    """The OFDM runs' recorded buckets as phase-1 batches [(f32[n, bucket],
+    16)]: stacked by length, CHECK_ROWS at most, and the largest alone
+    (B = 1, as the stream PHY launches it)."""
+    groups = {}
+    for bkt in buckets:
+        groups.setdefault(bkt.shape[0], []).append(bkt)
+    largest = max(groups)
+    batches = [(groups[largest][-1][None], 16)]
+    for n in sorted(groups):
+        for i in range(0, len(groups[n]), CHECK_ROWS):
+            batches.append((torch.stack(groups[n][i:i + CHECK_ROWS]), 16))
+    return batches
+
+
+def ofdm_margin(torch, sym) -> float:
+    """min(|Re|, |Im|) of the de-rotated data symbols over their RMS: how far
+    the closest QPSK decision lies from its boundary."""
+    rms = sym.abs().pow(2).mean().sqrt()
+    return (torch.minimum(sym.real.abs(), sym.imag.abs()).min() / rms).item()
+
+
+def run_ofdm_paths(torch, xn, ofdm, ofdm_v2, frames, x2, x1, dev) -> dict[str, int]:
+    """Phase 2 on the OFDM modems, each step with #2's count set to 0 just
+    before it and read just after: ofdm_v2_b32 through the batched
+    find_preambles and demodulate_at_v2 (#2 launched once; every start
+    found, every payload, the decisions' digest equal to OFDM_DIGEST, the
+    JAX package's, and each decision at least 1e-3 of the symbols' RMS
+    from its boundary), OfdmModemV2.decode of capture 0 (bench.py's gate),
+    the same frames through v1 (find_preambles and demodulate_at batched,
+    OfdmModem.decode of capture 0; every payload), and 8 of them through
+    OfdmModem with Hamming(7,4) and the interleaver, clean.  Returns each
+    step's launches of #2."""
+    cfg2, cfg1 = ofdm_v2.OfdmV2Config(), ofdm.OfdmConfig()
+    n_bits = (7 + OFDM_PAYLOAD) * 8
+    payloads = [f.data for f in frames]
+    b, t = x2.shape
+    k = xn.normalized_xcorr_dense
+    launches = {}
+
+    def gate(bits, starts, what: str) -> None:
+        require(bool((starts >= 0).all()), f"{what}: a preamble was not found")
+        for r in range(bits.shape[0]):
+            for i, row in enumerate(bits[r]):
+                f = ofdm.Frame.from_bits(row)
+                require(f is not None and f.data == payloads[i],
+                        f"{what} payload gate failed at capture {r} frame {i}")
+
+    def batch():
+        starts = ofdm.find_preambles(cfg2, x2, OFDM_FRAMES)
+        return starts, ofdm_v2.demodulate_at_v2(cfg2, x2, n_bits, starts)
+
+    (starts, bits), got, wall = count_launches(torch, (k,), batch)
+    launches["ofdm_v2_b32"] = got[k.__name__]
+    require(launches["ofdm_v2_b32"] == 1,
+            f"ofdm_v2_b32 launched normalized_xcorr {launches['ofdm_v2_b32']} times")
+    st, bt = starts.cpu().numpy(), bits.cpu().numpy()
+    gate(bt, st, "ofdm_v2_b32")
+    dg = ofdm_digest(st, bt)
+    require(dg == OFDM_DIGEST, f"ofdm_v2_b32 decisions digest {dg}, the JAX package's "
+            f"{OFDM_DIGEST}")
+    margin = ofdm_margin(torch, ofdm_v2.symbols_v2(cfg2, x2, cfg2.n_symbols(n_bits), starts))
+    require(margin >= 1e-3, f"an ofdm_v2_b32 decision lies {margin:.3g} of the RMS from its "
+            "boundary")
+    log(f"phase 2 (ofdm_v2_b32): find_preambles + demodulate_at_v2 of {b} x {t} took "
+        f"{wall * 1e3:.1f} ms (first call), normalized_xcorr launched once; payload gate "
+        f"passed ({b} captures x {OFDM_FRAMES} frames of {OFDM_PAYLOAD} B); decisions digest "
+        f"{dg} = the JAX package's; the closest decision {margin:.4f} of the symbols' RMS "
+        "from its boundary")
+    x0 = x2[0].cpu().numpy()
+    got_f, got, _ = count_launches(torch, (k,), lambda: ofdm_v2.OfdmModemV2(device=dev).decode(
+        x0, 7 + OFDM_PAYLOAD, max_frames=OFDM_FRAMES))
+    launches["OfdmModemV2.decode"] = got[k.__name__]
+    require([f.data for f in got_f] == payloads, f"OfdmModemV2.decode of capture 0 gave "
+            f"{len(got_f)} of {OFDM_FRAMES} frames")
+
+    def batch1():
+        starts = ofdm.find_preambles(cfg1, x1, OFDM_FRAMES)
+        return starts, ofdm.demodulate_at(cfg1, x1, n_bits, starts)
+
+    (starts1, bits1), got, wall1 = count_launches(torch, (k,), batch1)
+    launches["ofdm_v1_b32"] = got[k.__name__]
+    gate(bits1.cpu().numpy(), starts1.cpu().numpy(), "ofdm_v1_b32")
+    x10 = x1[0].cpu().numpy()
+    got_f, got, _ = count_launches(torch, (k,), lambda: ofdm.OfdmModem(device=dev).decode(
+        x10, 7 + OFDM_PAYLOAD, max_frames=OFDM_FRAMES))
+    launches["OfdmModem.decode"] = got[k.__name__]
+    require([f.data for f in got_f] == payloads, f"OfdmModem.decode of capture 0 gave "
+            f"{len(got_f)} of {OFDM_FRAMES} frames")
+    ham = ofdm.OfdmModem(fec="hamming", device=dev)
+    wave = ham.encode_frames(frames[:8], gap_samples=OFDM_GAP)
+    got_f, got, _ = count_launches(torch, (k,), lambda: ham.decode(wave, 7 + OFDM_PAYLOAD, 8))
+    launches["OfdmModem(fec='hamming').decode"] = got[k.__name__]
+    require([f.data for f in got_f] == payloads[:8], "OfdmModem(fec='hamming') lost frames")
+    for what, n in launches.items():
+        require(n > 0, f"{what} never launched normalized_xcorr")
+    log(f"phase 2 (ofdm_v2_b32): OfdmModemV2.decode of capture 0 gives its {OFDM_FRAMES} "
+        f"payloads; v1: find_preambles + demodulate_at of {x1.shape[0]} x {x1.shape[1]} took "
+        f"{wall1 * 1e3:.1f} ms (first call), payload gate passed, OfdmModem.decode of capture 0 "
+        f"gives its {OFDM_FRAMES} payloads, OfdmModem(fec='hamming') 8 clean frames; launches of "
+        f"normalized_xcorr {launches}")
+    return launches
+
+
+def time_ofdm_paths(torch, ofdm, ofdm_v2, x2, buckets, card, dev) -> None:
+    """Phase 4 on the OFDM path: the ofdm_v2_b32 decode end to end (median
+    of RUNS, and its real-time multiple), its steps (sync's correlation and
+    walk, the SC refine, the windows and FFTs, equalization and tracking),
+    its peak memory and busy share, and one OfdmStreamPhyV2.process_samples
+    call on the largest bucket the OFDM runs decoded."""
+    cfg2 = ofdm_v2.OfdmV2Config()
+    n_bits = (7 + OFDM_PAYLOAD) * 8
+    n_sym = cfg2.n_symbols(n_bits)
+    b, t = x2.shape
+
+    def decode():
+        return ofdm_v2.demodulate_at_v2(cfg2, x2, n_bits,
+                                        ofdm.find_preambles(cfg2, x2, OFDM_FRAMES))
+
+    e2e = time_ms(torch, decode)
+    log(f"phase 4: ofdm_v2_b32 find_preambles + demodulate_at_v2 {b} x {t}: {e2e:.4f} ms, "
+        f"{b * t / cfg2.sample_rate / (e2e / 1e3):.1f}x real time [{card}]")
+    corr = ofdm.preamble_corr(cfg2, x2)
+    starts = ofdm.walk_preambles(cfg2, corr, OFDM_FRAMES)
+    fine = ofdm_v2._sc_refine(cfg2, x2, starts)
+    spec = ofdm._windows_spectrum(cfg2, x2, fine, n_sym)
+    steps = {
+        "sync: the chirp correlation (#2)": lambda: ofdm.preamble_corr(cfg2, x2),
+        f"sync: the walk ({OFDM_FRAMES} steps)": lambda: ofdm.walk_preambles(
+            cfg2, corr, OFDM_FRAMES),
+        "SC refine": lambda: ofdm_v2._sc_refine(cfg2, x2, starts),
+        "windows + FFT": lambda: ofdm._windows_spectrum(cfg2, x2, fine, n_sym),
+        "equalize and track + decisions": lambda: ofdm._qpsk_to_bits(
+            ofdm_v2.equalize_track(cfg2, spec).reshape(b, OFDM_FRAMES, -1)),
+    }
+    for step, fn in steps.items():
+        log(f"phase 4: ofdm_v2_b32 step {step}: {time_ms(torch, fn):.4f} ms [{card}]")
+    busy = busy_share(torch, decode)
+    log(f"phase 4: ofdm_v2_b32 peak device memory {peak_memory(torch, decode)}, device busy "
+        + ("not measured" if busy is None else f"{busy:.3f}") + f" of a call [{card}]")
+    bucket = max(buckets, key=lambda bkt: bkt.shape[0]).cpu().numpy()
+    phy = ofdm_v2.OfdmStreamPhyV2(local_addr=2, device=dev)
+
+    def stream_call():
+        phy.reset()
+        return phy.process_samples(bucket)
+
+    got = stream_call()
+    call_ms = time_ms(torch, stream_call)
+    log(f"phase 4: OfdmStreamPhyV2.process_samples of a {len(bucket)}-sample bucket (the OFDM "
+        f"runs' largest; {len(got)} frames): {call_ms:.4f} ms [{card}]")
 
 
 def check_stream_fallbacks(torch, phy_decoder, stream_mod, cfg, crowded, dev) -> None:
@@ -2653,7 +2959,7 @@ def main() -> None:
     from trackmaker_tpu_torch.link import gbn, sr, transfer
     from trackmaker_tpu_torch.link import stream as lstream
     from trackmaker_tpu_torch.parallel import stream
-    from trackmaker_tpu_torch.phy import ask, ask_spec
+    from trackmaker_tpu_torch.phy import ask, ask_spec, ofdm, ofdm_v2
     from trackmaker_tpu_torch.phy import spec_decode as sd
     from trackmaker_tpu_torch.phy.decoder import (
         PhyDecoder, decode_capture, decode_capture_fast, decode_captures)
@@ -2714,7 +3020,10 @@ def main() -> None:
     stream_in = stream_capture(lambda i, p: enc.encode_frame(
         Frame.new_data(i, 1, LOCAL_ADDR, p)).cpu().numpy(), np.random.default_rng(args.seed + 29))
     mac_link = {"csma": transfer.transfer_over_bus, "gbn": gbn.gbn_transfer,
-                "sr": sr.sr_transfer}
+                "sr": sr.sr_transfer, "ofdm_v2": ofdm_v2.OfdmStreamPhyV2}
+    frames_o, caps_o = ofdm_input()
+    _, caps_o1 = ofdm_input(v1=True)
+    x_o, x_o1 = torch.from_numpy(caps_o).to(dev), torch.from_numpy(caps_o1).to(dev)
     log(f"flagship input: {b} x {t} samples; fourb5b_b32 input: {b} x {t4} samples; "
         f"equalized_b32 input: {b} x {xe.shape[1]} samples; {N_FRAMES} frames per capture; "
         f"ask_b16 input: {xa.shape[0]} x {xa.shape[1]} samples, {ASK_FRAMES} frames per capture; "
@@ -2723,7 +3032,9 @@ def main() -> None:
         f"{robust_in[0][0].shape[0]} samples; timing gate inputs: {robust_in[1][0].shape[0]} "
         f"samples (quiet after the skewed frames) and {robust_in[3][0].shape[0]} (flagship "
         f"gaps); decision-directed input: {robust_in[2][0].shape[0]} samples; stream_latency "
-        f"input: {len(stream_in[2])} samples, {STREAM_FRAMES} frames")
+        f"input: {len(stream_in[2])} samples, {STREAM_FRAMES} frames; ofdm_v2_b32 input: "
+        f"{x_o.shape[0]} x {x_o.shape[1]} samples, {OFDM_FRAMES} frames per capture (v1: "
+        f"{x_o1.shape[0]} x {x_o1.shape[1]})")
     pre, pre4 = preamble_waveform(cfg), preamble_waveform(cfg4)
     sync = pre[cfg.preamble_len - cfg.sync_len:]
     sync4 = pre4[cfg4.preamble_len - cfg4.sync_len:]
@@ -2843,7 +3154,10 @@ def main() -> None:
     errs["xcorr_rowstats"] = max(check_rowstats(torch, xn, xcorr_hits, xe, pre, "equalized_b32"),
                                  check_rowstats(torch, xn, xcorr_hits, x4, pre4, "fourb5b_b32"),
                                  check_rowstats(torch, xn, xcorr_hits, xa, chirp, "ask_b16"))
-    errs["normalized_xcorr"] = check_dense(torch, xn, xcorr_hits, xa, chirp, xe, pre)
+    errs["normalized_xcorr"] = max(
+        check_dense(torch, xn, xcorr_hits, xa, chirp, xe, pre),
+        check_ofdm_corr(torch, xn, ofdm, [(x_o, OFDM_FRAMES), (x_o1, OFDM_FRAMES)],
+                        "ofdm_v2_b32 and v1 captures"))
     for k_name, v in check_robustness_kernels(torch, sd, xn, channel, timing, equalizer, ber,
                                               xcorr_hits, xcorr_hits_plain, cfg, robust_in,
                                               dev).items():
@@ -2916,6 +3230,8 @@ def main() -> None:
     ask_kernels = (sdot.sliding_dot_scaled, ask_spec.dense_fire_candidates, ask.ask_chain,
                    ask_spec.ask_walk)
     launches.update(run_ask_main_path(torch, ask, ask_spec, acfg, xa, frames_a, ask_kernels))
+    ofdm_launches = run_ofdm_paths(torch, xn, ofdm, ofdm_v2, frames_o, x_o, x_o1, dev)
+    launches["normalized_xcorr"] += sum(ofdm_launches.values())
     blocked = {}
     for tag, c, xx, fr, st, n_blocks, fold in (
             ("blocked_600s", cfg, xb, frames_b, starts_b, BLOCKED_BLOCKS, False),
@@ -2964,30 +3280,39 @@ def main() -> None:
     stream_launches, _, rec_segments = run_stream_latency(
         torch, lstream.StreamingDecodePipeline, cfg, stream_in,
         (xcorr_hits, sd.attempt_manchester, sd.spec_walk), dev)
+    live_kernels = (xcorr_hits, sd.attempt_manchester, sd.attempt_4b5b, sd.spec_walk,
+                    xn.normalized_xcorr_dense)
     mac_launches, _, mac_in = run_mac_paths(torch, PhyDecoder, mac_link, PhyConfig, MacConfig,
-                                            (xcorr_hits, sd.attempt_manchester, sd.attempt_4b5b,
-                                             sd.spec_walk), dev)
+                                            live_kernels, ofdm.OfdmStreamPhy, dev)
     ping_launches, _, ping_in = run_ping_paths(
-        torch, PhyDecoder, net_modules("trackmaker_tpu_torch"),
-        (xcorr_hits, sd.attempt_manchester, sd.attempt_4b5b, sd.spec_walk), dev)
+        torch, PhyDecoder, net_modules("trackmaker_tpu_torch"), live_kernels,
+        ofdm.OfdmStreamPhy, dev)
     for got in (stream_launches, *mac_launches.values(), *ping_launches.values()):
         for k_name, n in got.items():
+            k_name = KERNEL_NAMES.get(k_name, k_name)
             launches[k_name] = launches.get(k_name, 0) + n
+    ofdm_stream_launches = sum(got["normalized_xcorr_dense"] for got in
+                               (*mac_launches.values(), *ping_launches.values()))
     # phase 1 on what these paths decoded, recorded as they ran: the
     # latency segments and every MAC and network run's buffers
     seg_in = [(torch.from_numpy(lstream.padded_segment(seg)[:-1]).to(dev), len(seg),
                LOCAL_ADDR, max_frames) for seg, max_frames in rec_segments]
     err = check_recorded(torch, sd, xcorr_hits, xcorr_hits_plain, cfg, seg_in,
                          "stream_latency segments")
-    for name, (_, _, opts) in MAC_RUNS.items():
-        c = cfg4 if opts.get("line_coding") == "4b5b" else cfg
-        err = max(err, check_recorded(torch, sd, xcorr_hits, xcorr_hits_plain, c, mac_in[name],
-                                      f"{name} decode buffers"))
-    for name, opts in PING_RUNS.items():
-        c = cfg4 if opts.get("line_coding") == "4b5b" else cfg
-        err = max(err, check_recorded(torch, sd, xcorr_hits, xcorr_hits_plain, c, ping_in[name],
-                                      f"{name} decode buffers"))
+    ofdm_buckets = []
+    for runs, run_in in ((MAC_RUNS, mac_in), (PING_RUNS, ping_in)):
+        for name, opts in runs.items():
+            opts = opts[2] if runs is MAC_RUNS else opts
+            if "phy" in opts:
+                ofdm_buckets += run_in[name]
+                continue
+            c = cfg4 if opts.get("line_coding") == "4b5b" else cfg
+            err = max(err, check_recorded(torch, sd, xcorr_hits, xcorr_hits_plain, c,
+                                          run_in[name], f"{name} decode buffers"))
     errs["xcorr_hits"] = max(errs["xcorr_hits"], err)
+    errs["normalized_xcorr"] = max(errs["normalized_xcorr"], check_ofdm_corr(
+        torch, xn, ofdm, bucket_batches(torch, ofdm_buckets),
+        f"{len(ofdm_buckets)} buckets the OFDM runs decoded"))
 
     # --- phase 3: the fallbacks ----------------------------------------------
     enc = PhyEncoder(cfg, device=dev)
@@ -3095,6 +3420,19 @@ def main() -> None:
                 torch.nn.functional.conv1d(xx * xx, ones_w))
 
     library_ms["normalized_xcorr"] = time_ms(torch, conv_dot_energy)
+    # the same at the OFDM sync's shape, ofdm_v2_b32, with the chirp's f32
+    # norm as find_preambles passes it
+    ochirp, ope = ofdm_chirp()
+    n_lags_o = x_o.shape[1] - len(ochirp) + 1
+    ofdm_xc = {
+        "ms": time_ms(torch, lambda: xn.normalized_xcorr_dense(x_o, ochirp, ope)),
+        "plain_ms": time_ms(torch, lambda: xn.normalized_xcorr_dense_plain(x_o, ochirp, ope)),
+        "library_ms": time_ms(torch, lambda: (
+            torch.nn.functional.conv1d(x_o[:, None], chirp_w),
+            torch.nn.functional.conv1d(x_o[:, None] * x_o[:, None], ones_w))),
+        "bound": bound(x_o.numel() * 4 + x_o.shape[0] * n_lags_o * 4,
+                       x_o.shape[0] * n_lags_o * 4 * len(ochirp)),
+    }
     conv30_ms = time_ms(torch, lambda: conv_dot(demod_in, 30))
 
     # least times, from the shapes and this run's candidates
@@ -3170,6 +3508,10 @@ def main() -> None:
         f"{fold_in4['hits']} refined hits): kernel {refine4_ms:.4f} ms [{card}]")
     log(f"phase 4: normalized_xcorr at L=440 vs conv1d dot + conv1d energy: "
         f"{library_ms['normalized_xcorr']:.4f} ms [{card}]")
+    log(f"phase 4: normalized_xcorr at the ofdm_v2_b32 shape ({x_o.shape[0]} x {x_o.shape[1]}, "
+        f"L=440): kernel {ofdm_xc['ms']:.4f} ms, plain {ofdm_xc['plain_ms']:.4f} ms, conv1d dot + "
+        f"conv1d energy {ofdm_xc['library_ms']:.4f} ms, bound {ofdm_xc['bound'][0]:.4f} ms "
+        f"({ofdm_xc['bound'][1]}) [{card}]")
     log(f"phase 4: sliding_dot at L=440 vs conv1d: {library_ms['sliding_dot']:.4f} ms "
         f"(max |conv1d - kernel| {conv_err:.3g}); at L=30 ({demod_in.shape[0]} x "
         f"{demod_in.shape[1]}): kernel {sd30_ms:.4f} ms, plain {sd30_plain_ms:.4f} ms, conv1d "
@@ -3402,7 +3744,11 @@ def main() -> None:
             sd30_ms, sd30_bound, launches["sliding_dot"] // 2),
         "normalized_xcorr ask_b16 (L=440)": (
             (xn.normalized_xcorr_dense, None, (xa, chirp)), "normalized_xcorr_kernel",
-            ms["normalized_xcorr"], bounds["normalized_xcorr"], launches["normalized_xcorr"]),
+            ms["normalized_xcorr"], bounds["normalized_xcorr"],
+            launches["normalized_xcorr"] - sum(ofdm_launches.values()) - ofdm_stream_launches),
+        "normalized_xcorr ofdm_v2_b32 (L=440)": (
+            (xn.normalized_xcorr_dense, None, (x_o, ochirp, ope)), "normalized_xcorr_kernel",
+            ofdm_xc["ms"], ofdm_xc["bound"], sum(ofdm_launches.values()) + ofdm_stream_launches),
         "xcorr_rowstats equalized_b32 (L=96)": (
             (xn.xcorr_rowstats, None, (xe, pre)), "xcorr_rowstats_kernel",
             ms["xcorr_rowstats"], bounds["xcorr_rowstats"], launches["xcorr_rowstats"]),
@@ -3644,6 +3990,7 @@ def main() -> None:
         log(f"phase 4: {step}: {time_ms(torch, fn, runs=5):.4f} ms (median of 5) [{card}]")
     time_stream_paths(torch, sd, PhyDecoder, lstream, cfg, cfg4, mac_in, rec_segments, card,
                       dev)
+    time_ofdm_paths(torch, ofdm, ofdm_v2, x_o, ofdm_buckets, card, dev)
     # registers and spills last: cuobjdump runs as a child process, and the
     # profiler's sessions after one lose their last launches
     for src in ("sliding_dot", "xcorr_norm", "xcorr_hits", "spec_walk", "attempt_manchester",

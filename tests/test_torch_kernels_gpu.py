@@ -52,12 +52,12 @@ from trackmaker_tpu_torch.core.framing import Frame
 from trackmaker_tpu_torch.dsp import channel, equalizer, timing
 from trackmaker_tpu_torch.dsp.osc import chirp_np
 from trackmaker_tpu_torch.parallel.stream import spec_block
-from trackmaker_tpu_torch.phy import ask, ask_spec
+from trackmaker_tpu_torch.phy import ask, ask_spec, ofdm, ofdm_v2
 from trackmaker_tpu_torch.phy import spec_decode as sd
 from trackmaker_tpu_torch.phy.decoder import decode_capture, decode_capture_fast
 from trackmaker_tpu_torch.phy.encoder import PhyEncoder
 from trackmaker_tpu_torch.phy.line_coding import preamble_waveform
-from trackmaker_tpu_torch.sync.correlate import preamble_energy
+from trackmaker_tpu_torch.sync.correlate import pattern_norm, preamble_energy
 from trackmaker_tpu_torch.sync.sliding_dot import sliding_dot_scaled, sliding_dot_scaled_plain
 from trackmaker_tpu_torch.sync.xcorr_hits import (
     hit_rows_plain,
@@ -612,6 +612,13 @@ def test_cpu_tensors_run_the_plain_normalized_correlation():
     before = (normalized_xcorr_dense.launches, xcorr_rowstats.launches)
     chirp = chirp_np(440)
     assert torch.equal(normalized_xcorr_dense(x, chirp), normalized_xcorr_dense_plain(x, chirp))
+    for pe in (pattern_norm(chirp), 2.0 * preamble_energy(chirp)):    # the norm argument
+        got = normalized_xcorr_dense(x, chirp, pe)
+        assert torch.equal(got, normalized_xcorr_dense_plain(x, chirp, pe))
+    assert torch.equal(got, normalized_xcorr_dense_plain(
+        x, chirp, 2.0 * preamble_energy(chirp)))
+    half = normalized_xcorr_dense(x, chirp) / 2
+    assert (got - half).abs().max().item() <= 1e-6
     got, want = xcorr_rowstats(x, PRE), xcorr_rowstats_plain(x, PRE)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert (normalized_xcorr_dense.launches, xcorr_rowstats.launches) == before
@@ -634,6 +641,12 @@ def test_normalized_xcorr_kernel_matches_plain(cuda):
     for pattern in (PRE, PRE4):       # at L <= 128 the hit kernel's corr, bit for bit
         corr, _ = xcorr_hits(x, pattern, THR, emit_corr=True)
         assert torch.equal(normalized_xcorr_dense(x, pattern), corr)
+    chirp = chirp_np(440)
+    for pe in (pattern_norm(chirp), 0.5 * preamble_energy(chirp)):     # the norm argument
+        got = normalized_xcorr_dense(x, chirp, pe)
+        want = normalized_xcorr_dense_plain(x, chirp, pe)
+        assert (got - want).abs().max().item() <= 1e-5, pe
+    assert (got - 2 * normalized_xcorr_dense(x, chirp)).abs().max().item() <= 2e-5
 
 
 @pytest.mark.gpu
@@ -1497,6 +1510,44 @@ def test_sliding_dot_and_normalized_kernels_copy_nothing_to_the_card(cuda):
     assert launches_of(*wrappers) == [n + 3 for n in before]
     assert not card.h2d, card.h2d
     assert not csrc_copies("sliding_dot", "xcorr_norm")
+
+
+def _ofdm_capture() -> np.ndarray:
+    rng = np.random.default_rng(8)
+    frames = [Frame.new_data(i, 1, 2, rng.integers(0, 256, 40, dtype=np.uint8).tobytes())
+              for i in range(3)]
+    wave = ofdm_v2.OfdmModemV2(device="cpu").encode_frames(frames, gap_samples=300)
+    x = np.concatenate([np.zeros(500, np.float32), wave, np.zeros(3000, np.float32)])
+    return (x + rng.normal(0, 0.01, len(x))).astype(np.float32)
+
+
+@pytest.mark.gpu
+def test_ofdm_path_copies_nothing_to_the_card(cuda):
+    """The OFDM sync's call of the normalized correlation, with the chirp's
+    f32 norm, copies nothing to the card; nor do find_preambles and the v2
+    demodulation of captures on the card (their tables copied once a
+    process, at the first call); a stream PHY call copies its bucket once."""
+    x = torch.from_numpy(_ofdm_capture()).to(cuda)
+    chirp = chirp_np(440)
+    cfg = ofdm_v2.OfdmV2Config()
+    calls = (lambda: normalized_xcorr_dense(x[None], chirp, pattern_norm(chirp)),
+             lambda: ofdm_v2.demodulate_at_v2(cfg, x, 8 * 47, ofdm.find_preambles(cfg, x, 4),
+                                              3))
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    before = normalized_xcorr_dense.launches
+    with CardWork() as card:
+        for call in calls:
+            call()
+    torch.cuda.synchronize()
+    assert normalized_xcorr_dense.launches == before + 2
+    assert not card.h2d, card.h2d
+    phy = ofdm_v2.OfdmStreamPhyV2(local_addr=2, device=cuda)
+    with CardWork() as card:
+        frames = phy.process_samples(x.cpu().numpy())
+    assert len(frames) == 3 and phy.decode_calls == 1
+    assert card.h2d == ["aten._to_copy"], card.h2d
 
 
 # The walk as a successor-table chase by pointer doubling and the Manchester

@@ -27,15 +27,19 @@ from trackmaker_tpu_torch.core.config import FOUR_B_FIVE_B, MacConfig, PhyConfig
 from trackmaker_tpu_torch.core.framing import Frame
 from trackmaker_tpu_torch.link import AppState, AudioEndpoint, SimulatedBus, is_channel_busy
 from trackmaker_tpu_torch.link import gbn, sr, transfer
+from trackmaker_tpu_torch.phy import ofdm, ofdm_v2
 
+# the transfers, and the stream PHYs that replace the line-coded one
 PORT_LINK = {"csma": transfer.transfer_over_bus, "gbn": gbn.gbn_transfer,
-             "sr": sr.sr_transfer}
-# (ARQ, line code, noise sigma): a few frames each; sigma 0.12 at seed 5
-# is tests/test_link.py's noisy channel
+             "sr": sr.sr_transfer, "ofdm": ofdm.OfdmStreamPhy,
+             "ofdm_v2": ofdm_v2.OfdmStreamPhyV2}
+OFDM = ("ofdm", "ofdm_v2")
+# (ARQ, line code or OFDM PHY, noise sigma): a few frames each; sigma 0.12
+# at seed 5 is tests/test_link.py's noisy channel
 TRANSFERS = [("csma", "manchester", 0.0), ("csma", "manchester", 0.12),
              ("csma", FOUR_B_FIVE_B, 0.0), ("gbn", "manchester", 0.0),
              ("gbn", "manchester", 0.12), ("sr", "manchester", 0.0),
-             ("sr", "manchester", 0.12)]
+             ("sr", "manchester", 0.12), ("csma", "ofdm", 0.0), ("csma", "ofdm_v2", 0.0)]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -52,8 +56,11 @@ def _jax_link():
     from trackmaker_tpu.link.gbn import gbn_transfer
     from trackmaker_tpu.link.sr import sr_transfer
     from trackmaker_tpu.link.transfer import transfer_over_bus
+    from trackmaker_tpu.phy.ofdm import OfdmStreamPhy
+    from trackmaker_tpu.phy.ofdm_v2 import OfdmStreamPhyV2
 
-    return {"csma": transfer_over_bus, "gbn": gbn_transfer, "sr": sr_transfer}
+    return {"csma": transfer_over_bus, "gbn": gbn_transfer, "sr": sr_transfer,
+            "ofdm": OfdmStreamPhy, "ofdm_v2": OfdmStreamPhyV2}
 
 
 def _jax_configs():
@@ -64,7 +71,13 @@ def _jax_configs():
 
 
 def _transfer(link, phy_config, mac_config, arq: str, coding: str, sigma: float, **kw):
+    """A transfer over a line code, or over the OFDM stream PHY `coding`
+    names (each node its own, on the transfer's `device` where given)."""
     data = bytes(range(256)) + bytes(range(0, 256, 3))
+    if coding in OFDM:
+        phy_kw = {"device": kw["device"]} if "device" in kw else {}
+        kw["phy_factory"] = lambda addr, phy=link[coding]: phy(local_addr=addr, **phy_kw)
+        coding = "manchester"
     received, stats = link[arq](data, cfg=phy_config(line_coding=coding),
                                 mac_cfg=mac_config(), noise_std=sigma, seed=5,
                                 max_duration_s=30.0, **kw)
@@ -254,6 +267,7 @@ def test_mac_runs_exercise_the_arq_paths():
         assert chip_smoke.MAC_EXPECT[name]["retransmit_bursts"] > 0
     assert chip_smoke.MAC_EXPECT["sr_transfer, noise"]["frames_retransmitted"] > 0
     assert set(chip_smoke.MAC_EXPECT) == set(chip_smoke.MAC_RUNS)
+    assert chip_smoke.MAC_RUNS["csma_transfer, ofdm_v2"][2]["phy"] == "ofdm_v2"
 
 
 def test_nodes_default_to_the_card():

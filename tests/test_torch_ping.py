@@ -9,7 +9,8 @@ interface its backoff from ``random.Random(seed)`` and the host's from
 sample counts; so when the port's PHY decides as the JAX package's does,
 ``run_ping_simulation``'s whole dict is equal, floats included.  The runs
 are ``chip_smoke.PING_RUNS`` (the router run is in
-``tests/test_torch_router.py``) and a lossy one.  The JAX side runs as its
+``tests/test_torch_router.py``; one runs over the OFDM v2 stream PHY) and a
+lossy one.  The JAX side runs as its
 own suite runs it here; the port's PhyDecoder runs the speculative
 decode's plain versions.  This module imports JAX only inside its tests,
 so the tests marked ``gpu`` run on a card without it.
@@ -79,6 +80,7 @@ def test_ping_runs_exercise_their_paths():
     frag = chip_smoke.PING_RUNS["ping, fragments"]["payload_size"] + 28
     assert frag > NetConfig().mtu
     assert chip_smoke.PING_RUNS["ping, 4b5b"]["line_coding"] == "4b5b"
+    assert chip_smoke.PING_RUNS["ping, ofdm_v2"]["phy"] == "ofdm_v2"
     assert set(chip_smoke.PING_EXPECT) == set(chip_smoke.PING_RUNS)
 
 

@@ -17,7 +17,10 @@ carries IP over sound: ``link.interface.AcousticInterface`` fragments,
 CSMA-sends and reassembles IPv4 packets, and ``net`` holds the IPv4/ICMP,
 fragmentation, ARP, NAT, Ethernet, DNS and conntrack codecs and tables,
 the router with its ports, the TUN bridge and the ping and IP-host tools
-(``net.tools.run_ping_simulation``, a full PHY+MAC+NET round trip).
+(``net.tools.run_ping_simulation``, a full PHY+MAC+NET round trip).  The
+OFDM modems (``phy.ofdm`` v1, ``phy.ofdm_v2`` with Schmidl-Cox timing and
+pilot tracking) sync on the normalized correlation kernel and plug under
+the same MAC and network layer as stream PHYs.
 Importing the package touches no device and builds nothing.
 
 On the CPU, ``tests/test_torch_*.py`` hold each module against the JAX
@@ -26,16 +29,18 @@ package (``tests/test_torch_channel_timing.py`` and
 ``tests/test_torch_phy_decoder_stream.py`` and ``tests/test_torch_link.py``
 its streaming receive path and link layer, ``tests/test_torch_net.py``,
 ``tests/test_torch_ping.py`` and ``tests/test_torch_router.py`` its network
-layer); on a card, ``python3
+layer, ``tests/test_torch_ofdm.py`` and ``tests/test_torch_ofdm_v2.py`` its
+OFDM modems); on a card, ``python3
 chip_smoke.py`` runs every path, its ``phase 2 (clock_search)``,
 ``(timing_gate)``, ``(timing_gate, flagship gaps)``, ``(decode_dd)`` and
 ``(sweeps)`` lines the robustness ones, ``phase 2 (stream_latency)`` and
 the ``phase 2 (csma_transfer ...)``, ``(gbn_transfer ...)`` and
 ``(sr_transfer ...)`` lines the streaming path and the MAC, the ``phase 2
-(ping ...)`` and ``(router)`` lines the network layer.
+(ping ...)`` and ``(router)`` lines the network layer, ``phase 2
+(ofdm_v2_b32)`` the OFDM modems.
 
     trackmaker_tpu_torch.core   PhyConfig, MacConfig, NetConfig, bit ops, CRC8, frame codec,
-                                block index
+                                first-set queries, Hamming(7,4) and the interleaver
     trackmaker_tpu_torch.dsp    carrier and chirp synthesis, EMA power, the channel
                                 models (noise, gain, clock offset, delay, echo, mix),
                                 the preamble-trained MMSE equalizer and its
@@ -45,7 +50,7 @@ the ``phase 2 (csma_transfer ...)``, ``(gbn_transfer ...)`` and
                                 correlation, row-stats and sliding-dot kernels
     trackmaker_tpu_torch.phy    line code, encoder, exact and speculative decode,
                                 the streaming PhyDecoder; the ASK modem and its
-                                speculative receiver
+                                speculative receiver; the OFDM modems v1 and v2
     trackmaker_tpu_torch.link   the streaming decode pipeline, the simulated
                                 bus and endpoints, the CSMA, Go-Back-N and
                                 Selective-Repeat nodes and transfers, the

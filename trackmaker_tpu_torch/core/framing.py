@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
 from trackmaker_tpu_torch.core import bitops
@@ -51,6 +52,10 @@ class Frame:
         ])
         return hdr + self.data
 
+    def to_bits(self) -> np.ndarray:
+        """The frame's bytes as uint8 bits, MSB first."""
+        return bitops.bytes_to_bits_host(self.to_bytes())
+
     @classmethod
     def from_bytes(cls, raw: bytes) -> "Frame | None":
         """Parse and validate; None on a bad type, short buffer or CRC."""
@@ -66,6 +71,12 @@ class Frame:
         if bitops.crc8_host(data) != crc:
             return None
         return cls(ftype, seq, src, dst, data)
+
+    @classmethod
+    def from_bits(cls, bits: np.ndarray) -> "Frame | None":
+        """Parse uint8 bits, MSB first (a trailing partial byte is
+        zero-padded); None where :meth:`from_bytes` gives None."""
+        return cls.from_bytes(bitops.bits_to_bytes_host(bits).tobytes())
 
 
 def parse_header(frame_bytes: torch.Tensor) -> dict[str, torch.Tensor]:

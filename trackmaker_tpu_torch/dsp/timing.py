@@ -33,6 +33,7 @@ from trackmaker_tpu_torch.phy import line_coding
 from trackmaker_tpu_torch.phy.decoder import DecodedFrames, as_capture, decode_capture_fast
 from trackmaker_tpu_torch.phy.spec_decode import extract_candidates
 from trackmaker_tpu_torch.sync import auto_xcorr
+from trackmaker_tpu_torch.sync.correlate import preamble_energy
 
 PPM_GRID = (-2000.0, -1000.0, -500.0, 0.0, 500.0, 1000.0, 2000.0)
 
@@ -175,7 +176,8 @@ def _retry_batch(cfg: PhyConfig, x: torch.Tensor, res: DecodedFrames, max_retry:
     capture x outside `res`'s frames, each window resampled at its body's
     drift estimate."""
     dev = x.device
-    corr = auto_xcorr(x, line_coding.preamble_waveform(cfg))
+    pre = line_coding.preamble_waveform(cfg)
+    corr = auto_xcorr(x, pre, preamble_energy(pre))
     n = corr.shape[0]
     # the extent of every valid frame, as +1/-1 steps summed along the lags
     starts = res.start[res.valid].to(torch.int64)

@@ -1,2 +1,2 @@
 """Line code, encoder, the exact and speculative decoders, the streaming
-PhyDecoder, and the ASK modem."""
+PhyDecoder, the ASK modem, and the OFDM modems v1 and v2."""

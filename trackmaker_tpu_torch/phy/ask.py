@@ -283,7 +283,7 @@ def run_chain(cfg: AskConfig, sync_pad: torch.Tensor, upd_pad: torch.Tensor,
     return peak[0], fired[0]
 
 
-# Two-level block index for "first update at or after the cursor"
+# "first update at or after the cursor": a next-set table over the mask
 upd_block_tables = blockq.block_tables
 first_upd_from = blockq.first_set_from
 

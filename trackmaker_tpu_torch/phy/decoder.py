@@ -145,7 +145,7 @@ def decode_capture(
         x = torch.nn.functional.pad(x, (0, l_pre - t))
         t = l_pre
 
-    corr = auto_xcorr(x, pre)
+    corr = auto_xcorr(x, pre, preamble_energy(pre))
     hits = torch.nonzero(corr >= cfg.correlation_threshold).flatten().cpu().numpy()
     last_lag = -(-corr.shape[0] // _HIT_BLOCK) * _HIT_BLOCK - 1
     padded = torch.nn.functional.pad(x, (0, max_window + l_pre + margin + sync_len + 8))

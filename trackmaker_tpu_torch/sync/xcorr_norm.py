@@ -9,9 +9,9 @@ CPU tensor.  For captures x f32[B, T] and a host pattern p f32[L]:
 
 * ``normalized_xcorr_dense`` returns corr f32[B, T-L+1],
   ``corr = energy < EPS ? 0 : dot / max(sqrt(energy) * ||p||, 1e-30)``
-  with ``correlate.EPS`` = 1e-6 and ``||p||`` the decoders' norm,
-  ``correlate.preamble_energy`` rounded to f32 (a division, as the JAX
-  package's ``correlate.normalized_xcorr``);
+  with ``correlate.EPS`` = 1e-6 and ``||p||`` the caller's norm `pe`
+  rounded to f32, by default the decoders' ``correlate.preamble_energy``
+  (a division, as the JAX package's ``correlate.normalized_xcorr``);
 * ``xcorr_rowstats`` returns (rowmax f32[B, R], rowpos int32[B, R]) over
   the R = ceil((T-L+1)/128) rows of 128 lags: each row's largest corr and
   the absolute lag of its first maximum.  Lags at or past T-L+1 count as
@@ -103,15 +103,19 @@ def _kernel_args(x: torch.Tensor, pattern: np.ndarray):
     return b, t, l, pack_taps(pattern)
 
 
-def normalized_xcorr_dense(x: torch.Tensor, pattern: np.ndarray) -> torch.Tensor:
+def normalized_xcorr_dense(x: torch.Tensor, pattern: np.ndarray,
+                           pe: float | None = None) -> torch.Tensor:
     """corr f32[B, T-L+1] of the captures x f32[B, T] against the host
-    constant `pattern` f32[L], L <= 1024 (see the module docstring)."""
+    constant `pattern` f32[L], L <= 1024, divided by the norm `pe`, by
+    default ``correlate.preamble_energy(pattern)`` (see the module
+    docstring)."""
     if not _build.on_cuda(x):
-        return normalized_xcorr_dense_plain(x, pattern)
+        return normalized_xcorr_dense_plain(x, pattern, pe)
     b, t, l, taps = _kernel_args(x, pattern)
+    pe = correlate.preamble_energy(pattern) if pe is None else pe
     corr = torch.empty((b, t - l + 1), dtype=torch.float32, device=x.device)
     fn = _build.entry("xcorr_norm", "tm_normalized_xcorr", _DENSE_ARGTYPES)
-    err = fn(x.data_ptr(), taps.ctypes.data, b, t, l, correlate.preamble_energy(pattern),
+    err = fn(x.data_ptr(), taps.ctypes.data, b, t, l, pe,
              corr.data_ptr(), _build.stream_ptr(x))
     _build.check(err, "normalized_xcorr")
     normalized_xcorr_dense.launches += 1
