@@ -9,7 +9,8 @@ PyTorch built for CUDA and the CUDA toolkit (``nvcc``):
 Phases, each raising on failure (non-zero exit):
 
 0. setup: TF32 off, the card's name and power limit, the kernels built
-   from ``trackmaker_tpu_torch/csrc`` (one nvcc per source, in parallel)
+   from ``trackmaker_tpu_torch/csrc`` (one nvcc per source, in parallel,
+   fourteen sources with ``viterbi.cu``)
    and the toolchain (nvcc, the driver, torch),
    and the window health probe ``tools.health.health`` on the card (its
    path: 1,201 launches of the probe kernel), printed with the card;
@@ -111,7 +112,15 @@ Phases, each raising on failure (non-zero exit):
    captures and (after phase 2) on every bucket the two OFDM runs'
    stream PHYs decoded, stacked by length and the largest alone, each
    within CORR_ATOL of its plain version and the preamble starts walked
-   from the kernel's corr equal to those from the plain corr;
+   from the kernel's corr equal to those from the plain corr; the Viterbi
+   decoder (``csrc/viterbi.cu``) against its plain version bit for bit on
+   coded_manchester_b8's header and payload blocks (256 rows of 62 and 518
+   trellis steps) and on tests/test_torch_convcode.py's corpora (hard and
+   soft rows at every n_steps mod 4, a 1/8-grid ties corpus with an
+   all-zero row, depunctured rate-3/4 blocks, one row and 256 rows); and,
+   after phase 2, #1's dense corr (``auto_xcorr``) on every bucket the coded
+   MAC run correlated, within CORR_ATOL of its plain version, its hits and
+   the starts walked from it equal;
 2. the main paths, each with its kernels' launch counts set to 0 just
    before it and read just after: the flagship and fourb5b_b32 through
    ``decode_capture_fast`` (32 noisy captures of 64 frames of 128-byte
@@ -196,7 +205,20 @@ Phases, each raising on failure (non-zero exit):
    of capture 0; the same frames through v1 (the batch and
    ``OfdmModem.decode``, and 8 through Hamming(7,4)); the MAC run
    "csma_transfer, ofdm_v2" and the network run "ping, ofdm_v2" above run
-   over ``OfdmStreamPhyV2``, logged with its stream calls;
+   over ``OfdmStreamPhyV2``, logged with its stream calls; then the coded
+   PHYs (``phy/coded.py``), each run with its kernels' counts set to 0 just
+   before it: coded_manchester_b8 (bench.py:449-478's row, cut nothing: 8
+   captures of 32 frames of 64-byte payloads, gaps of 300, noise sigma
+   0.05) through ``CodedManchesterPhy.decode_equal_frames`` (every frame of
+   every capture, one launch of #1 and two of the Viterbi kernel, the
+   decisions' digest equal to CODED_DIGEST, the JAX package's), the coded
+   4B5B rate-3/4 batch of tests/test_coded_phy.py the same way
+   (CODED4_DIGEST), ``OfdmModem(fec="conv")`` on ofdm_v2_b32's frames (every
+   payload; #2 and the Viterbi kernel once each), ``coded_ber_sweep`` at its
+   defaults (equal to CODED_BER_EXPECT, the JAX package's; #1, #3, #4 and
+   the Viterbi kernel launched) and the MAC run "csma_transfer,
+   coded_manchester" above over ``CodedManchesterPhy`` (sigma 0.9, threshold
+   0.45, logged with its stream calls);
 3. the fallbacks: a Manchester capture that overflows the candidate table,
    a 4B5B capture with a zeroed level inside an attempted frame, and an
    ASK capture of 150 back-to-back chirps before three frames (more fire
@@ -266,13 +288,21 @@ Phases, each raising on failure (non-zero exit):
    (sync's correlation and walk, the SC refine, windows and FFTs,
    equalization and tracking), its peak memory and busy share, and one
    ``OfdmStreamPhyV2.process_samples`` call on the largest bucket the OFDM
-   runs decoded; each printed beside the card's name and power limit.
+   runs decoded; the coded_manchester_b8 decode end to end (median of 30,
+   and its real-time multiple; also through ``decode_equal_frames``), its
+   steps (the correlation, the walk, the soft demod and deinterleave, the
+   two Viterbi launches), its peak memory and busy share, the Viterbi
+   kernel at the payload and header shapes (CUDA events, device time)
+   beside its bound, its dependent chain of block steps and its plain
+   version, and one ``CodedManchesterPhy.process_samples`` call on the
+   largest bucket the coded MAC run correlated; each printed beside the
+   card's name and power limit.
 
 The line before the last is a JSON object with the kernels' measurements:
 ``launches`` counts each kernel's launches in the main-path runs of
 phase 2 (the line-coded paths, the blocked runs, the profiler path, the
 robustness paths, the streaming latency run, the MAC runs, the network
-runs and the OFDM paths; the
+runs, the OFDM paths and the coded paths; the
 probe's in phase 0's health run; the
 batch-folded hit rows are on no path and count 0),
 ``ms`` and ``plain_ms`` time it at the shapes of its first path, and
@@ -374,13 +404,52 @@ OFDM_GAP = 400
 OFDM_NOISE = 0.01
 OFDM_SEED = 0
 OFDM_DIGEST = "3db8047324c8e4ac"
+# coded_manchester_b8, bench.py's coded row (bench.py:449-478): CODED_FRAMES
+# frames Frame.new_data(i, 1, 2, p) of random CODED_PAYLOAD-byte payloads,
+# CODED_GAP samples apart, through CodedManchesterPhy(PhyConfig()), in
+# CODED_BATCH captures with noise sigma CODED_NOISE, payloads and noise from
+# default_rng(CODED_SEED), the waveform from the port's encoder on the host.
+# CODED_DIGEST is the digest of the JAX package's batched decode of these
+# captures, the starts and the bits (tests/test_torch_coded.py)
+CODED_BATCH = 8
+CODED_FRAMES = 32
+CODED_PAYLOAD = 64
+CODED_GAP = 300
+CODED_NOISE = 0.05
+CODED_SEED = 0
+CODED_DIGEST = "697064d3d339ccbf"
+# the coded 4B5B rate-3/4 batch, tests/test_coded_phy.py's
+# test_batched_decode_matches_streaming shape: CODED4_FRAMES frames of random
+# CODED4_PAYLOAD-byte payloads through CodedFourB5BPhy at threshold 0.45,
+# rate 3/4, in 2 captures with gaps of 257 and 288 samples, a random lead-in
+# under 300 samples and 400 of silence after, noise sigma CODED4_NOISE, all
+# from default_rng(CODED4_SEED); CODED4_DIGEST is the JAX package's batched
+# decode of it at max_frames CODED4_FRAMES + 2 (tests/test_torch_coded.py)
+CODED4_FRAMES = 5
+CODED4_PAYLOAD = 48
+CODED4_NOISE = 0.12
+CODED4_SEED = 11
+CODED4_DIGEST = "7fe0ea2965c41596"
+# the JAX package's coded_ber_sweep() at its defaults (tests/test_torch_coded.py)
+CODED_BER_EXPECT = [
+    {"snr_db": -8.0, "frames_sent": 16, "uncoded_loss_pct": 100.0, "coded_loss_pct": 100.0},
+    {"snr_db": -6.0, "frames_sent": 16, "uncoded_loss_pct": 100.0, "coded_loss_pct": 50.0},
+    {"snr_db": -4.0, "frames_sent": 16, "uncoded_loss_pct": 100.0, "coded_loss_pct": 12.5},
+    {"snr_db": -2.0, "frames_sent": 16, "uncoded_loss_pct": 93.75, "coded_loss_pct": 0.0},
+    {"snr_db": 0.0, "frames_sent": 16, "uncoded_loss_pct": 81.25, "coded_loss_pct": 0.0},
+    {"snr_db": 2.0, "frames_sent": 16, "uncoded_loss_pct": 43.75, "coded_loss_pct": 0.0},
+    {"snr_db": 4.0, "frames_sent": 16, "uncoded_loss_pct": 0.0, "coded_loss_pct": 0.0},
+    {"snr_db": 6.0, "frames_sent": 16, "uncoded_loss_pct": 0.0, "coded_loss_pct": 0.0},
+]
 # the MAC runs over the port's PHY: name -> (ARQ, bytes of bytes(range(256))
 # repeated, options: the transfer's keywords, line_coding and
 # energy_threshold for its PhyConfig and MacConfig, and phy, the stream PHY
 # each node gets in place of the line-coded one); the noisy CSMA run is
 # tests/test_link.py's, the noisy window runs tests/test_sr.py's, at
 # sigma 0.45 where frames drop and the ARQ paths run, the OFDM run
-# tests/test_ofdm_v2_mac.py's
+# tests/test_ofdm_v2_mac.py's, the coded run tests/test_coded_phy.py's
+# (sigma 0.9, seed 9, correlation threshold 0.45 for its PhyConfig, carrier
+# sense at 3.0)
 MAC_RUNS = {
     "csma_transfer": ("csma", 1024, {"max_duration_s": 60.0}),
     "csma_transfer, noise": ("csma", 512, {"noise_std": 0.12, "seed": 5,
@@ -393,6 +462,9 @@ MAC_RUNS = {
     "sr_transfer, noise": ("sr", 4096, {"window": 8, "noise_std": 0.45, "seed": 5,
                                         "max_duration_s": 300.0, "energy_threshold": 3.0}),
     "csma_transfer, ofdm_v2": ("csma", 512, {"phy": "ofdm_v2", "max_duration_s": 120.0}),
+    "csma_transfer, coded_manchester": ("csma", 512, {
+        "phy": "coded_manchester", "correlation_threshold": 0.45, "noise_std": 0.9, "seed": 9,
+        "energy_threshold": 3.0, "max_duration_s": 120.0}),
 }
 # the JAX package's stats of each MAC run (tests/test_torch_link.py); the
 # port's must equal them, on the card as on the CPU
@@ -418,6 +490,10 @@ MAC_EXPECT = {
     "csma_transfer, ofdm_v2": {"airtime_samples": 39936, "airtime_s": 0.832, "acked": 4,
                                "retransmissions": 0, "duplicates": 0,
                                "throughput_bps": 4923.076923076923},
+    "csma_transfer, coded_manchester": {"airtime_samples": 71680,
+                                        "airtime_s": 1.4933333333333334, "acked": 4,
+                                        "retransmissions": 0, "duplicates": 0,
+                                        "throughput_bps": 2742.8571428571427},
 }
 # the network layer's runs over the port's PHY (BASELINE.json config 5):
 # name -> run_ping_simulation's keywords, with line_coding for a stream PHY
@@ -481,7 +557,7 @@ F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM bf16 on the tensor cores, dense
 # the kernel each wrapper launches, where the two names differ
 KERNEL_NAMES = {"sliding_dot_scaled": "sliding_dot", "dense_fire_candidates": "ask_fire",
-                "normalized_xcorr_dense": "normalized_xcorr"}
+                "normalized_xcorr_dense": "normalized_xcorr", "viterbi_decode": "viterbi"}
 # the source of each kernel, where it is not csrc/<name>.cu
 SOURCES = {"normalized_xcorr": "xcorr_norm", "xcorr_rowstats": "xcorr_norm",
            "xcorr_hits_2s": "xcorr_streams", "attempt_sum": "attempt_manchester",
@@ -646,15 +722,18 @@ def gate_capture(torch, cfg, dev, quiet: int = GATE_QUIET):
 def mac_run(name: str, link, phy_config, mac_config, **kw):
     """(data, received, stats) of MAC_RUNS[name] through `link`, a mapping of
     "csma", "gbn" and "sr" to a package's transfer_over_bus, gbn_transfer and
-    sr_transfer and of "ofdm_v2" to its OfdmStreamPhyV2, with its PhyConfig
-    and MacConfig classes; `kw` goes to the transfer and to a stream PHY
-    (the port's `device`)."""
+    sr_transfer, of "ofdm_v2" to its OfdmStreamPhyV2 and of
+    "coded_manchester" to its CodedManchesterPhy (which takes the run's
+    PhyConfig), with its PhyConfig and MacConfig classes; `kw` goes to the
+    transfer and to a stream PHY (the port's `device`)."""
     arq, n_bytes, opts = MAC_RUNS[name]
     opts = dict(opts)
     phy = opts.pop("phy", None)
+    cfg = phy_config(**{k: opts.pop(k) for k in ("line_coding", "correlation_threshold")
+                        if k in opts})
     if phy is not None:
-        opts["phy_factory"] = lambda addr: link[phy](local_addr=addr, **kw)
-    cfg = phy_config(line_coding=opts.pop("line_coding", "manchester"))
+        args = (cfg,) if phy.startswith("coded") else ()
+        opts["phy_factory"] = lambda addr: link[phy](*args, local_addr=addr, **kw)
     mac_cfg = mac_config(energy_threshold=opts.pop("energy_threshold", 0.5))
     data = bytes(range(256)) * (n_bytes // 256)
     received, stats = link[arq](data, cfg=cfg, mac_cfg=mac_cfg, **opts, **kw)
@@ -824,9 +903,51 @@ def ofdm_input(v1: bool = False):
                              for _ in range(OFDM_BATCH)])
 
 
+def coded_input():
+    """(frames, captures f32[CODED_BATCH, T] in NumPy) of coded_manchester_b8,
+    built on the host."""
+    from trackmaker_tpu_torch.core.config import PhyConfig
+    from trackmaker_tpu_torch.core.framing import Frame
+    from trackmaker_tpu_torch.phy.coded import CodedManchesterPhy
+
+    rng = np.random.default_rng(CODED_SEED)
+    frames = [Frame.new_data(i, 1, 2, rng.integers(0, 256, CODED_PAYLOAD, dtype=np.uint8)
+                             .tobytes()) for i in range(CODED_FRAMES)]
+    wave = CodedManchesterPhy(PhyConfig(), device="cpu").encode_frames(frames,
+                                                                       gap_samples=CODED_GAP)
+    return frames, np.stack([(wave + rng.normal(0, CODED_NOISE, len(wave))).astype(np.float32)
+                             for _ in range(CODED_BATCH)])
+
+
+def coded4_input():
+    """(frames, captures f32[2, T] in NumPy, zero-padded to the longer) of the
+    coded 4B5B rate-3/4 batch, built on the host as
+    tests/test_coded_phy.py builds it."""
+    from trackmaker_tpu_torch.core.config import PhyConfig
+    from trackmaker_tpu_torch.core.framing import Frame
+    from trackmaker_tpu_torch.phy.coded import CodedFourB5BPhy
+
+    phy = CodedFourB5BPhy(PhyConfig(line_coding="4b5b", correlation_threshold=0.45),
+                          local_addr=2, rate34=True, device="cpu")
+    rng = np.random.default_rng(CODED4_SEED)
+    frames = [Frame.new_data(i, 1, 2, rng.integers(0, 256, CODED4_PAYLOAD, dtype=np.uint8)
+                             .tobytes()) for i in range(CODED4_FRAMES)]
+    caps = []
+    for b in range(2):
+        wave = phy.encode_frames(frames, gap_samples=257 + 31 * b)
+        lead = int(rng.integers(0, 300))
+        x = np.concatenate([np.zeros(lead, np.float32), wave, np.zeros(400, np.float32)])
+        caps.append((x + rng.normal(0, CODED4_NOISE, len(x))).astype(np.float32))
+    batch = np.zeros((2, max(len(c) for c in caps)), np.float32)
+    for b, c in enumerate(caps):
+        batch[b, :len(c)] = c
+    return frames, batch
+
+
 def ofdm_digest(starts, bits) -> str:
-    """A short SHA-256 of the OFDM decisions: the coarse starts as int32 and
-    the bits as uint8, NumPy arrays of any package."""
+    """A short SHA-256 of a batch decode's decisions (the OFDM or coded
+    runs'): the starts as int32 and the bits as uint8, NumPy arrays of any
+    package."""
     import hashlib
 
     h = hashlib.sha256(np.ascontiguousarray(starts, np.int32).tobytes())
@@ -1669,6 +1790,8 @@ class DecodeTally:
     def describe(self, opts: dict) -> str:
         if opts.get("phy") == "ofdm_v2":
             return f"{self.calls} stream calls that decoded a bucket"
+        if opts.get("phy") == "coded_manchester":
+            return f"{self.calls} stream calls that correlated a bucket"
         return f"{self.calls} decode calls ({self.exact} by the exact scan)"
 
     def figures(self, airtime_s: float, wall_s: float) -> dict:
@@ -1676,20 +1799,21 @@ class DecodeTally:
                 "exact": self.exact, "ms_per_call": self.seconds * 1e3 / self.calls}
 
 
-def recorded_run(torch, phy_decoder, kernels, run, ofdm_phy=None):
+def recorded_run(torch, phy_decoder, kernels, run, stream=None):
     """(run(), its launches of `kernels`, its DecodeTally, the buffers its
     PhyDecoders decoded [(f32[bucket] on the card, true length, local
     address, max_frames)], wall seconds), the counts set to 0 just before.
-    With `ofdm_phy` (the port's OfdmStreamPhy) the run's stream PHYs are
-    OFDM: the tally counts theirs and the buffers are the buckets they
-    decoded [f32[bucket] on the card]."""
-    if ofdm_phy is None:
+    With `stream` (a stream PHY class of the port and the method that takes
+    a padded bucket: OfdmStreamPhy's _starts, the coded PHYs' _correlate)
+    the run's stream PHYs are that class: the tally counts theirs and the
+    buffers are the buckets they decoded [f32[bucket] on the card]."""
+    if stream is None:
         cls, method = phy_decoder, "_decode_with_cursor"
 
         def keep(dec, padded, n):
             return padded, n, dec.local_addr, dec.max_frames
     else:
-        cls, method = ofdm_phy, "_starts"
+        cls, method = stream
 
         def keep(phy, padded):
             return padded
@@ -1700,10 +1824,12 @@ def recorded_run(torch, phy_decoder, kernels, run, ofdm_phy=None):
 
 def path_kernels(opts: dict) -> tuple[str, ...]:
     """The kernels a MAC or network run's stream PHY launches: the
-    normalized correlation on OFDM, else #1, the attempt of its line code
-    and #4."""
+    normalized correlation on OFDM, #1 and the Viterbi decoder on the coded
+    PHY, else #1, the attempt of its line code and #4."""
     if opts.get("phy") == "ofdm_v2":
         return ("normalized_xcorr_dense",)
+    if opts.get("phy") == "coded_manchester":
+        return ("xcorr_hits", "viterbi_decode")
     attempt = "attempt_4b5b" if opts.get("line_coding") == "4b5b" else "attempt_manchester"
     return ("xcorr_hits", attempt, "spec_walk")
 
@@ -1798,21 +1924,22 @@ def run_stream_latency(torch, pipeline_cls, cfg, stream_in, kernels,
     return launches, fig, rec.kept
 
 
-def run_mac_paths(torch, phy_decoder, link, phy_config, mac_config, kernels, ofdm_phy,
+def run_mac_paths(torch, phy_decoder, link, phy_config, mac_config, kernels, streams,
                   dev) -> tuple[dict, dict, dict]:
     """Phase 2's MAC runs (MAC_RUNS) through the port's transfer entry points
     on the card, each with the launch counts set to 0 just before it: the
     data must arrive and the stats equal MAC_EXPECT, the JAX package's.
     Returns (each run's launches of `kernels`, its figures, the buffers its
     PhyDecoders decoded [(f32[bucket] on the card, true length, local
-    address, max_frames)], or, for an OFDM run, the buckets its stream PHYs
+    address, max_frames)], or, for a run over a stream PHY of `streams`
+    (name -> recorded_run's `stream`), the buckets its stream PHYs
     decoded)."""
     launches, figs, inputs = {}, {}, {}
     for name, (arq, n_bytes, opts) in MAC_RUNS.items():
         (data, received, stats), launches[name], tally, inputs[name], wall = recorded_run(
             torch, phy_decoder, kernels,
             partial(mac_run, name, link, phy_config, mac_config, device=dev),
-            ofdm_phy if "phy" in opts else None)
+            streams.get(opts.get("phy")))
         require(received == data, f"{name}: {len(received)} of {len(data)} bytes arrived intact")
         require(stats == MAC_EXPECT[name],
                 f"{name} stats {stats}, the JAX package's {MAC_EXPECT[name]}")
@@ -1828,7 +1955,7 @@ def run_mac_paths(torch, phy_decoder, link, phy_config, mac_config, kernels, ofd
     return launches, figs, inputs
 
 
-def run_ping_paths(torch, phy_decoder, mods, kernels, ofdm_phy,
+def run_ping_paths(torch, phy_decoder, mods, kernels, streams,
                    dev) -> tuple[dict, dict, dict]:
     """Phase 2's network runs (PING_RUNS) through the port's entry points
     on the card (`mods`: its net_modules), each with the launch counts set
@@ -1844,7 +1971,7 @@ def run_ping_paths(torch, phy_decoder, mods, kernels, ofdm_phy,
         run = (partial(router_run, mods, device=dev) if name == "router"
                else partial(ping_run, name, mods, device=dev))
         got, launches[name], tally, inputs[name], wall = recorded_run(
-            torch, phy_decoder, kernels, run, ofdm_phy if "phy" in opts else None)
+            torch, phy_decoder, kernels, run, streams.get(opts.get("phy")))
         require(got == PING_EXPECT[name], f"{name}: {got}, the JAX package's {PING_EXPECT[name]}")
         if name == "router":
             require(got["src"] == "192.168.2.2" and got["dst"] == "192.168.1.2"
@@ -1891,9 +2018,11 @@ def check_ofdm_corr(torch, xn, ofdm, inputs, tag: str) -> float:
     """Phase 1 on the OFDM path: #2's normalized form at L=440 with the
     chirp's f32 norm, as find_preambles calls it, against its plain version
     on each batch of `inputs` [(captures f32[B, T] on the card,
-    max_frames)], within CORR_ATOL, and the starts walk_preambles takes from
+    max_frames)], within CORR_ATOL, and the starts sync.walk_starts takes from
     the kernel's corr equal to those from the plain corr, -1 padding
     included.  Returns the max |err|."""
+    from trackmaker_tpu_torch.sync import walk_starts
+
     cfg = ofdm.OfdmConfig()
     chirp, pe = ofdm_chirp()
     err, n_starts = 0.0, 0
@@ -1904,8 +2033,10 @@ def check_ofdm_corr(torch, xn, ofdm, inputs, tag: str) -> float:
         e = (got - want).abs().max().item()
         require(e <= CORR_ATOL, f"normalized_xcorr on the {tag}: max |err| {e}")
         err = max(err, e)
-        starts = ofdm.walk_preambles(cfg, got, max_frames)
-        require(torch.equal(starts, ofdm.walk_preambles(cfg, want, max_frames)),
+        starts = walk_starts(got, cfg.sync_threshold, max_frames, cfg.preamble_len,
+                             cfg.preamble_len)
+        require(torch.equal(starts, walk_starts(want, cfg.sync_threshold, max_frames,
+                                                cfg.preamble_len, cfg.preamble_len)),
                 f"the {tag}: the starts from the kernel's corr differ from the plain corr's")
         n_starts += int((starts >= 0).sum())
     shapes = sorted({tuple(x.shape) for x, _ in inputs})
@@ -2025,6 +2156,8 @@ def time_ofdm_paths(torch, ofdm, ofdm_v2, x2, buckets, card, dev) -> None:
     walk, the SC refine, the windows and FFTs, equalization and tracking),
     its peak memory and busy share, and one OfdmStreamPhyV2.process_samples
     call on the largest bucket the OFDM runs decoded."""
+    from trackmaker_tpu_torch.sync import walk_starts
+
     cfg2 = ofdm_v2.OfdmV2Config()
     n_bits = (7 + OFDM_PAYLOAD) * 8
     n_sym = cfg2.n_symbols(n_bits)
@@ -2038,13 +2171,14 @@ def time_ofdm_paths(torch, ofdm, ofdm_v2, x2, buckets, card, dev) -> None:
     log(f"phase 4: ofdm_v2_b32 find_preambles + demodulate_at_v2 {b} x {t}: {e2e:.4f} ms, "
         f"{b * t / cfg2.sample_rate / (e2e / 1e3):.1f}x real time [{card}]")
     corr = ofdm.preamble_corr(cfg2, x2)
-    starts = ofdm.walk_preambles(cfg2, corr, OFDM_FRAMES)
+    starts = walk_starts(corr, cfg2.sync_threshold, OFDM_FRAMES, cfg2.preamble_len,
+                         cfg2.preamble_len)
     fine = ofdm_v2._sc_refine(cfg2, x2, starts)
     spec = ofdm._windows_spectrum(cfg2, x2, fine, n_sym)
     steps = {
         "sync: the chirp correlation (#2)": lambda: ofdm.preamble_corr(cfg2, x2),
-        f"sync: the walk ({OFDM_FRAMES} steps)": lambda: ofdm.walk_preambles(
-            cfg2, corr, OFDM_FRAMES),
+        f"sync: the walk ({OFDM_FRAMES} steps)": lambda: walk_starts(
+            corr, cfg2.sync_threshold, OFDM_FRAMES, cfg2.preamble_len, cfg2.preamble_len),
         "SC refine": lambda: ofdm_v2._sc_refine(cfg2, x2, starts),
         "windows + FFT": lambda: ofdm._windows_spectrum(cfg2, x2, fine, n_sym),
         "equalize and track + decisions": lambda: ofdm._qpsk_to_bits(
@@ -2066,6 +2200,245 @@ def time_ofdm_paths(torch, ofdm, ofdm_v2, x2, buckets, card, dev) -> None:
     call_ms = time_ms(torch, stream_call)
     log(f"phase 4: OfdmStreamPhyV2.process_samples of a {len(bucket)}-sample bucket (the OFDM "
         f"runs' largest; {len(got)} frames): {call_ms:.4f} ms [{card}]")
+
+
+# --- the Viterbi-coded PHYs ----------------------------------------------------------
+
+
+def coded_starts(phy, x, n_frames: int, payload_len: int):
+    """The batched decode's frame starts int32[B, n_frames] in captures x."""
+    from trackmaker_tpu_torch.sync import find_pattern_starts
+
+    return find_pattern_starts(x, phy.pre, phy.cfg.correlation_threshold, n_frames,
+                               min_sep=phy.frame_samples(payload_len))
+
+
+def coded_blocks(torch, phy, x, starts, payload_len: int):
+    """(header rows, payload rows): the Viterbi decoder's inputs in the
+    batched decode of captures x f32[B, T] for the frames at starts int32[B,
+    F], f32[B·F, 124] and f32[B·F, 2·(8·payload_len + 6)]."""
+    return [b.reshape(-1, b.shape[-1]) for b in phy.soft_blocks(x, starts, payload_len)]
+
+
+def check_viterbi(torch, convcode, phy, x, dev) -> float:
+    """Phase 1 for the Viterbi decoder (csrc/viterbi.cu): the kernel against
+    its plain version bit for bit on coded_manchester_b8's real header and
+    payload blocks (256 rows of 62 and of 518 trellis steps), and on
+    tests/test_torch_convcode.py's corpora (soft rows clean, noisy and very
+    noisy and hard rows clean, flipped and random at every n_steps mod 4,
+    soft values on a 1/8 grid with a row of all zeros, depunctured rate-3/4
+    blocks, one row, and 256 rows).  Returns the max |bit difference|."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import test_torch_convcode as corpora
+
+    hdr, pay = coded_blocks(torch, phy, x, coded_starts(phy, x, CODED_FRAMES, CODED_PAYLOAD),
+                            CODED_PAYLOAD)
+    cases = [("coded_manchester_b8 headers", hdr, phy.HDR_BITS, True),
+             ("coded_manchester_b8 payloads", pay, 8 * CODED_PAYLOAD, True)]
+    cases += [(name, torch.from_numpy(r).to(dev), n, soft)
+              for name, r, n, soft in corpora.viterbi_corpora(big=256)]
+    tails = set()
+    for name, r, n_bits, soft in cases:
+        got = convcode.viterbi_decode(r, n_bits, soft)
+        torch.cuda.synchronize()
+        require(torch.equal(got, convcode.viterbi_decode_plain(r, n_bits, soft)),
+                f"viterbi differs from its plain version on the {name} corpus")
+        tails.add((n_bits + 6) % 4)
+    require(tails == {0, 1, 2, 3}, f"the Viterbi corpora miss a tail: {sorted(tails)}")
+    log(f"phase 1: viterbi == plain bit for bit on {len(cases)} corpora: the "
+        f"coded_manchester_b8 headers and payloads ({hdr.shape[0]} rows of {hdr.shape[1]} and "
+        f"{pay.shape[1]}), hard and soft rows at every n_steps mod 4, a 1/8-grid ties corpus with "
+        "an all-zero row, depunctured rate-3/4 blocks, one row and 256 rows")
+    return 0.0
+
+
+def check_coded_corr(torch, xcorr_hits_plain, pre, buckets, tag: str) -> float:
+    """Phase 1 on the coded stream PHY's correlation: kernel #1's dense corr
+    (auto_xcorr, as _correlate calls it) on every recorded bucket of `tag`
+    (stacked by length, the largest alone) against its plain version within
+    CORR_ATOL, the hits at the threshold equal away from it, and the starts
+    sync.walk_starts takes from both equal.  Returns the max |err|."""
+    from trackmaker_tpu_torch.sync import auto_xcorr, walk_starts
+
+    thr = MAC_RUNS["csma_transfer, coded_manchester"][2]["correlation_threshold"]
+    err = 0.0
+    for x, max_frames in bucket_batches(torch, buckets):
+        got = auto_xcorr(x, pre)
+        torch.cuda.synchronize()
+        want, _ = xcorr_hits_plain(x, pre, float("inf"), emit_corr=True)
+        e = (got - want).abs().max().item()
+        require(e <= CORR_ATOL, f"the {tag}: auto_xcorr differs from plain by {e}")
+        err = max(err, e)
+        near = (want - thr).abs() < CORR_ATOL
+        require(bool((((got >= thr) == (want >= thr)) | near).all()),
+                f"the {tag}: hits differ away from the threshold")
+        require(torch.equal(walk_starts(got, thr, max_frames, len(pre), len(pre)),
+                            walk_starts(want, thr, max_frames, len(pre), len(pre))),
+                f"the {tag}: the starts from the kernel's corr differ from the plain corr's")
+    log(f"phase 1: xcorr_hits (dense) == plain at L={len(pre)} on the {len(buckets)} {tag} "
+        f"(max |err| {err:.3g}); hits and starts at threshold {thr} equal")
+    return err
+
+
+def run_coded_paths(torch, coded, convcode, ofdm, xn, ber, xcorr_hits, spec_kernels, x_c, frames_c,
+                    x4, frames4, frames_o, dev) -> dict[str, int]:
+    """Phase 2 on the coded PHYs, each run with its kernels' counts set to 0
+    just before it: coded_manchester_b8 through decode_equal_frames (every
+    frame of every capture, one launch of #1 and two of the Viterbi kernel)
+    and its batch decode's digest equal to CODED_DIGEST, the JAX package's;
+    the coded 4B5B rate-3/4 batch the same way (CODED4_DIGEST);
+    OfdmModem(fec="conv") on ofdm_input's frames with noise sigma
+    OFDM_NOISE (every payload; #2 once, the Viterbi kernel once); and
+    coded_ber_sweep at its defaults, equal to CODED_BER_EXPECT, the JAX
+    package's (#1, #3, #4 and the Viterbi kernel each launched).  Returns the
+    launches of each kernel, by name, summed over the runs."""
+    from trackmaker_tpu_torch.core.config import PhyConfig
+
+    vit = convcode.viterbi_decode
+    total = {}
+
+    def add(got):
+        for k_name, n in got.items():
+            total[k_name] = total.get(k_name, 0) + n
+
+    for tag, phy, x, frames, n_frames, plen, want_digest, k_hits in (
+            ("coded_manchester_b8", coded.CodedManchesterPhy(PhyConfig(), local_addr=2, device=dev),
+             x_c, frames_c, CODED_FRAMES, CODED_PAYLOAD, CODED_DIGEST, 1),
+            ("coded_4b5b_r34", coded.CodedFourB5BPhy(
+                PhyConfig(line_coding="4b5b", correlation_threshold=0.45), local_addr=2,
+                rate34=True, device=dev), x4, frames4, CODED4_FRAMES + 2, CODED4_PAYLOAD,
+             CODED4_DIGEST, 1)):
+        got_f, got, wall = count_launches(
+            torch, (xcorr_hits, vit), lambda: phy.decode_equal_frames(x, n_frames, plen))
+        require(got == {"xcorr_hits": k_hits, "viterbi_decode": 2},
+                f"{tag}: launches {got}, expected one of xcorr_hits and two of viterbi")
+        add(got)
+        want = [(f.sequence, f.data) for f in frames]
+        for r, row in enumerate(got_f):
+            require([(f.sequence, f.data) for f in row] == want,
+                     f"{tag}: capture {r} gave {len(row)} of {len(want)} frames")
+        starts, bits = phy.batched_decode_fn(n_frames, plen)(x)
+        dg = ofdm_digest(starts.cpu().numpy(), bits.cpu().numpy())
+        require(dg == want_digest, f"{tag}: decisions digest {dg}, the JAX package's {want_digest}")
+        log(f"phase 2 ({tag}): decode_equal_frames of {x.shape[0]} x {x.shape[1]} took "
+            f"{wall * 1e3:.1f} ms (first call); every capture gave its {len(want)} frames in "
+            f"order; launches {got}; decisions digest {dg} = the JAX package's")
+    k2 = xn.normalized_xcorr_dense
+    modem = ofdm.OfdmModem(fec="conv", device=dev)
+    wave = modem.encode_frames(frames_o, gap_samples=OFDM_GAP)
+    rng = np.random.default_rng(OFDM_SEED + 2)
+    wave = (wave + rng.normal(0, OFDM_NOISE, len(wave))).astype(np.float32)
+    got_f, got, wall = count_launches(torch, (k2, vit), lambda: modem.decode(
+        wave, 7 + OFDM_PAYLOAD, max_frames=OFDM_FRAMES))
+    require(got == {k2.__name__: 1, "viterbi_decode": 1},
+            f"OfdmModem(fec='conv') launches {got}")
+    require([f.data for f in got_f] == [f.data for f in frames_o],
+            f"OfdmModem(fec='conv') gave {len(got_f)} of {len(frames_o)} frames")
+    add(got)
+    log(f"phase 2 (ofdm_conv): OfdmModem(fec='conv').decode of {len(wave)} samples "
+        f"({len(frames_o)} frames of {OFDM_PAYLOAD} B, noise sigma {OFDM_NOISE}) took "
+        f"{wall * 1e3:.1f} ms (first call); every payload; launches {got}")
+    kernels = (xcorr_hits, *spec_kernels, vit)
+    res, got, wall = count_launches(torch, kernels, lambda: ber.coded_ber_sweep(device=dev))
+    require(res == CODED_BER_EXPECT, f"coded_ber_sweep gave {res}, the JAX package's "
+            f"{CODED_BER_EXPECT}")
+    for k_name, n in got.items():
+        require(n > 0, f"coded_ber_sweep never launched {k_name}")
+    add(got)
+    log(f"phase 2 (coded_ber_sweep): the defaults (8 SNRs, 16 frames of 64 B) took "
+        f"{wall * 1e3:.1f} ms; the result equals CODED_BER_EXPECT, the JAX package's (coded "
+        f"loss {[r['coded_loss_pct'] for r in res]}, uncoded {[r['uncoded_loss_pct'] for r in res]}"
+        f" %); launches {got}")
+    return total
+
+
+def viterbi_bound(rows: int, n_bits: int) -> tuple[float, str]:
+    """The Viterbi kernel's least time for `rows` blocks of n_bits: the
+    received values in and the bits out once; per block of 4 steps, 16 paths
+    of 4 adds and a compare for each of 64 states, per tail step 2 adds and a
+    compare."""
+    n_steps = n_bits + 6
+    q, rem = divmod(n_steps, 4)
+    return bound(rows * (2 * n_steps * 4 + n_bits),
+                 rows * (q * 64 * 16 * 5 + rem * 64 * 3))
+
+
+def time_coded_paths(torch, coded, convcode, phy, x, buckets, card) -> dict:
+    """Phase 4 on coded_manchester_b8: the batched decode end to end (median
+    of RUNS, and its real-time multiple) and through decode_equal_frames, its
+    steps (the correlation, the walk, the soft demod and deinterleave of the
+    headers and of the payloads, the two Viterbi launches), its peak memory
+    and busy share; the Viterbi kernel at the payload and header shapes
+    beside its bound, its dependent chain and its plain version; and one
+    streaming process_samples call on the largest bucket the coded MAC run
+    decoded.  Returns the Viterbi kernel's ms, plain_ms and bound at the
+    payload shape."""
+    from trackmaker_tpu_torch.sync import auto_xcorr, walk_starts
+
+    fn = phy.batched_decode_fn(CODED_FRAMES, CODED_PAYLOAD)
+    e2e = time_ms(torch, lambda: fn(x))
+    seconds = x.numel() / phy.cfg.sample_rate
+    log(f"phase 4: coded_manchester_b8 batched decode {x.shape[0]} x {x.shape[1]}: {e2e:.4f} ms, "
+        f"{seconds / (e2e / 1e3):.1f}x real time [{card}]")
+    full = time_ms(torch, lambda: phy.decode_equal_frames(x, CODED_FRAMES, CODED_PAYLOAD))
+    log(f"phase 4: coded_manchester_b8 decode_equal_frames (with the host's frame parse): "
+        f"{full:.4f} ms, {seconds / (full / 1e3):.1f}x real time [{card}]")
+    starts = coded_starts(phy, x, CODED_FRAMES, CODED_PAYLOAD)
+    hdr, pay = coded_blocks(torch, phy, x, starts, CODED_PAYLOAD)
+    corr = auto_xcorr(x, phy.pre)
+    frame_len = phy.frame_samples(CODED_PAYLOAD)
+    thr = phy.cfg.correlation_threshold
+    steps = {
+        "the correlation (#1 dense)": lambda: auto_xcorr(x, phy.pre),
+        f"the walk ({CODED_FRAMES} steps)": lambda: walk_starts(corr, thr, CODED_FRAMES,
+                                                               phy.preamble_len, frame_len),
+        "soft demod + deinterleave (headers and payloads)": lambda: coded_blocks(
+            torch, phy, x, starts, CODED_PAYLOAD),
+        f"viterbi headers ({hdr.shape[0]} rows, 62 steps)": lambda: convcode.viterbi_decode(
+            hdr, phy.HDR_BITS, True),
+        f"viterbi payloads ({pay.shape[0]} rows, {8 * CODED_PAYLOAD + 6} steps)":
+            lambda: convcode.viterbi_decode(pay, 8 * CODED_PAYLOAD, True),
+    }
+    for step, f in steps.items():
+        log(f"phase 4: coded_manchester_b8 step {step}: {time_ms(torch, f):.4f} ms [{card}]")
+    busy = busy_share(torch, lambda: fn(x))
+    log(f"phase 4: coded_manchester_b8 peak device memory {peak_memory(torch, lambda: fn(x))}, "
+        "device busy " + ("not measured" if busy is None else f"{busy:.3f}")
+        + f" of a call [{card}]")
+    out = {}
+    for what, rows, n_bits in (("payloads", pay, 8 * CODED_PAYLOAD), ("headers", hdr, 56)):
+        def call(rows=rows, n_bits=n_bits):
+            return convcode.viterbi_decode(rows, n_bits, True)
+
+        k_ms = time_ms(torch, call)
+        p_ms = time_ms(torch, lambda: convcode.viterbi_decode_plain(rows, n_bits, True), runs=5)
+        dev_t = device_ms(torch, call, "viterbi_kernel")
+        # back to back, the launches queue ahead of the card, so the events
+        # between the first and the last hold the kernels and their gaps
+        b2b = time_ms(torch, lambda: [call() for _ in range(50)], runs=5) / 50
+        bnd = viterbi_bound(rows.shape[0], n_bits)
+        chain = -(-(n_bits + 6) // 4)
+        log(f"phase 4: viterbi coded_manchester_b8 {what} ({rows.shape[0]} rows of "
+            f"{n_bits + 6} steps): kernel {k_ms:.4f} ms (CUDA events, one call), {b2b:.4f} ms a "
+            f"launch over 50 back to back (median of 5), device "
+            + ("not measured" if dev_t is None else f"{dev_t[0]:.4f} ms")
+            + f", plain {p_ms:.4f} ms (median of 5), bound {bnd[0]:.6f} ms ({bnd[1]}), "
+            f"dependent chain {chain} block steps (each one barrier) [{card}]")
+        if what == "payloads":
+            out = {"ms": k_ms, "plain_ms": p_ms, "bound": bnd, "b2b": b2b,
+                   "device": None if dev_t is None else dev_t[0]}
+    bucket = max(buckets, key=lambda bkt: bkt.shape[0]).cpu().numpy()
+    stream = coded.CodedManchesterPhy(phy.cfg.replace(correlation_threshold=0.45), local_addr=2,
+                                      device=x.device)
+
+    def stream_call():
+        stream.reset()
+        return stream.process_samples(bucket)
+
+    got = stream_call()
+    log(f"phase 4: CodedManchesterPhy.process_samples of a {len(bucket)}-sample bucket (the coded "
+        f"MAC run's largest; {len(got)} frames): {time_ms(torch, stream_call):.4f} ms [{card}]")
+    return out
 
 
 def check_stream_fallbacks(torch, phy_decoder, stream_mod, cfg, crowded, dev) -> None:
@@ -2953,13 +3326,14 @@ def main() -> None:
     except ImportError as exc:
         raise SystemExit(f"chip_smoke.py must run from a checkout of the repository: {exc}")
     from trackmaker_tpu_torch.bench import ber
+    from trackmaker_tpu_torch.core import convcode
     from trackmaker_tpu_torch.core.config import MacConfig
     from trackmaker_tpu_torch.core.framing import Frame
     from trackmaker_tpu_torch.dsp import channel, equalizer, timing
     from trackmaker_tpu_torch.link import gbn, sr, transfer
     from trackmaker_tpu_torch.link import stream as lstream
     from trackmaker_tpu_torch.parallel import stream
-    from trackmaker_tpu_torch.phy import ask, ask_spec, ofdm, ofdm_v2
+    from trackmaker_tpu_torch.phy import ask, ask_spec, coded, ofdm, ofdm_v2
     from trackmaker_tpu_torch.phy import spec_decode as sd
     from trackmaker_tpu_torch.phy.decoder import (
         PhyDecoder, decode_capture, decode_capture_fast, decode_captures)
@@ -3020,10 +3394,17 @@ def main() -> None:
     stream_in = stream_capture(lambda i, p: enc.encode_frame(
         Frame.new_data(i, 1, LOCAL_ADDR, p)).cpu().numpy(), np.random.default_rng(args.seed + 29))
     mac_link = {"csma": transfer.transfer_over_bus, "gbn": gbn.gbn_transfer,
-                "sr": sr.sr_transfer, "ofdm_v2": ofdm_v2.OfdmStreamPhyV2}
+                "sr": sr.sr_transfer, "ofdm_v2": ofdm_v2.OfdmStreamPhyV2,
+                "coded_manchester": coded.CodedManchesterPhy}
+    streams = {"ofdm_v2": (ofdm.OfdmStreamPhy, "_starts"),
+               "coded_manchester": (coded._CodedPhyBase, "_correlate")}
     frames_o, caps_o = ofdm_input()
     _, caps_o1 = ofdm_input(v1=True)
     x_o, x_o1 = torch.from_numpy(caps_o).to(dev), torch.from_numpy(caps_o1).to(dev)
+    frames_c, caps_c = coded_input()
+    frames_c4, caps_c4 = coded4_input()
+    x_c, x_c4 = torch.from_numpy(caps_c).to(dev), torch.from_numpy(caps_c4).to(dev)
+    coded_phy = coded.CodedManchesterPhy(cfg, local_addr=LOCAL_ADDR, device=dev)
     log(f"flagship input: {b} x {t} samples; fourb5b_b32 input: {b} x {t4} samples; "
         f"equalized_b32 input: {b} x {xe.shape[1]} samples; {N_FRAMES} frames per capture; "
         f"ask_b16 input: {xa.shape[0]} x {xa.shape[1]} samples, {ASK_FRAMES} frames per capture; "
@@ -3034,7 +3415,9 @@ def main() -> None:
         f"gaps); decision-directed input: {robust_in[2][0].shape[0]} samples; stream_latency "
         f"input: {len(stream_in[2])} samples, {STREAM_FRAMES} frames; ofdm_v2_b32 input: "
         f"{x_o.shape[0]} x {x_o.shape[1]} samples, {OFDM_FRAMES} frames per capture (v1: "
-        f"{x_o1.shape[0]} x {x_o1.shape[1]})")
+        f"{x_o1.shape[0]} x {x_o1.shape[1]}); coded_manchester_b8 input: {x_c.shape[0]} x "
+        f"{x_c.shape[1]} samples, {CODED_FRAMES} frames per capture; coded 4B5B rate-3/4 input: "
+        f"{x_c4.shape[0]} x {x_c4.shape[1]} samples, {CODED4_FRAMES} frames per capture")
     pre, pre4 = preamble_waveform(cfg), preamble_waveform(cfg4)
     sync = pre[cfg.preamble_len - cfg.sync_len:]
     sync4 = pre4[cfg4.preamble_len - cfg4.sync_len:]
@@ -3162,6 +3545,7 @@ def main() -> None:
                                               xcorr_hits, xcorr_hits_plain, cfg, robust_in,
                                               dev).items():
         errs[k_name] = max(errs.get(k_name, 0), v)
+    errs["viterbi"] = check_viterbi(torch, convcode, coded_phy, x_c, dev)
 
 
     # --- phase 2: the main paths -----------------------------------------------
@@ -3231,7 +3615,14 @@ def main() -> None:
                    ask_spec.ask_walk)
     launches.update(run_ask_main_path(torch, ask, ask_spec, acfg, xa, frames_a, ask_kernels))
     ofdm_launches = run_ofdm_paths(torch, xn, ofdm, ofdm_v2, frames_o, x_o, x_o1, dev)
+    coded_launches = run_coded_paths(torch, coded, convcode, ofdm, xn, ber, xcorr_hits,
+                                     (sd.attempt_manchester, sd.spec_walk), x_c, frames_c, x_c4,
+                                     frames_c4, frames_o, dev)
+    ofdm_launches["OfdmModem(fec='conv').decode"] = coded_launches.pop("normalized_xcorr_dense")
     launches["normalized_xcorr"] += sum(ofdm_launches.values())
+    for k_name, n in coded_launches.items():
+        k_name = KERNEL_NAMES.get(k_name, k_name)
+        launches[k_name] = launches.get(k_name, 0) + n
     blocked = {}
     for tag, c, xx, fr, st, n_blocks, fold in (
             ("blocked_600s", cfg, xb, frames_b, starts_b, BLOCKED_BLOCKS, False),
@@ -3281,12 +3672,11 @@ def main() -> None:
         torch, lstream.StreamingDecodePipeline, cfg, stream_in,
         (xcorr_hits, sd.attempt_manchester, sd.spec_walk), dev)
     live_kernels = (xcorr_hits, sd.attempt_manchester, sd.attempt_4b5b, sd.spec_walk,
-                    xn.normalized_xcorr_dense)
+                    xn.normalized_xcorr_dense, convcode.viterbi_decode)
     mac_launches, _, mac_in = run_mac_paths(torch, PhyDecoder, mac_link, PhyConfig, MacConfig,
-                                            live_kernels, ofdm.OfdmStreamPhy, dev)
+                                            live_kernels, streams, dev)
     ping_launches, _, ping_in = run_ping_paths(
-        torch, PhyDecoder, net_modules("trackmaker_tpu_torch"), live_kernels,
-        ofdm.OfdmStreamPhy, dev)
+        torch, PhyDecoder, net_modules("trackmaker_tpu_torch"), live_kernels, streams, dev)
     for got in (stream_launches, *mac_launches.values(), *ping_launches.values()):
         for k_name, n in got.items():
             k_name = KERNEL_NAMES.get(k_name, k_name)
@@ -3299,12 +3689,12 @@ def main() -> None:
                LOCAL_ADDR, max_frames) for seg, max_frames in rec_segments]
     err = check_recorded(torch, sd, xcorr_hits, xcorr_hits_plain, cfg, seg_in,
                          "stream_latency segments")
-    ofdm_buckets = []
+    ofdm_buckets, coded_buckets = [], []
     for runs, run_in in ((MAC_RUNS, mac_in), (PING_RUNS, ping_in)):
         for name, opts in runs.items():
             opts = opts[2] if runs is MAC_RUNS else opts
             if "phy" in opts:
-                ofdm_buckets += run_in[name]
+                (ofdm_buckets if opts["phy"] == "ofdm_v2" else coded_buckets).extend(run_in[name])
                 continue
             c = cfg4 if opts.get("line_coding") == "4b5b" else cfg
             err = max(err, check_recorded(torch, sd, xcorr_hits, xcorr_hits_plain, c,
@@ -3313,6 +3703,9 @@ def main() -> None:
     errs["normalized_xcorr"] = max(errs["normalized_xcorr"], check_ofdm_corr(
         torch, xn, ofdm, bucket_batches(torch, ofdm_buckets),
         f"{len(ofdm_buckets)} buckets the OFDM runs decoded"))
+    errs["xcorr_hits"] = max(errs["xcorr_hits"], check_coded_corr(
+        torch, xcorr_hits_plain, coded_phy.pre, coded_buckets,
+        "buckets the coded MAC run correlated"))
 
     # --- phase 3: the fallbacks ----------------------------------------------
     enc = PhyEncoder(cfg, device=dev)
@@ -3991,11 +4384,18 @@ def main() -> None:
     time_stream_paths(torch, sd, PhyDecoder, lstream, cfg, cfg4, mac_in, rec_segments, card,
                       dev)
     time_ofdm_paths(torch, ofdm, ofdm_v2, x_o, ofdm_buckets, card, dev)
+    vit = time_coded_paths(torch, coded, convcode, coded_phy, x_c, coded_buckets, card)
+    ms["viterbi"], plain_ms["viterbi"], bounds["viterbi"] = vit["ms"], vit["plain_ms"], vit["bound"]
+    dev_v, how = ((vit["device"], "device") if vit["device"] is not None
+                  else (vit["b2b"], "back-to-back events"))
+    log(f"phase 4: viterbi: {launches['viterbi']} launches on the paths, launches x ({how} - "
+        f"bound) at the payload shape {launches['viterbi'] * (dev_v - vit['bound'][0]):.4f} ms "
+        f"[{card}]")
     # registers and spills last: cuobjdump runs as a child process, and the
     # profiler's sessions after one lose their last launches
     for src in ("sliding_dot", "xcorr_norm", "xcorr_hits", "spec_walk", "attempt_manchester",
                 "attempt_4b5b", "ask_walk", "ask_fire", "ask_chain", "attempt_tiles",
-                "xcorr_streams", "seq_probe", "offset_add"):
+                "xcorr_streams", "seq_probe", "offset_add", "viterbi"):
         for fn_name, res in kernel_resources(_build, src).items():
             require(res["LOCAL"] == 0, f"{fn_name} in {src}.cu spills ({res})")
             log(f"phase 4: {src}.cu {fn_name}: {res['REG']} registers, {res['LOCAL']} bytes of "
@@ -4029,6 +4429,8 @@ def main() -> None:
         "attempt_manchester_fold_shared": "trackmaker_tpu/phy/pallas_decode.py:219",
         "attempt_4b5b_shared": "trackmaker_tpu/phy/pallas_decode.py:419",
         "attempt_4b5b_fold_shared": "trackmaker_tpu/phy/pallas_decode.py:419",
+        # no Pallas counterpart: the JAX package's Viterbi is a lax.scan
+        "viterbi": "trackmaker_tpu/core/convcode.py:164",
     }
     print(json.dumps({"kernels": [
         {"name": k_name, "route": "cuda",

@@ -36,7 +36,11 @@ kernel's corr at a lag that ties the threshold equals the plain version's
 bit for bit (both divide, and the sums are exact integers there).  The
 robustness paths on the card (clock search, timing gate,
 decision-directed decode): every field but the correlation equal to the
-CPU's run; ``clock_offset`` bit for bit; the dense-hit extraction exactly."""
+CPU's run; ``clock_offset`` bit for bit; the dense-hit extraction exactly.
+The Viterbi kernel equals its plain version bit for bit (both add each
+path's four branch metrics in trellis order, and every branch metric is one
+rounded sum of exact products); the coded decodes on the card equal the
+CPU's in starts, bits and frames."""
 
 import re
 from pathlib import Path
@@ -49,6 +53,7 @@ from torch.utils._pytree import tree_leaves
 
 from trackmaker_tpu_torch import PhyConfig, _build, decode_blocked_exact, decode_blocked_single_chip
 from trackmaker_tpu_torch.core.framing import Frame
+from trackmaker_tpu_torch.core import convcode
 from trackmaker_tpu_torch.dsp import channel, equalizer, timing
 from trackmaker_tpu_torch.dsp.osc import chirp_np
 from trackmaker_tpu_torch.parallel.stream import spec_block
@@ -57,6 +62,7 @@ from trackmaker_tpu_torch.phy import spec_decode as sd
 from trackmaker_tpu_torch.phy.decoder import decode_capture, decode_capture_fast
 from trackmaker_tpu_torch.phy.encoder import PhyEncoder
 from trackmaker_tpu_torch.phy.line_coding import preamble_waveform
+from trackmaker_tpu_torch.sync import find_pattern_starts
 from trackmaker_tpu_torch.sync.correlate import pattern_norm, preamble_energy
 from trackmaker_tpu_torch.sync.sliding_dot import sliding_dot_scaled, sliding_dot_scaled_plain
 from trackmaker_tpu_torch.sync.xcorr_hits import (
@@ -100,6 +106,9 @@ from test_torch_ask_walk_4b5b_design import (
     fourb5b_edge_inputs,
 )
 from test_torch_channel_timing import GATE_CORPORA, gate_corpus, hit_vectors, skewed_capture
+from test_torch_coded import KINDS as CODED_KINDS
+from test_torch_coded import batch_corpus, port_phy
+from test_torch_convcode import viterbi_corpora
 from test_torch_equalizer_dd import CORPORA as DD_CORPORA
 from test_torch_probe_offset_design import (
     PROBE_EDGES,
@@ -1823,3 +1832,107 @@ def test_xcorr_hits_2s_copies_nothing_to_the_card(cuda):
     assert ex.xcorr_hits_2s.launches == before + len(calls)
     assert not card.h2d, card.h2d
     assert not csrc_copies("xcorr_streams")
+
+
+# The Viterbi decoder (csrc/viterbi.cu): one block of 64 threads a row at
+# radix 4, its decisions equal to the plain version's bit for bit on the
+# corpora of tests/test_torch_convcode.py (every tail, hard and soft, ties
+# on a 1/8 grid, depunctured rate-3/4 blocks, one row and 256 rows) and on
+# the coded PHYs' own header and payload blocks; one launch a call, nothing
+# copied to the card; the coded decodes on the card equal the CPU's.
+
+VITERBI_CORPORA = viterbi_corpora(big=256)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("idx", range(len(VITERBI_CORPORA)),
+                         ids=[c[0] for c in VITERBI_CORPORA])
+def test_viterbi_kernel_matches_plain(cuda, idx):
+    name, received, n_bits, soft = VITERBI_CORPORA[idx]
+    x = torch.from_numpy(received).to(cuda)
+    before = convcode.viterbi_decode.launches
+    got = convcode.viterbi_decode(x, n_bits, soft)
+    torch.cuda.synchronize()
+    assert convcode.viterbi_decode.launches == before + 1
+    want = convcode.viterbi_decode_plain(x, n_bits, soft)
+    assert got.dtype == want.dtype == torch.uint8 and torch.equal(got, want), name
+    assert torch.equal(got.cpu(), convcode.viterbi_decode_plain(torch.from_numpy(received),
+                                                                n_bits, soft)), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,rate34", CODED_KINDS)
+def test_viterbi_kernel_matches_plain_on_coded_blocks(cuda, kind, rate34):
+    """The deinterleaved [depunctured] header and payload blocks a batched
+    decode hands the decoder."""
+    phy = port_phy(kind, rate34, device=cuda)
+    _, batch = batch_corpus(kind, rate34, 0.6)
+    x = torch.from_numpy(batch).to(cuda)
+    starts = find_pattern_starts(x, phy.pre, phy.cfg.correlation_threshold, 6,
+                                 min_sep=phy.frame_samples(40))
+    for block, n_bits in zip(phy.soft_blocks(x, starts, 40), (phy.HDR_BITS, 320)):
+        got = convcode.viterbi_decode(block, n_bits, soft=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, convcode.viterbi_decode_plain(block, n_bits, soft=True))
+
+
+@pytest.mark.gpu
+def test_viterbi_and_coded_decode_copy_nothing_to_the_card(cuda):
+    """A Viterbi call launches its one kernel and copies nothing to the
+    card; a batched coded decode of captures on the card launches the
+    correlation kernel once and the Viterbi kernel twice (headers, then
+    payloads) and copies nothing to the card (its tables copied once a
+    process, at the first call)."""
+    _, received, n_bits, soft = VITERBI_CORPORA[-1]
+    r = torch.from_numpy(received).to(cuda)
+    phy = port_phy("4b5b", True, device=cuda)
+    _, batch = batch_corpus("4b5b", True, 0.3)
+    x = torch.from_numpy(batch).to(cuda)
+    calls = (lambda: convcode.viterbi_decode(r, n_bits, soft),
+             lambda: phy.decode_equal_frames(x, 6, 40))
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    for call, n_viterbi, n_hits in ((calls[0], 1, 0), (calls[1], 2, 1)):
+        before = launches_of(convcode.viterbi_decode, xcorr_hits)
+        with CardWork() as card:
+            call()
+        torch.cuda.synchronize()
+        assert launches_of(convcode.viterbi_decode, xcorr_hits) == [before[0] + n_viterbi,
+                                                                   before[1] + n_hits]
+        assert not card.h2d, card.h2d
+    with CardWork() as card:
+        calls[0]()
+    assert not card.work, card.work
+    assert not csrc_copies("viterbi")
+    assert (CSRC / "viterbi.cu").read_text().count("<<<") == 1    # one launch a call
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,rate34", CODED_KINDS)
+def test_coded_phys_on_the_card_equal_the_cpu(cuda, kind, rate34):
+    """The batched decode (starts and bits) and the streaming receiver
+    (frames call for call, the buffer kept) on the card equal the CPU's."""
+    _, batch = batch_corpus(kind, rate34, 0.6)
+    on_card, on_cpu = port_phy(kind, rate34, device=cuda), port_phy(kind, rate34)
+    got = on_card.batched_decode_fn(6, 40)(torch.from_numpy(batch).to(cuda))
+    want = on_cpu.batched_decode_fn(6, 40)(torch.from_numpy(batch))
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    for i in range(0, batch.shape[1], 2100):
+        chunk = batch[0, i:i + 2100]
+        assert on_card.process_samples(chunk) == on_cpu.process_samples(chunk), i
+        assert len(on_card._buf) == len(on_cpu._buf)
+
+
+@pytest.mark.gpu
+def test_ofdm_conv_modem_on_the_card_equals_the_cpu(cuda):
+    rng = np.random.default_rng(12)
+    frames = [Frame.new_data(i, 1, 2, rng.integers(0, 256, 40, dtype=np.uint8).tobytes())
+              for i in range(4)]
+    wave = ofdm.OfdmModem(fec="conv", device="cpu").encode_frames(frames, 300)
+    x = np.concatenate([np.zeros(600, np.float32), wave, np.zeros(2000, np.float32)])
+    x = (x + rng.normal(0, 0.05, len(x))).astype(np.float32)
+    before = convcode.viterbi_decode.launches
+    got = ofdm.OfdmModem(fec="conv", device=cuda).decode(x, 47, 8)
+    assert convcode.viterbi_decode.launches == before + 1
+    assert got == ofdm.OfdmModem(fec="conv", device="cpu").decode(x, 47, 8) == frames

@@ -27,12 +27,12 @@ from trackmaker_tpu_torch.core.config import FOUR_B_FIVE_B, MacConfig, PhyConfig
 from trackmaker_tpu_torch.core.framing import Frame
 from trackmaker_tpu_torch.link import AppState, AudioEndpoint, SimulatedBus, is_channel_busy
 from trackmaker_tpu_torch.link import gbn, sr, transfer
-from trackmaker_tpu_torch.phy import ofdm, ofdm_v2
+from trackmaker_tpu_torch.phy import coded, ofdm, ofdm_v2
 
 # the transfers, and the stream PHYs that replace the line-coded one
 PORT_LINK = {"csma": transfer.transfer_over_bus, "gbn": gbn.gbn_transfer,
              "sr": sr.sr_transfer, "ofdm": ofdm.OfdmStreamPhy,
-             "ofdm_v2": ofdm_v2.OfdmStreamPhyV2}
+             "ofdm_v2": ofdm_v2.OfdmStreamPhyV2, "coded_manchester": coded.CodedManchesterPhy}
 OFDM = ("ofdm", "ofdm_v2")
 # (ARQ, line code or OFDM PHY, noise sigma): a few frames each; sigma 0.12
 # at seed 5 is tests/test_link.py's noisy channel
@@ -56,11 +56,13 @@ def _jax_link():
     from trackmaker_tpu.link.gbn import gbn_transfer
     from trackmaker_tpu.link.sr import sr_transfer
     from trackmaker_tpu.link.transfer import transfer_over_bus
+    from trackmaker_tpu.phy.coded import CodedManchesterPhy
     from trackmaker_tpu.phy.ofdm import OfdmStreamPhy
     from trackmaker_tpu.phy.ofdm_v2 import OfdmStreamPhyV2
 
     return {"csma": transfer_over_bus, "gbn": gbn_transfer, "sr": sr_transfer,
-            "ofdm": OfdmStreamPhy, "ofdm_v2": OfdmStreamPhyV2}
+            "ofdm": OfdmStreamPhy, "ofdm_v2": OfdmStreamPhyV2,
+            "coded_manchester": CodedManchesterPhy}
 
 
 def _jax_configs():

@@ -453,8 +453,17 @@ def test_modem_decodes_as_jax(fec_mode, sigma):
 
 
 def test_modem_conv_fec_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="queue A, item 4"):
-        ofdm.OfdmModem(CFG, fec="conv", device="cpu")
+    """Kept under its first name, from before core/convcode.py was ported:
+    fec="conv" now builds, sends 2·(n + 6) coded bits a frame and round-trips
+    clean frames; an unknown fec is refused."""
+    modem = ofdm.OfdmModem(CFG, fec="conv", device="cpu")
+    assert modem._tx_len(47 * 8) == 2 * (47 * 8 + 6)
+    frames = [Frame.new_data(i, 1, 2, bytes([i]) * 40) for i in range(2)]
+    wave = np.concatenate([np.zeros(300, np.float32), modem.encode_frames(frames, 200),
+                           np.zeros(1000, np.float32)])
+    assert modem.decode(wave, 47, 4) == frames
+    with pytest.raises(ValueError):
+        ofdm.OfdmModem(CFG, fec="turbo", device="cpu")
 
 
 def test_entry_points_default_to_the_card():

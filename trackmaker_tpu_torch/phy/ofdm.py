@@ -11,8 +11,8 @@ layer run unchanged over it.
 The FFTs are ``torch.fft.rfft`` / ``irfft`` (the JAX package computes them
 outside any Pallas kernel).  The coarse sync, :func:`find_preambles`, is
 the normalized correlation with the 440-sample chirp: on a CUDA tensor
-``csrc/xcorr_norm.cu``'s kernel, on a CPU tensor its plain version, then a
-walk of ``max_frames`` steps over the hits as tensor ops.  Every receiver
+``csrc/xcorr_norm.cu``'s kernel, on a CPU tensor its plain version, then
+``sync.walk_starts``: ``max_frames`` steps over the hits as tensor ops.  Every receiver
 works on f32[T] or a batch f32[B, T] of captures, on the device they lie on.
 
 Windows: each symbol's FFT window is fetched at the 32-aligned position at
@@ -32,11 +32,11 @@ import functools
 import numpy as np
 import torch
 
-from trackmaker_tpu_torch.core import blockq
+from trackmaker_tpu_torch.core import convcode, fec
 from trackmaker_tpu_torch.core.config import PHY_HEADER_BYTES
 from trackmaker_tpu_torch.core.framing import Frame
 from trackmaker_tpu_torch.dsp.osc import chirp_cached
-from trackmaker_tpu_torch.sync import auto_xcorr
+from trackmaker_tpu_torch.sync import auto_xcorr, find_pattern_starts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -267,42 +267,17 @@ def preamble_corr(cfg: OfdmConfig, x: torch.Tensor) -> torch.Tensor:
     return auto_xcorr(x, chirp(cfg))
 
 
-def walk_preambles(cfg: OfdmConfig, corr: torch.Tensor, max_frames: int) -> torch.Tensor:
-    """int32[B, max_frames] preamble starts (-1 padded) from the chirp
-    correlation corr f32[B, N] (see :func:`find_preambles`)."""
-    b = corr.shape[0]
-    dev = corr.device
-    table = blockq.block_tables(corr >= cfg.sync_threshold)
-    w = cfg.preamble_len
-    corr_pad = torch.nn.functional.pad(corr, (0, w))
-    lane = torch.arange(w, device=dev)
-    cursor = torch.zeros((b, 1), dtype=torch.int64, device=dev)
-    out = []
-    for _ in range(max_frames):
-        # a step that finds no lag leaves the cursor, so every later one
-        # finds none either: `has` alone marks the real starts
-        first, has = blockq.first_set_from(table, cursor)
-        first = torch.where(has, first.to(torch.int64), 0)
-        peak = first + corr_pad.gather(1, first + lane).argmax(-1, keepdim=True)
-        out.append(torch.where(has, peak, -1))
-        cursor = torch.where(has, peak + w, cursor)
-    return torch.cat(out, dim=-1).to(torch.int32)
-
-
 def find_preambles(cfg: OfdmConfig, rx: torch.Tensor, max_frames: int = 64) -> torch.Tensor:
     """Coarse chirp sync: int32[..., max_frames] preamble starts (-1 padded)
     of f32[T] or f32[B, T] captures.
 
-    Each step takes the first lag at or after the cursor whose normalized
-    correlation (:func:`preamble_corr`) reaches ``sync_threshold``, refines
-    it to the first maximum of the correlation over the next
-    ``preamble_len`` lags (zero past the last lag) and moves the cursor one
-    preamble past that peak; a capture with no such lag left gives -1 from
-    then on.  The steps run as tensor ops on rx's device, with no read to
-    the host."""
-    x = rx if rx.ndim == 2 else rx[None]
-    starts = walk_preambles(cfg, preamble_corr(cfg, x), max_frames)
-    return starts if rx.ndim == 2 else starts[0]
+    ``sync.find_pattern_starts`` with the chirp at ``sync_threshold``: each
+    step takes the first lag at or after the cursor whose normalized
+    correlation (:func:`preamble_corr`) reaches the threshold, refines it to
+    the first maximum over the next ``preamble_len`` lags (zero past the
+    last lag) and moves the cursor one preamble past that peak.  The steps
+    run as tensor ops on rx's device, with no read to the host."""
+    return find_pattern_starts(rx, chirp(cfg), cfg.sync_threshold, max_frames)
 
 
 def _demod_symbols_at(cfg: OfdmConfig, max_syms: int, rx: torch.Tensor,
@@ -448,20 +423,17 @@ class OfdmModem:
 
     With ``fec=True`` or ``"hamming"`` the frame bits pass through
     Hamming(7,4) and a block interleaver that spreads each codeword across
-    subcarriers.  ``fec="conv"`` (rate 1/2, K=7, soft Viterbi) needs
-    ``core/convcode.py``, which the port does not have yet (``ROADMAP.md``
-    queue A, item 4): it raises ``NotImplementedError``.
+    subcarriers.  With ``fec="conv"`` they pass through the rate-1/2 K=7
+    convolutional code (``core/convcode.py``), and ``decode`` runs the soft
+    demodulation and one Viterbi call (``csrc/viterbi.cu`` on the card) for
+    all the frames it found.
     """
 
     def __init__(self, cfg: OfdmConfig = OfdmConfig(), fec: bool | str = False,
                  interleave_depth: int = 16, device: torch.device | str = "cuda"):
         self.cfg = cfg
         self.fec = "hamming" if fec is True else (fec or None)
-        if self.fec == "conv":
-            raise NotImplementedError(
-                "OfdmModem(fec='conv') needs the convolutional code, core/convcode.py, "
-                "which the port does not have yet (ROADMAP.md queue A, item 4)")
-        if self.fec not in (None, "hamming"):
+        if self.fec not in (None, "hamming", "conv"):
             raise ValueError(f"unknown fec {fec!r}")
         self.depth = interleave_depth
         self.device = torch.device(device)
@@ -472,7 +444,8 @@ class OfdmModem:
     def _tx_len(self, n_bits: int) -> int:
         if self.fec is None:
             return n_bits
-        from trackmaker_tpu_torch.core import fec
+        if self.fec == "conv":
+            return 2 * (n_bits + convcode.K - 1)
         c = fec.coded_len(n_bits)
         return -(-c // self.depth) * self.depth  # interleaver pad
 
@@ -484,8 +457,9 @@ class OfdmModem:
             raise ValueError("group equal-length frames")
         bits = torch.from_numpy(np.stack([self.frame_bits(f) for f in frames])).to(self.device)
         if self.fec == "hamming":
-            from trackmaker_tpu_torch.core import fec
             bits = fec.interleave(fec.hamming74_encode(bits), self.depth)
+        elif self.fec == "conv":
+            bits = convcode.conv_encode(bits)
         waves = modulate_bits(self.cfg, bits, self._tx_len(n_bits.pop())).cpu().numpy()
         return _join(list(waves), gap_samples)
 
@@ -498,11 +472,14 @@ class OfdmModem:
         starts = starts[starts >= 0]
         if starts.numel() == 0:
             return []
-        bits = demodulate_at(self.cfg, x, self._tx_len(n_bits), starts)
-        if self.fec == "hamming":
-            from trackmaker_tpu_torch.core import fec
-            coded = fec.deinterleave(bits, self.depth, fec.coded_len(n_bits))
-            bits = fec.hamming74_decode(coded)[..., :n_bits]
+        if self.fec == "conv":
+            soft = demodulate_soft_at(self.cfg, x, self._tx_len(n_bits), starts)
+            bits = convcode.viterbi_decode(soft, n_bits, soft=True)
+        else:
+            bits = demodulate_at(self.cfg, x, self._tx_len(n_bits), starts)
+            if self.fec == "hamming":
+                coded = fec.deinterleave(bits, self.depth, fec.coded_len(n_bits))
+                bits = fec.hamming74_decode(coded)[..., :n_bits]
         out = []
         for row in bits.cpu().numpy():
             f = Frame.from_bits(row)
