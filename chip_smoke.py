@@ -117,7 +117,10 @@ Phases, each raising on failure (non-zero exit):
    coded_manchester_b8's header and payload blocks (256 rows of 62 and 518
    trellis steps) and on tests/test_torch_convcode.py's corpora (hard and
    soft rows at every n_steps mod 4, a 1/8-grid ties corpus with an
-   all-zero row, depunctured rate-3/4 blocks, one row and 256 rows); and,
+   all-zero row, depunctured rate-3/4 blocks, one row, 256 rows, ties
+   between the first maximum's tree halves, and the long rows: 62 and
+   2,054 steps, the staging ring at 6,145, the shared memory's edge at
+   12,448 and the choices in device memory at 16,006); and,
    after phase 2, #1's dense corr (``auto_xcorr``) on every bucket the coded
    MAC run correlated, within CORR_ATOL of its plain version, its hits and
    the starts walked from it equal;
@@ -292,9 +295,11 @@ Phases, each raising on failure (non-zero exit):
    and its real-time multiple; also through ``decode_equal_frames``), its
    steps (the correlation, the walk, the soft demod and deinterleave, the
    two Viterbi launches), its peak memory and busy share, the Viterbi
-   kernel at the payload and header shapes (CUDA events, device time)
-   beside its bound, its dependent chain of block steps and its plain
-   version, and one ``CodedManchesterPhy.process_samples`` call on the
+   kernel at the payload and header shapes and at one row of 62 and of
+   2,054 steps (CUDA events of one call, device time from a CUDA graph of
+   50 launches and from torch.profiler, the host time of a call, the time
+   a block step) beside its bound and its plain version, and one
+   ``CodedManchesterPhy.process_samples`` call on the
    largest bucket the coded MAC run correlated; each printed beside the
    card's name and power limit.
 
@@ -340,6 +345,9 @@ EDGE_THR = 0.5      # the refine-edge batch's threshold: hits off each preamble'
 EQ_TAPS = (1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.45)   # bench.py's equalized row
 EQ_NOISE = 0.02
 RUNS = 30
+GRAPH_LAUNCHES = 50    # launches a CUDA graph holds when timing one kernel's device time
+GRAPH_REPLAYS = 5
+HOST_CALLS = 200
 ASK_BATCH = 16
 ASK_FRAMES = 64
 ASK_TEXT = b"the quick brown fox"
@@ -1195,6 +1203,67 @@ def device_ms(torch, fn, kernel: str, calls: int = RUNS) -> tuple[float, int] | 
         log(f"device time of {kernel}: {len(times)} of {calls} launches traced "
             f"(session {attempt} of {PROFILE_SESSIONS})")
     return None
+
+
+def graph_ms(torch, fn) -> float:
+    """Device ms a launch of `fn`: CUDA events around a CUDA graph of
+    GRAPH_LAUNCHES calls (captured on a side stream after a warm-up call),
+    median of GRAPH_REPLAYS replays.  The graph is timing scaffolding: no
+    path of the port launches one."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_LAUNCHES):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(GRAPH_REPLAYS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / GRAPH_LAUNCHES)
+    return statistics.median(times)
+
+
+def traced_ms(torch, fn, kernel: str, calls: int = RUNS) -> tuple[float | None, int]:
+    """torch.profiler's median device ms of the kernel whose name holds
+    `kernel` over `calls` calls of `fn`, and how many launches it traced
+    (one session; None when it traced none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+    return (statistics.median(times) if times else None), len(times)
+
+
+def host_ms(torch, fn, calls: int = HOST_CALLS) -> float:
+    """The host's ms for one call of `fn` (time.perf_counter around the
+    call, the card synchronised between calls, not inside): median of
+    `calls`."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return statistics.median(times)
 
 
 def toolchain(torch, _build) -> str:
@@ -2227,7 +2296,12 @@ def check_viterbi(torch, convcode, phy, x, dev) -> float:
     tests/test_torch_convcode.py's corpora (soft rows clean, noisy and very
     noisy and hard rows clean, flipped and random at every n_steps mod 4,
     soft values on a 1/8 grid with a row of all zeros, depunctured rate-3/4
-    blocks, one row, and 256 rows).  Returns the max |bit difference|."""
+    blocks, one row, 256 rows, ties between the halves of the kernel's
+    first-maximum tree, and the long rows: one of 62 steps, one of 2,054 (a
+    263-byte frame's payload), two through the staging ring (6,145 steps),
+    one at the shared memory's edge (12,448: the longest whose choices fit)
+    and two whose choices exceed it (16,006)).  Returns the max |bit
+    difference|."""
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
     import test_torch_convcode as corpora
 
@@ -2236,7 +2310,9 @@ def check_viterbi(torch, convcode, phy, x, dev) -> float:
     cases = [("coded_manchester_b8 headers", hdr, phy.HDR_BITS, True),
              ("coded_manchester_b8 payloads", pay, 8 * CODED_PAYLOAD, True)]
     cases += [(name, torch.from_numpy(r).to(dev), n, soft)
-              for name, r, n, soft in corpora.viterbi_corpora(big=256)]
+              for name, r, n, soft in corpora.viterbi_corpora(big=256, long=True)]
+    require(convcode.choices_fit(12448) and not convcode.choices_fit(12449),
+            "the long corpora's edge row no longer sits at the shared-memory budget's edge")
     tails = set()
     for name, r, n_bits, soft in cases:
         got = convcode.viterbi_decode(r, n_bits, soft)
@@ -2248,7 +2324,10 @@ def check_viterbi(torch, convcode, phy, x, dev) -> float:
     log(f"phase 1: viterbi == plain bit for bit on {len(cases)} corpora: the "
         f"coded_manchester_b8 headers and payloads ({hdr.shape[0]} rows of {hdr.shape[1]} and "
         f"{pay.shape[1]}), hard and soft rows at every n_steps mod 4, a 1/8-grid ties corpus with "
-        "an all-zero row, depunctured rate-3/4 blocks, one row and 256 rows")
+        "an all-zero row, depunctured rate-3/4 blocks, one row, 256 rows, ties between the "
+        "tree's halves, one row of 62 and of 2,054 steps, two rows through the staging ring "
+        "(6,145), one at the shared memory's edge (12,448) and two with their choices in device "
+        "memory (16,006)")
     return 0.0
 
 
@@ -2363,16 +2442,57 @@ def viterbi_bound(rows: int, n_bits: int) -> tuple[float, str]:
                  rows * (q * 64 * 16 * 5 + rem * 64 * 3))
 
 
+def time_viterbi(torch, convcode, hdr, pay, card) -> dict:
+    """Phase 4 on the Viterbi kernel at the batch shapes (coded_manchester_b8's
+    payloads, 256 rows of 518 steps, and headers, 256 of 62) and the live
+    ones (one header row, 62 steps; the 263-byte frame's payload row of
+    tests/test_torch_convcode.py's long corpora, 2,054 steps): one call's
+    CUDA-event time, the device time of a launch (:func:`graph_ms`, and
+    torch.profiler's median over the launches it traced, with their count),
+    the host time of a call, the time a block step, the plain version and
+    the bound.  Returns the payloads' numbers."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import test_torch_convcode as corpora
+
+    (frame,) = [r for name, r, _, _ in corpora.viterbi_corpora(long=True)
+                if name == "one row of 2,054 steps"]
+    shapes = (("payloads", pay, 8 * CODED_PAYLOAD), ("headers", hdr, 56),
+              ("one header row", hdr[:1].contiguous(), 56),
+              ("one row of a 263-byte frame's payload", torch.from_numpy(frame).to(pay.device),
+               2048))
+    out = {}
+    for what, rows, n_bits in shapes:
+        def call(rows=rows, n_bits=n_bits):
+            return convcode.viterbi_decode(rows, n_bits, True)
+
+        k_ms = time_ms(torch, call)
+        graph = graph_ms(torch, call)
+        prof, traced = traced_ms(torch, call, "viterbi_kernel")
+        host = host_ms(torch, call)
+        p_ms = time_ms(torch, lambda: convcode.viterbi_decode_plain(rows, n_bits, True), runs=5)
+        bnd = viterbi_bound(rows.shape[0], n_bits)
+        chain = -(-(n_bits + 6) // 4)
+        log(f"phase 4: viterbi {what} ({rows.shape[0]} rows of {n_bits + 6} steps): kernel "
+            f"{k_ms:.4f} ms (CUDA events, one call), device {graph:.5f} ms a launch (graph of "
+            f"{GRAPH_LAUNCHES}, median of {GRAPH_REPLAYS}), profiler "
+            + ("none traced" if prof is None else f"{prof:.5f} ms (median of {traced} traced)")
+            + f", host {host:.4f} ms a call, {1e3 * graph / chain:.4f} us a block step ({chain} "
+            f"block steps, each one barrier), plain {p_ms:.4f} ms (median of 5), bound "
+            f"{bnd[0]:.6f} ms ({bnd[1]}) [{card}]")
+        if what == "payloads":
+            out = {"ms": k_ms, "plain_ms": p_ms, "bound": bnd, "device": graph}
+    return out
+
+
 def time_coded_paths(torch, coded, convcode, phy, x, buckets, card) -> dict:
     """Phase 4 on coded_manchester_b8: the batched decode end to end (median
     of RUNS, and its real-time multiple) and through decode_equal_frames, its
     steps (the correlation, the walk, the soft demod and deinterleave of the
     headers and of the payloads, the two Viterbi launches), its peak memory
-    and busy share; the Viterbi kernel at the payload and header shapes
-    beside its bound, its dependent chain and its plain version; and one
-    streaming process_samples call on the largest bucket the coded MAC run
-    decoded.  Returns the Viterbi kernel's ms, plain_ms and bound at the
-    payload shape."""
+    and busy share; the Viterbi kernel at the batch and live shapes
+    (:func:`time_viterbi`); and one streaming process_samples call on the
+    largest bucket the coded MAC run decoded.  Returns the Viterbi kernel's
+    ms, plain_ms, bound and device time at the payload shape."""
     from trackmaker_tpu_torch.sync import auto_xcorr, walk_starts
 
     fn = phy.batched_decode_fn(CODED_FRAMES, CODED_PAYLOAD)
@@ -2405,28 +2525,7 @@ def time_coded_paths(torch, coded, convcode, phy, x, buckets, card) -> dict:
     log(f"phase 4: coded_manchester_b8 peak device memory {peak_memory(torch, lambda: fn(x))}, "
         "device busy " + ("not measured" if busy is None else f"{busy:.3f}")
         + f" of a call [{card}]")
-    out = {}
-    for what, rows, n_bits in (("payloads", pay, 8 * CODED_PAYLOAD), ("headers", hdr, 56)):
-        def call(rows=rows, n_bits=n_bits):
-            return convcode.viterbi_decode(rows, n_bits, True)
-
-        k_ms = time_ms(torch, call)
-        p_ms = time_ms(torch, lambda: convcode.viterbi_decode_plain(rows, n_bits, True), runs=5)
-        dev_t = device_ms(torch, call, "viterbi_kernel")
-        # back to back, the launches queue ahead of the card, so the events
-        # between the first and the last hold the kernels and their gaps
-        b2b = time_ms(torch, lambda: [call() for _ in range(50)], runs=5) / 50
-        bnd = viterbi_bound(rows.shape[0], n_bits)
-        chain = -(-(n_bits + 6) // 4)
-        log(f"phase 4: viterbi coded_manchester_b8 {what} ({rows.shape[0]} rows of "
-            f"{n_bits + 6} steps): kernel {k_ms:.4f} ms (CUDA events, one call), {b2b:.4f} ms a "
-            f"launch over 50 back to back (median of 5), device "
-            + ("not measured" if dev_t is None else f"{dev_t[0]:.4f} ms")
-            + f", plain {p_ms:.4f} ms (median of 5), bound {bnd[0]:.6f} ms ({bnd[1]}), "
-            f"dependent chain {chain} block steps (each one barrier) [{card}]")
-        if what == "payloads":
-            out = {"ms": k_ms, "plain_ms": p_ms, "bound": bnd, "b2b": b2b,
-                   "device": None if dev_t is None else dev_t[0]}
+    out = time_viterbi(torch, convcode, hdr, pay, card)
     bucket = max(buckets, key=lambda bkt: bkt.shape[0]).cpu().numpy()
     stream = coded.CodedManchesterPhy(phy.cfg.replace(correlation_threshold=0.45), local_addr=2,
                                       device=x.device)
@@ -4386,11 +4485,9 @@ def main() -> None:
     time_ofdm_paths(torch, ofdm, ofdm_v2, x_o, ofdm_buckets, card, dev)
     vit = time_coded_paths(torch, coded, convcode, coded_phy, x_c, coded_buckets, card)
     ms["viterbi"], plain_ms["viterbi"], bounds["viterbi"] = vit["ms"], vit["plain_ms"], vit["bound"]
-    dev_v, how = ((vit["device"], "device") if vit["device"] is not None
-                  else (vit["b2b"], "back-to-back events"))
-    log(f"phase 4: viterbi: {launches['viterbi']} launches on the paths, launches x ({how} - "
-        f"bound) at the payload shape {launches['viterbi'] * (dev_v - vit['bound'][0]):.4f} ms "
-        f"[{card}]")
+    log(f"phase 4: viterbi: {launches['viterbi']} launches on the paths, launches x (device - "
+        f"bound) at the payload shape {launches['viterbi'] * (vit['device'] - vit['bound'][0]):.4f}"
+        f" ms [{card}]")
     # registers and spills last: cuobjdump runs as a child process, and the
     # profiler's sessions after one lose their last launches
     for src in ("sliding_dot", "xcorr_norm", "xcorr_hits", "spec_walk", "attempt_manchester",

@@ -1835,13 +1835,28 @@ def test_xcorr_hits_2s_copies_nothing_to_the_card(cuda):
 
 
 # The Viterbi decoder (csrc/viterbi.cu): one block of 64 threads a row at
-# radix 4, its decisions equal to the plain version's bit for bit on the
-# corpora of tests/test_torch_convcode.py (every tail, hard and soft, ties
-# on a 1/8 grid, depunctured rate-3/4 blocks, one row and 256 rows) and on
-# the coded PHYs' own header and payload blocks; one launch a call, nothing
-# copied to the card; the coded decodes on the card equal the CPU's.
+# radix 4, a thread a state, the received values staged and the choices
+# kept in shared memory; its decisions equal to the plain version's bit for
+# bit on the corpora of tests/test_torch_convcode.py (every tail, hard and
+# soft, ties on a 1/8 grid and between the first maximum's tree halves,
+# depunctured rate-3/4 blocks, one row and 256 rows, and the long rows: one
+# row of 62 and of 2,054 steps, two rows through the staging ring, one at
+# the shared memory's edge and two whose choices exceed it) and on the
+# coded PHYs' own header and payload blocks; one launch a call, nothing
+# copied to the card, no allocation but the output where the choices fit;
+# the coded decodes on the card equal the CPU's.
 
-VITERBI_CORPORA = viterbi_corpora(big=256)
+VITERBI_CORPORA = viterbi_corpora(big=256, long=True)
+_VITERBI_PLAIN: dict[int, torch.Tensor] = {}
+
+
+def viterbi_plain(idx: int, cuda) -> torch.Tensor:
+    """The plain decode of VITERBI_CORPORA[idx] on the card, once."""
+    if idx not in _VITERBI_PLAIN:
+        _, received, n_bits, soft = VITERBI_CORPORA[idx]
+        _VITERBI_PLAIN[idx] = convcode.viterbi_decode_plain(
+            torch.from_numpy(received).to(cuda), n_bits, soft)
+    return _VITERBI_PLAIN[idx]
 
 
 @pytest.mark.gpu
@@ -1854,10 +1869,44 @@ def test_viterbi_kernel_matches_plain(cuda, idx):
     got = convcode.viterbi_decode(x, n_bits, soft)
     torch.cuda.synchronize()
     assert convcode.viterbi_decode.launches == before + 1
-    want = convcode.viterbi_decode_plain(x, n_bits, soft)
+    want = viterbi_plain(idx, cuda)
     assert got.dtype == want.dtype == torch.uint8 and torch.equal(got, want), name
     assert torch.equal(got.cpu(), convcode.viterbi_decode_plain(torch.from_numpy(received),
                                                                 n_bits, soft)), name
+
+
+class _Allocations(TorchDispatchMode):
+    """The tensors allocated on the card, by shape."""
+
+    def __init__(self):
+        super().__init__()
+        self.shapes = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if str(func.overloadpacket) in CardWork.ALLOC and out.device.type == "cuda":
+            self.shapes.append(tuple(out.shape))
+        return out
+
+
+@pytest.mark.gpu
+def test_viterbi_allocates_no_choices_where_they_fit(cuda):
+    """A call allocates its output alone at every length whose choices fit
+    in shared memory (a 263-byte frame's 2,054 steps and the edge's 12,448
+    among them), and the choices scratch besides only past that (16,006
+    steps)."""
+    for idx, (name, received, n_bits, soft) in enumerate(VITERBI_CORPORA):
+        x = torch.from_numpy(received).to(cuda)
+        rows = x.reshape(-1, x.shape[-1]).shape[0]
+        with _Allocations() as seen:
+            convcode.viterbi_decode(x, n_bits, soft)
+        torch.cuda.synchronize()
+        n_steps = n_bits + 6
+        want = [(rows, n_bits)]
+        if not convcode.choices_fit(n_steps):
+            want.append((rows, n_steps // 4 + n_steps % 4, 64))
+        assert seen.shapes == want, (name, seen.shapes)
+    assert convcode.choices_fit(12448) and not convcode.choices_fit(16006)
 
 
 @pytest.mark.gpu

@@ -19,9 +19,10 @@ and ``b + c`` round to one f32 value with ``a != b`` the two rules part,
 so the port computes radix 4's decisions exactly.
 
 On a CUDA tensor ``viterbi_decode`` launches ``csrc/viterbi.cu`` (one
-block of 64 threads a row, one launch a call); on a CPU tensor it runs
-:func:`viterbi_decode_plain`, the same radix-4 rule as tensor ops batched
-over rows.  Decisions are defined for finite inputs.
+block of 64 threads a row, a thread a state, the received values staged and
+the choices kept in shared memory, one launch a call); on a CPU tensor it
+runs :func:`viterbi_decode_plain`, the same radix-4 rule as tensor ops
+batched over rows.  Decisions are defined for finite inputs.
 """
 
 from __future__ import annotations
@@ -200,6 +201,23 @@ def viterbi_decode_plain(received: torch.Tensor, n_bits: int,
     return bits[:, :n_bits].reshape(*lead, n_bits)
 
 
+# The kernel's shared memory (csrc/viterbi.cu): two metric buffers, the
+# (P, M) sums of up to WINDOW trellis steps (a whole row, or a ring of two
+# halves for a longer one), and the choices, a byte a state a block step,
+# when they fit in Hopper's opt-in 227 KB; tm_viterbi decides the same way.
+WINDOW = 4096
+SMEM_MAX = 232_448
+_METRIC_BYTES = 2 * NSTATES * 4
+
+
+def choices_fit(n_steps: int) -> bool:
+    """True when a row of n_steps keeps its choices in shared memory; else
+    the wrapper hands the kernel a scratch in device memory."""
+    window = WINDOW if n_steps > WINDOW else n_steps + (n_steps & 1)
+    q, rem = divmod(n_steps, RADIX)
+    return _METRIC_BYTES + 8 * window + (q + rem) * NSTATES <= SMEM_MAX
+
+
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
@@ -220,11 +238,13 @@ def viterbi_decode(received: torch.Tensor, n_bits: int, soft: bool = False) -> t
     out = torch.empty((n, n_bits), dtype=torch.uint8, device=r.device)
     if n == 0:
         return out.reshape(*lead, n_bits)
-    q, rem = divmod(n_steps, RADIX)
-    choices = torch.empty((n, q + rem, NSTATES), dtype=torch.uint8, device=r.device)
+    scratch = None
+    if not choices_fit(n_steps):
+        q, rem = divmod(n_steps, RADIX)
+        scratch = torch.empty((n, q + rem, NSTATES), dtype=torch.uint8, device=r.device)
     fn = _build.entry("viterbi", "tm_viterbi", _ARGTYPES)
-    err = fn(r.data_ptr(), n, n_steps, n_bits, int(not soft), choices.data_ptr(),
-             out.data_ptr(), _build.stream_ptr(r))
+    err = fn(r.data_ptr(), n, n_steps, n_bits, int(not soft),
+             None if scratch is None else scratch.data_ptr(), out.data_ptr(), _build.stream_ptr(r))
     _build.check(err, "viterbi")
     viterbi_decode.launches += 1
     return out.reshape(*lead, n_bits)
