@@ -108,14 +108,18 @@ Phases, each raising on failure (non-zero exit):
    bucket, address and max_frames, each path's longest buffer also alone
    (B = 1, as the path launches it); these checks run once phase 2 has
    read its counts; the normalized correlation at L=440 with the chirp's
-   f32 norm, as the OFDM sync calls it, on the ofdm_v2_b32 and v1
-   captures and (after phase 2) on every bucket the two OFDM runs'
-   stream PHYs decoded, stacked by length and the largest alone, each
+   f32 norm, as the OFDM sync calls it, on the ofdm_v2_b32, v1,
+   ofdm_adaptive_b8 and ofdm_adaptive_loaded_b8 captures and (after
+   phase 2) on every bucket the stream PHYs of the OFDM, adaptive OFDM,
+   PSK and FSK runs and of the retrain decoded, stacked by length and the
+   largest alone, each
    within CORR_ATOL of its plain version and the preamble starts walked
    from the kernel's corr equal to those from the plain corr; the Viterbi
    decoder (``csrc/viterbi.cu``) against its plain version bit for bit on
    coded_manchester_b8's header and payload blocks (256 rows of 62 and 518
-   trellis steps) and on tests/test_torch_convcode.py's corpora (hard and
+   trellis steps), on ofdm_adaptive_b8's and ofdm_adaptive_loaded_b8's
+   (128 rows of 62 and 518 each) and on tests/test_torch_convcode.py's
+   corpora (hard and
    soft rows at every n_steps mod 4, a 1/8-grid ties corpus with an
    all-zero row, depunctured rate-3/4 blocks, one row, 256 rows, ties
    between the first maximum's tree halves, and the long rows: 62 and
@@ -221,7 +225,23 @@ Phases, each raising on failure (non-zero exit):
    defaults (equal to CODED_BER_EXPECT, the JAX package's; #1, #3, #4 and
    the Viterbi kernel launched) and the MAC run "csma_transfer,
    coded_manchester" above over ``CodedManchesterPhy`` (sigma 0.9, threshold
-   0.45, logged with its stream calls);
+   0.45, logged with its stream calls); then adaptive OFDM and the
+   single-carrier modems (``phy/ofdm_adaptive.py``, ``phy/fsk.py``,
+   ``phy/psk.py``, ``phy/stream_sc.py``), each run with its kernels' counts
+   set to 0 just before it: ofdm_adaptive_b8 (bench.py:486-515's row, cut
+   nothing: 8 captures of 16 frames of 64-byte payloads, gaps of 300, noise
+   sigma 0.01, the default loading) and ofdm_adaptive_loaded_b8 (the mixed
+   BPSK / QPSK / 16- / 64-QAM loading of tests/test_parallel_ofdm.py at
+   sigma 0.004) through ``OfdmAdaptiveStreamPhy.decode_equal_frames``
+   (every frame of every capture in order, #2 once and the Viterbi kernel
+   twice, the decisions' digests equal to ADAPTIVE_DIGEST and
+   ADAPTIVE_LOADED_DIGEST, the JAX package's); the live retrain of
+   tests/test_ofdm_adaptive_mac.py (probe, loading, traffic, degradation,
+   REPROBE, LOADING with gains, traffic again; equal to RETRAIN_EXPECT, the
+   JAX package's); ``FskModem.decode`` and ``PskModem.decode`` (BPSK, QPSK)
+   of SC_FRAMES frames each (every payload, #2 once each); and the MAC
+   runs "csma_transfer, ofdm_adaptive", "csma_transfer, psk" and
+   "csma_transfer, fsk" above over their stream PHYs;
 3. the fallbacks: a Manchester capture that overflows the candidate table,
    a 4B5B capture with a zeroed level inside an attempted frame, and an
    ASK capture of 150 back-to-back chirps before three frames (more fire
@@ -300,14 +320,22 @@ Phases, each raising on failure (non-zero exit):
    50 launches and from torch.profiler, the host time of a call, the time
    a block step) beside its bound and its plain version, and one
    ``CodedManchesterPhy.process_samples`` call on the
-   largest bucket the coded MAC run correlated; each printed beside the
-   card's name and power limit.
+   largest bucket the coded MAC run correlated; the ofdm_adaptive_b8 decode
+   end to end (median of 30, its real-time multiple, also through
+   ``decode_equal_frames``), its steps (the correlation, the walk, the soft
+   demap, the deinterleave, the two Viterbi launches with their device time
+   from a CUDA graph), its peak memory and busy share, #2 at its shape
+   beside its plain version, conv1d and its bound, and one
+   ``OfdmAdaptiveStreamPhy.process_samples`` call on the largest bucket the
+   adaptive MAC run decoded; each printed beside the card's name and power
+   limit.
 
 The line before the last is a JSON object with the kernels' measurements:
 ``launches`` counts each kernel's launches in the main-path runs of
 phase 2 (the line-coded paths, the blocked runs, the profiler path, the
 robustness paths, the streaming latency run, the MAC runs, the network
-runs, the OFDM paths and the coded paths; the
+runs, the OFDM paths, the coded paths and the adaptive OFDM, retrain and
+single-carrier paths; the
 probe's in phase 0's health run; the
 batch-folded hit rows are on no path and count 0),
 ``ms`` and ``plain_ms`` time it at the shapes of its first path, and
@@ -449,6 +477,58 @@ CODED_BER_EXPECT = [
     {"snr_db": 4.0, "frames_sent": 16, "uncoded_loss_pct": 0.0, "coded_loss_pct": 0.0},
     {"snr_db": 6.0, "frames_sent": 16, "uncoded_loss_pct": 0.0, "coded_loss_pct": 0.0},
 ]
+# ofdm_adaptive_b8, bench.py's ofdm_adaptive row (bench.py:486-515), cut
+# nothing: ADAPTIVE_FRAMES frames Frame.new_data(i, 1, 2, p) of random
+# ADAPTIVE_PAYLOAD-byte payloads, ADAPTIVE_GAP samples apart, through
+# OfdmAdaptiveStreamPhy at its default loading (uniform QPSK), in
+# ADAPTIVE_BATCH captures with noise sigma ADAPTIVE_NOISE, payloads and noise
+# from default_rng(ADAPTIVE_SEED), the waveform from the port's encoder on the
+# host; ofdm_adaptive_loaded_b8 the same at adaptive_loading() (the mixed
+# loading of tests/test_parallel_ofdm.py:90-93: BPSK, QPSK, 16- and 64-QAM)
+# with noise sigma ADAPTIVE_LOADED_NOISE from default_rng(ADAPTIVE_SEED + 1).
+# The digests are the JAX package's batched decode of these captures, the
+# starts and the bits (tests/test_torch_ofdm_adaptive.py)
+ADAPTIVE_BATCH = 8
+ADAPTIVE_FRAMES = 16
+ADAPTIVE_PAYLOAD = 64
+ADAPTIVE_GAP = 300
+ADAPTIVE_NOISE = 0.01
+ADAPTIVE_LOADED_NOISE = 0.004
+ADAPTIVE_SEED = 0
+ADAPTIVE_DIGEST = "07c4faf6697b8f20"
+ADAPTIVE_LOADED_DIGEST = "7466f495039ee418"
+ADAPTIVE_N_DATA = 74        # OfdmAdaptiveConfig()'s data bins
+# tests/test_ofdm_adaptive_mac.py:187-189's negotiated loading: 16-QAM on
+# the low third of the data bins, QPSK on the middle, BPSK on the top
+ADAPTIVE_THIRDS = ((4,) * (ADAPTIVE_N_DATA // 3) + (2,) * (ADAPTIVE_N_DATA // 3)
+                   + (1,) * (ADAPTIVE_N_DATA - 2 * (ADAPTIVE_N_DATA // 3)))
+# the retrain run, tests/test_ofdm_adaptive_mac.py:211-287 (retrain_run),
+# its channels' noise from default_rng(RETRAIN_SEED); RETRAIN_EXPECT is the
+# JAX package's result (tests/test_torch_ofdm_adaptive_mac.py): the loadings
+# and gains as their handshake bytes (pack_loading, pack_gains) in hex
+RETRAIN_SEED = 23
+RETRAIN_EXPECT = {
+    "load0": "333333333333333333333333333333333333333333333333333333333333"
+             "33333332222222",
+    "load1": "222222222222222222222222222222111110000000000000000000000000"
+             "00000000000000",
+    "gains1": "fef706f9f200e9f5f706f600fdf50407fefafd0205fcf9fc0105f9050c04"
+              "f4e8060e1000000000000000000000000000000000000000000000000000"
+              "0000000000000000000000000000",
+    "bits0": 282, "bits1": 65, "calm": (False, 0.0), "tripped": (True, 0.14310805462101722),
+    "prefec": [0.0, 0.0, 0.0, 0.0, 0.1340540273105086, 0.16262616267563823,
+               0.14555709479517118, 0.13019493370275084],
+    "control": ["reprobe", "loading"], "negotiated": True,
+    "delivered": [[(i, bytes([i]).hex() * 40) for i in range(4)]] * 2,
+    "prefec2": [0.0, 0.0, 0.0, 0.0], "degraded2": False}
+# the single-carrier modems' batches: SC_FRAMES frames of SC_PAYLOAD bytes
+# through FskModem and PskModem (BPSK and QPSK), SC_GAP samples apart, with
+# noise sigma SC_NOISE from default_rng(SC_SEED)
+SC_FRAMES = 8
+SC_PAYLOAD = 32
+SC_GAP = 400
+SC_NOISE = 0.1
+SC_SEED = 0
 # the MAC runs over the port's PHY: name -> (ARQ, bytes of bytes(range(256))
 # repeated, options: the transfer's keywords, line_coding and
 # energy_threshold for its PhyConfig and MacConfig, and phy, the stream PHY
@@ -457,7 +537,8 @@ CODED_BER_EXPECT = [
 # sigma 0.45 where frames drop and the ARQ paths run, the OFDM run
 # tests/test_ofdm_v2_mac.py's, the coded run tests/test_coded_phy.py's
 # (sigma 0.9, seed 9, correlation threshold 0.45 for its PhyConfig, carrier
-# sense at 3.0)
+# sense at 3.0), the adaptive run tests/test_ofdm_adaptive_mac.py's (its
+# stream PHY's loading), the PSK and FSK runs tests/test_stream_sc.py's
 MAC_RUNS = {
     "csma_transfer": ("csma", 1024, {"max_duration_s": 60.0}),
     "csma_transfer, noise": ("csma", 512, {"noise_std": 0.12, "seed": 5,
@@ -473,6 +554,10 @@ MAC_RUNS = {
     "csma_transfer, coded_manchester": ("csma", 512, {
         "phy": "coded_manchester", "correlation_threshold": 0.45, "noise_std": 0.9, "seed": 9,
         "energy_threshold": 3.0, "max_duration_s": 120.0}),
+    "csma_transfer, ofdm_adaptive": ("csma", 512, {
+        "phy": "ofdm_adaptive", "loading": ADAPTIVE_THIRDS, "max_duration_s": 120.0}),
+    "csma_transfer, psk": ("csma", 512, {"phy": "psk", "max_duration_s": 120.0}),
+    "csma_transfer, fsk": ("csma", 512, {"phy": "fsk", "max_duration_s": 120.0}),
 }
 # the JAX package's stats of each MAC run (tests/test_torch_link.py); the
 # port's must equal them, on the card as on the CPU
@@ -502,6 +587,15 @@ MAC_EXPECT = {
                                         "airtime_s": 1.4933333333333334, "acked": 4,
                                         "retransmissions": 0, "duplicates": 0,
                                         "throughput_bps": 2742.8571428571427},
+    "csma_transfer, ofdm_adaptive": {"airtime_samples": 53760, "airtime_s": 1.12, "acked": 4,
+                                     "retransmissions": 0, "duplicates": 0,
+                                     "throughput_bps": 3657.142857142857},
+    "csma_transfer, psk": {"airtime_samples": 126464, "airtime_s": 2.6346666666666665,
+                           "acked": 4, "retransmissions": 0, "duplicates": 0,
+                           "throughput_bps": 1554.6558704453441},
+    "csma_transfer, fsk": {"airtime_samples": 232448, "airtime_s": 4.842666666666666,
+                           "acked": 4, "retransmissions": 0, "duplicates": 0,
+                           "throughput_bps": 845.8149779735684},
 }
 # the network layer's runs over the port's PHY (BASELINE.json config 5):
 # name -> run_ping_simulation's keywords, with line_coding for a stream PHY
@@ -730,10 +824,12 @@ def gate_capture(torch, cfg, dev, quiet: int = GATE_QUIET):
 def mac_run(name: str, link, phy_config, mac_config, **kw):
     """(data, received, stats) of MAC_RUNS[name] through `link`, a mapping of
     "csma", "gbn" and "sr" to a package's transfer_over_bus, gbn_transfer and
-    sr_transfer, of "ofdm_v2" to its OfdmStreamPhyV2 and of
-    "coded_manchester" to its CodedManchesterPhy (which takes the run's
-    PhyConfig), with its PhyConfig and MacConfig classes; `kw` goes to the
-    transfer and to a stream PHY (the port's `device`)."""
+    sr_transfer, of "ofdm_v2" to its OfdmStreamPhyV2, of "coded_manchester"
+    to its CodedManchesterPhy (which takes the run's PhyConfig), of
+    "ofdm_adaptive" to its OfdmAdaptiveStreamPhy (which takes the run's
+    loading) and of "psk" and "fsk" to its PskStreamPhy and FskStreamPhy,
+    with its PhyConfig and MacConfig classes; `kw` goes to the transfer and
+    to a stream PHY (the port's `device`)."""
     arq, n_bytes, opts = MAC_RUNS[name]
     opts = dict(opts)
     phy = opts.pop("phy", None)
@@ -741,7 +837,8 @@ def mac_run(name: str, link, phy_config, mac_config, **kw):
                         if k in opts})
     if phy is not None:
         args = (cfg,) if phy.startswith("coded") else ()
-        opts["phy_factory"] = lambda addr: link[phy](*args, local_addr=addr, **kw)
+        phy_kw = {"loading": opts.pop("loading")} if "loading" in opts else {}
+        opts["phy_factory"] = lambda addr: link[phy](*args, local_addr=addr, **phy_kw, **kw)
     mac_cfg = mac_config(energy_threshold=opts.pop("energy_threshold", 0.5))
     data = bytes(range(256)) * (n_bytes // 256)
     received, stats = link[arq](data, cfg=cfg, mac_cfg=mac_cfg, **opts, **kw)
@@ -950,6 +1047,135 @@ def coded4_input():
     for b, c in enumerate(caps):
         batch[b, :len(c)] = c
     return frames, batch
+
+
+def adaptive_loading() -> tuple:
+    """ofdm_adaptive_loaded_b8's loading: tests/test_parallel_ofdm.py:90-93's
+    draw, bits {1, 2, 4, 6} with p 0.2 / 0.4 / 0.3 / 0.1 from
+    default_rng(3)."""
+    rng = np.random.default_rng(3)
+    return tuple(int(v) for v in rng.choice([1, 2, 4, 6], size=ADAPTIVE_N_DATA,
+                                            p=[0.2, 0.4, 0.3, 0.1]))
+
+
+def adaptive_input(loaded: bool = False):
+    """(frames, captures f32[ADAPTIVE_BATCH, T] in NumPy) of ofdm_adaptive_b8,
+    or with `loaded` of ofdm_adaptive_loaded_b8, built on the host."""
+    from trackmaker_tpu_torch.core.framing import Frame
+    from trackmaker_tpu_torch.phy.ofdm_adaptive import OfdmAdaptiveStreamPhy
+
+    phy = OfdmAdaptiveStreamPhy(loading=adaptive_loading() if loaded else None, local_addr=2,
+                                device="cpu")
+    rng = np.random.default_rng(ADAPTIVE_SEED + int(loaded))
+    frames = [Frame.new_data(i, 1, 2, rng.integers(0, 256, ADAPTIVE_PAYLOAD, dtype=np.uint8)
+                             .tobytes()) for i in range(ADAPTIVE_FRAMES)]
+    wave = phy.encode_frames(frames, gap_samples=ADAPTIVE_GAP)
+    sigma = ADAPTIVE_LOADED_NOISE if loaded else ADAPTIVE_NOISE
+    return frames, np.stack([(wave + rng.normal(0, sigma, len(wave))).astype(np.float32)
+                             for _ in range(ADAPTIVE_BATCH)])
+
+
+def shaped_channel(wave: np.ndarray, rng, sigma: float, cut_rel: float = 0.55,
+                   floor: float = 0.02) -> np.ndarray:
+    """tests/test_ofdm_adaptive_mac.py's roll-off channel: the bins above
+    `cut_rel` of the OFDM band attenuated to `floor` (a logistic edge 600 Hz
+    wide) in the frequency domain of the whole capture, then noise `sigma`
+    from `rng`."""
+    n = len(wave)
+    spec = np.fft.rfft(wave)
+    f = np.fft.rfftfreq(n, 1.0 / 48_000)
+    lo, hi = 2_062.0, 10_031.0
+    cut = lo + cut_rel * (hi - lo)
+    width = 600.0
+    gain = np.where(f > cut, floor + (1 - floor) / (1 + np.exp((f - cut - width / 2)
+                                                               / (width / 6))), 1.0)
+    out = np.fft.irfft(spec * gain, n=n).astype(np.float32)
+    return out + rng.normal(0, sigma, n).astype(np.float32)
+
+
+def host(v) -> np.ndarray:
+    """A package's array (a tensor on any device, or a JAX array) in NumPy."""
+    return v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
+
+
+def retrain_run(adaptive, first_start, **kw) -> dict:
+    """tests/test_ofdm_adaptive_mac.py:211-287's live retrain through a
+    package's ofdm_adaptive module: the probe on a mild channel and its
+    loading, four frames over it, the same four over a bad channel (the
+    pre-FEC monitor trips), REPROBE over the handshake mode, the probe again,
+    the derated loading and its gains sent back in a LOADING frame, and the
+    four frames over the bad channel at the new loading.  `first_start(cfg,
+    rx)` gives the first chirp start the package's find_preambles finds in
+    rx (NumPy); `kw` goes to the module's entry points (the port's
+    `device`).  The channels' noise comes from default_rng(RETRAIN_SEED)."""
+    rng = np.random.default_rng(RETRAIN_SEED)
+    cfg = adaptive.OfdmAdaptiveConfig()
+    nd = len(cfg.data_bin_idx)
+    phy = adaptive.OfdmAdaptiveStreamPhy
+
+    def mild(w):
+        return shaped_channel(w, rng, sigma=0.004, cut_rel=0.95, floor=0.5)
+
+    def bad(w):
+        return shaped_channel(w, rng, sigma=0.01, cut_rel=0.45, floor=0.01)
+
+    def pad(w):
+        return np.concatenate([w, np.zeros(4000, np.float32)])
+
+    rxp = mild(pad(adaptive.probe_waveform(cfg, **kw)))
+    load0 = adaptive.choose_loading(host(adaptive.estimate_bin_snr(
+        cfg, rxp, first_start(cfg, rxp), **kw)))
+    tx = phy(cfg, loading=load0, local_addr=1, **kw)
+    rx = phy(cfg, loading=load0, local_addr=2, **kw)
+    frames = [adaptive.Frame.new_data(i, 1, 2, bytes([i]) * 40) for i in range(4)]
+    got = rx.process_samples(mild(pad(tx.encode_frames(frames, 400))))
+    calm = (rx.link_degraded(window=4), rx.prefec_ber(4))
+    rx.process_samples(bad(pad(tx.encode_frames(frames, 400))))
+    tripped = (rx.link_degraded(window=4), rx.prefec_ber(4))
+    hs_rx = phy.handshake_mode(cfg, local_addr=1, **kw)
+    hs_tx = phy.handshake_mode(cfg, local_addr=1, **kw)
+    got_req = hs_tx.process_samples(bad(pad(hs_rx.encode_frames(
+        [adaptive.make_reprobe_frame(9, 2, 1)]))))
+    rxp2 = bad(pad(adaptive.probe_waveform(cfg, **kw)))
+    snr1 = host(adaptive.estimate_bin_snr(cfg, rxp2, first_start(cfg, rxp2), **kw))
+    load1 = adaptive.choose_loading(snr1)
+    gains1 = adaptive.choose_gains(snr1, load1)
+    got_upd = hs_tx.process_samples(bad(pad(hs_rx.encode_frames(
+        [adaptive.make_loading_frame(10, 2, 1, load1, gains1)]))))
+    ctrl = [adaptive.parse_control(f, nd) for f in (*got_req, *got_upd)]
+    _, negotiated, ngains = ctrl[-1] if ctrl and ctrl[-1][0] == "loading" else (None, load1,
+                                                                                gains1)
+    tx2 = phy(cfg, loading=negotiated, gains=ngains, local_addr=1, **kw)
+    rx2 = phy(cfg, loading=negotiated, gains=ngains, local_addr=2, **kw)
+    got2 = rx2.process_samples(bad(pad(tx2.encode_frames(frames, 400))))
+    return {
+        "load0": adaptive.pack_loading(load0).hex(), "load1": adaptive.pack_loading(load1).hex(),
+        "gains1": adaptive.pack_gains(gains1).hex(), "bits0": sum(load0), "bits1": sum(load1),
+        "calm": calm, "tripped": tripped, "prefec": rx.frame_prefec,
+        "control": [c[0] if c else None for c in ctrl],
+        "negotiated": negotiated == load1 and ngains == gains1,
+        "delivered": [[(f.sequence, f.data.hex()) for f in g] for g in (got, got2)],
+        "prefec2": rx2.frame_prefec, "degraded2": rx2.link_degraded(window=4)}
+
+
+def sc_input():
+    """(frames, {modem: (its config's fields, the noisy capture in NumPy)}) of
+    the single-carrier modems' batches, built on the host: FSK, BPSK and
+    QPSK."""
+    from trackmaker_tpu_torch.core.framing import Frame
+    from trackmaker_tpu_torch.phy import fsk, psk
+
+    rng = np.random.default_rng(SC_SEED)
+    frames = [Frame.new_data(i, 1, 2, rng.integers(0, 256, SC_PAYLOAD, dtype=np.uint8)
+                             .tobytes()) for i in range(SC_FRAMES)]
+    modems = {"fsk": fsk.FskModem(device="cpu"),
+              "bpsk": psk.PskModem(psk.PskConfig(bits_per_symbol=1), device="cpu"),
+              "qpsk": psk.PskModem(psk.PskConfig(bits_per_symbol=2), device="cpu")}
+    out = {}
+    for name, modem in modems.items():
+        wave = modem.encode_frames(frames, gap_samples=SC_GAP)
+        out[name] = (modem.cfg, (wave + rng.normal(0, SC_NOISE, len(wave))).astype(np.float32))
+    return frames, out
 
 
 def ofdm_digest(starts, bits) -> str:
@@ -1857,10 +2083,10 @@ class DecodeTally:
         self.cls.process_samples = self.orig
 
     def describe(self, opts: dict) -> str:
-        if opts.get("phy") == "ofdm_v2":
-            return f"{self.calls} stream calls that decoded a bucket"
         if opts.get("phy") == "coded_manchester":
             return f"{self.calls} stream calls that correlated a bucket"
+        if "phy" in opts:
+            return f"{self.calls} stream calls that decoded a bucket"
         return f"{self.calls} decode calls ({self.exact} by the exact scan)"
 
     def figures(self, airtime_s: float, wall_s: float) -> dict:
@@ -1893,10 +2119,13 @@ def recorded_run(torch, phy_decoder, kernels, run, stream=None):
 
 def path_kernels(opts: dict) -> tuple[str, ...]:
     """The kernels a MAC or network run's stream PHY launches: the
-    normalized correlation on OFDM, #1 and the Viterbi decoder on the coded
-    PHY, else #1, the attempt of its line code and #4."""
-    if opts.get("phy") == "ofdm_v2":
+    normalized correlation on OFDM v2, PSK and FSK, and with the Viterbi
+    decoder on adaptive OFDM, #1 and the Viterbi decoder on the coded PHY,
+    else #1, the attempt of its line code and #4."""
+    if opts.get("phy") in ("ofdm_v2", "psk", "fsk"):
         return ("normalized_xcorr_dense",)
+    if opts.get("phy") == "ofdm_adaptive":
+        return ("normalized_xcorr_dense", "viterbi_decode")
     if opts.get("phy") == "coded_manchester":
         return ("xcorr_hits", "viterbi_decode")
     attempt = "attempt_4b5b" if opts.get("line_coding") == "4b5b" else "attempt_manchester"
@@ -2289,10 +2518,13 @@ def coded_blocks(torch, phy, x, starts, payload_len: int):
     return [b.reshape(-1, b.shape[-1]) for b in phy.soft_blocks(x, starts, payload_len)]
 
 
-def check_viterbi(torch, convcode, phy, x, dev) -> float:
+def check_viterbi(torch, convcode, phy, x, dev, extra=()) -> float:
     """Phase 1 for the Viterbi decoder (csrc/viterbi.cu): the kernel against
     its plain version bit for bit on coded_manchester_b8's real header and
-    payload blocks (256 rows of 62 and of 518 trellis steps), and on
+    payload blocks (256 rows of 62 and of 518 trellis steps), on the soft
+    blocks of `extra` [(name, rows f32[N, 2·(n_bits + 6)], n_bits)] (the
+    adaptive OFDM batches' headers and payloads, 128 rows of 62 and of 518
+    steps each), and on
     tests/test_torch_convcode.py's corpora (soft rows clean, noisy and very
     noisy and hard rows clean, flipped and random at every n_steps mod 4,
     soft values on a 1/8 grid with a row of all zeros, depunctured rate-3/4
@@ -2309,6 +2541,7 @@ def check_viterbi(torch, convcode, phy, x, dev) -> float:
                             CODED_PAYLOAD)
     cases = [("coded_manchester_b8 headers", hdr, phy.HDR_BITS, True),
              ("coded_manchester_b8 payloads", pay, 8 * CODED_PAYLOAD, True)]
+    cases += [(name, rows, n_bits, True) for name, rows, n_bits in extra]
     cases += [(name, torch.from_numpy(r).to(dev), n, soft)
               for name, r, n, soft in corpora.viterbi_corpora(big=256, long=True)]
     require(convcode.choices_fit(12448) and not convcode.choices_fit(12449),
@@ -2323,7 +2556,10 @@ def check_viterbi(torch, convcode, phy, x, dev) -> float:
     require(tails == {0, 1, 2, 3}, f"the Viterbi corpora miss a tail: {sorted(tails)}")
     log(f"phase 1: viterbi == plain bit for bit on {len(cases)} corpora: the "
         f"coded_manchester_b8 headers and payloads ({hdr.shape[0]} rows of {hdr.shape[1]} and "
-        f"{pay.shape[1]}), hard and soft rows at every n_steps mod 4, a 1/8-grid ties corpus with "
+        f"{pay.shape[1]}), "
+        + "".join(f"the {name} ({rows.shape[0]} rows of {rows.shape[1]}), "
+                  for name, rows, _ in extra)
+        + "hard and soft rows at every n_steps mod 4, a 1/8-grid ties corpus with "
         "an all-zero row, depunctured rate-3/4 blocks, one row, 256 rows, ties between the "
         "tree's halves, one row of 62 and of 2,054 steps, two rows through the staging ring "
         "(6,145), one at the shared memory's edge (12,448) and two with their choices in device "
@@ -2538,6 +2774,151 @@ def time_coded_paths(torch, coded, convcode, phy, x, buckets, card) -> dict:
     log(f"phase 4: CodedManchesterPhy.process_samples of a {len(bucket)}-sample bucket (the coded "
         f"MAC run's largest; {len(got)} frames): {time_ms(torch, stream_call):.4f} ms [{card}]")
     return out
+
+
+# --- adaptive OFDM and the single-carrier modems ---------------------------------------
+
+
+def adaptive_phy(adaptive, loaded: bool, dev):
+    """ofdm_adaptive_b8's receiver, or ofdm_adaptive_loaded_b8's."""
+    return adaptive.OfdmAdaptiveStreamPhy(loading=adaptive_loading() if loaded else None,
+                                          local_addr=2, device=dev)
+
+
+def adaptive_blocks(torch, ofdm, phy, x):
+    """(header rows f32[B·F, 124], payload rows f32[B·F, 1,036]): the Viterbi
+    decoder's inputs in the batched decode of adaptive captures x."""
+    starts = ofdm.find_preambles(phy.cfg, x, ADAPTIVE_FRAMES)
+    return [b.reshape(-1, b.shape[-1]) for b in phy.soft_blocks(x, starts, ADAPTIVE_PAYLOAD)]
+
+
+def run_adaptive_paths(torch, adaptive, fsk, psk, ofdm, xn, convcode, x_a, frames_a, x_l,
+                       frames_l, sc, dev) -> tuple[dict, list]:
+    """Phase 2 on adaptive OFDM and the single-carrier modems, each run with
+    its kernels' counts set to 0 just before it and read just after:
+    ofdm_adaptive_b8 and ofdm_adaptive_loaded_b8 through decode_equal_frames
+    (every frame of every capture in order; one launch of #2 and two of the
+    Viterbi kernel; the decisions' digest equal to ADAPTIVE_DIGEST /
+    ADAPTIVE_LOADED_DIGEST, the JAX package's); the retrain run, equal to
+    RETRAIN_EXPECT, the JAX package's; FskModem.decode and PskModem.decode
+    (BPSK, QPSK) of SC_FRAMES frames each (every payload; #2 once each).
+    Returns (each run's launches, the buckets the retrain's stream PHYs
+    decoded)."""
+    k2, vit = xn.normalized_xcorr_dense, convcode.viterbi_decode
+    out = {}
+    for tag, x, frames, loaded, want_digest in (
+            ("ofdm_adaptive_b8", x_a, frames_a, False, ADAPTIVE_DIGEST),
+            ("ofdm_adaptive_loaded_b8", x_l, frames_l, True, ADAPTIVE_LOADED_DIGEST)):
+        phy = adaptive_phy(adaptive, loaded, dev)
+        got_f, got, wall = count_launches(torch, (k2, vit), lambda: phy.decode_equal_frames(
+            x, ADAPTIVE_FRAMES, ADAPTIVE_PAYLOAD))
+        require(got == {k2.__name__: 1, vit.__name__: 2},
+                f"{tag}: launches {got}, expected one of normalized_xcorr and two of viterbi")
+        out[tag] = got
+        want = [(f.sequence, f.data) for f in frames]
+        for r, row in enumerate(got_f):
+            require([(f.sequence, f.data) for f in row] == want,
+                     f"{tag}: capture {r} gave {len(row)} of {len(want)} frames")
+        starts, bits = phy.batched_decode_fn(ADAPTIVE_FRAMES, ADAPTIVE_PAYLOAD)(x)
+        dg = ofdm_digest(starts.cpu().numpy(), bits.cpu().numpy())
+        require(dg == want_digest, f"{tag}: decisions digest {dg}, the JAX package's {want_digest}")
+        lv = phy.cfg.resolved_loading()
+        classes = {k: int((lv == k).sum()) for k in (1, 2, 4, 6) if (lv == k).any()}
+        log(f"phase 2 ({tag}): decode_equal_frames of {x.shape[0]} x {x.shape[1]} took "
+            f"{wall * 1e3:.1f} ms (first call); loading {phy.cfg.bits_per_symbol} bits a symbol, "
+            f"bins a class {classes}; every capture gave its {len(want)} frames in order; "
+            f"launches {got}; decisions digest {dg} = the JAX package's")
+
+    def first_start(cfg, rx):
+        return int(ofdm.find_preambles(cfg, torch.from_numpy(rx).to(dev), 1)[0])
+
+    with Recorder(adaptive.OfdmAdaptiveStreamPhy, "_starts", lambda phy, pj: pj) as rec:
+        res, got, wall = count_launches(torch, (k2, vit),
+                                        lambda: retrain_run(adaptive, first_start, device=dev))
+    require(res == RETRAIN_EXPECT, f"the retrain run gave {res}, the JAX package's "
+            f"{RETRAIN_EXPECT}")
+    require(all(n > 0 for n in got.values()), f"the retrain run launches {got}")
+    out["retrain"] = got
+    log(f"phase 2 (retrain): the live retrain took {wall * 1e3:.1f} ms; loading "
+        f"{res['bits0']} -> {res['bits1']} bits a symbol, pre-FEC BER calm {res['calm'][1]:.4f}, "
+        f"tripped {res['tripped'][1]:.4f}, after {max(res['prefec2']):.4f}; control frames "
+        f"{res['control']}; every frame delivered before and after; launches {got}; the result "
+        "equals RETRAIN_EXPECT, the JAX package's")
+    frames, caps = sc
+    payloads = [f.data for f in frames]
+    for name, (cfg, wave) in caps.items():
+        modem = fsk.FskModem(cfg, device=dev) if name == "fsk" else psk.PskModem(cfg, device=dev)
+        got_f, got, wall = count_launches(torch, (k2,), lambda: modem.decode(
+            wave, 7 + SC_PAYLOAD, max_frames=SC_FRAMES))
+        require(got == {k2.__name__: 1}, f"the {name} modem launches {got}")
+        require([f.data for f in got_f] == payloads,
+                f"the {name} modem gave {len(got_f)} of {SC_FRAMES} payloads")
+        out[f"{name} modem"] = got
+        log(f"phase 2 ({name} modem): decode of {len(wave)} samples ({SC_FRAMES} frames of "
+            f"{SC_PAYLOAD} B, noise sigma {SC_NOISE}) took {wall * 1e3:.1f} ms (first call); "
+            f"every payload; launches {got}")
+    return out, rec.kept
+
+
+def time_adaptive_paths(torch, adaptive, convcode, ofdm, x, buckets, card) -> None:
+    """Phase 4 on ofdm_adaptive_b8: the batched decode end to end (median of
+    RUNS, and its real-time multiple) and through decode_equal_frames, its
+    steps (the correlation, the walk, the soft demap, the deinterleave, the
+    two Viterbi launches, each also as device time from a CUDA graph), its
+    peak memory and busy share, and one OfdmAdaptiveStreamPhy.process_samples
+    call on the largest bucket its MAC run decoded."""
+    from trackmaker_tpu_torch.sync import walk_starts
+
+    phy = adaptive_phy(adaptive, False, x.device)
+    cfg = phy.cfg
+    fn = phy.batched_decode_fn(ADAPTIVE_FRAMES, ADAPTIVE_PAYLOAD)
+    e2e = time_ms(torch, lambda: fn(x))
+    seconds = x.numel() / cfg.sample_rate
+    log(f"phase 4: ofdm_adaptive_b8 batched decode {x.shape[0]} x {x.shape[1]}: {e2e:.4f} ms, "
+        f"{seconds / (e2e / 1e3):.1f}x real time [{card}]")
+    full = time_ms(torch, lambda: phy.decode_equal_frames(x, ADAPTIVE_FRAMES, ADAPTIVE_PAYLOAD))
+    log(f"phase 4: ofdm_adaptive_b8 decode_equal_frames (with the host's frame parse): "
+        f"{full:.4f} ms, {seconds / (full / 1e3):.1f}x real time [{card}]")
+    corr = ofdm.preamble_corr(cfg, x)
+    starts = ofdm.find_preambles(cfg, x, ADAPTIVE_FRAMES)
+    total = phy._coded_bits(ADAPTIVE_PAYLOAD)
+    soft = adaptive.soft_demodulate_at_adaptive(cfg, x, total, starts.clamp(min=0))
+    hdr, pay = adaptive_blocks(torch, ofdm, phy, x)
+    n_pay = 8 * ADAPTIVE_PAYLOAD
+    steps = {
+        "sync: the chirp correlation (#2)": lambda: ofdm.preamble_corr(cfg, x),
+        f"sync: the walk ({ADAPTIVE_FRAMES} steps)": lambda: walk_starts(
+            corr, cfg.sync_threshold, ADAPTIVE_FRAMES, cfg.preamble_len, cfg.preamble_len),
+        "soft demap": lambda: adaptive.soft_demodulate_at_adaptive(cfg, x, total,
+                                                                   starts.clamp(min=0)),
+        "deinterleave": lambda: (phy._deinterleave(soft[..., :phy.HDR_CODED]),
+                                 phy._deinterleave(soft[..., phy.HDR_CODED:total])),
+        f"viterbi headers ({hdr.shape[0]} rows, 62 steps)": lambda: convcode.viterbi_decode(
+            hdr, phy.HDR_BITS, True),
+        f"viterbi payloads ({pay.shape[0]} rows, {n_pay + 6} steps)":
+            lambda: convcode.viterbi_decode(pay, n_pay, True),
+    }
+    for step, f in steps.items():
+        extra = ""
+        if step.startswith("viterbi"):
+            extra = f", device {graph_ms(torch, f):.5f} ms a launch (graph of {GRAPH_LAUNCHES})"
+        log(f"phase 4: ofdm_adaptive_b8 step {step}: {time_ms(torch, f):.4f} ms{extra} [{card}]")
+    busy = busy_share(torch, lambda: fn(x))
+    log(f"phase 4: ofdm_adaptive_b8 peak device memory {peak_memory(torch, lambda: fn(x))}, "
+        "device busy " + ("not measured" if busy is None else f"{busy:.3f}")
+        + f" of a call [{card}]")
+    stream = adaptive.OfdmAdaptiveStreamPhy(loading=MAC_RUNS[
+        "csma_transfer, ofdm_adaptive"][2]["loading"], local_addr=2, device=x.device)
+    bucket = max(buckets, key=lambda bkt: bkt.shape[0]).cpu().numpy()
+
+    def stream_call():
+        stream.reset()
+        return stream.process_samples(bucket)
+
+    got = stream_call()
+    log(f"phase 4: OfdmAdaptiveStreamPhy.process_samples of a {len(bucket)}-sample bucket (the "
+        f"adaptive MAC run's largest; {len(got)} frames): {time_ms(torch, stream_call):.4f} ms "
+        f"[{card}]")
 
 
 def check_stream_fallbacks(torch, phy_decoder, stream_mod, cfg, crowded, dev) -> None:
@@ -3432,7 +3813,8 @@ def main() -> None:
     from trackmaker_tpu_torch.link import gbn, sr, transfer
     from trackmaker_tpu_torch.link import stream as lstream
     from trackmaker_tpu_torch.parallel import stream
-    from trackmaker_tpu_torch.phy import ask, ask_spec, coded, ofdm, ofdm_v2
+    from trackmaker_tpu_torch.phy import (
+        ask, ask_spec, coded, fsk, ofdm, ofdm_adaptive, ofdm_v2, psk, stream_sc)
     from trackmaker_tpu_torch.phy import spec_decode as sd
     from trackmaker_tpu_torch.phy.decoder import (
         PhyDecoder, decode_capture, decode_capture_fast, decode_captures)
@@ -3494,9 +3876,14 @@ def main() -> None:
         Frame.new_data(i, 1, LOCAL_ADDR, p)).cpu().numpy(), np.random.default_rng(args.seed + 29))
     mac_link = {"csma": transfer.transfer_over_bus, "gbn": gbn.gbn_transfer,
                 "sr": sr.sr_transfer, "ofdm_v2": ofdm_v2.OfdmStreamPhyV2,
-                "coded_manchester": coded.CodedManchesterPhy}
+                "coded_manchester": coded.CodedManchesterPhy,
+                "ofdm_adaptive": ofdm_adaptive.OfdmAdaptiveStreamPhy,
+                "psk": stream_sc.PskStreamPhy, "fsk": stream_sc.FskStreamPhy}
     streams = {"ofdm_v2": (ofdm.OfdmStreamPhy, "_starts"),
-               "coded_manchester": (coded._CodedPhyBase, "_correlate")}
+               "coded_manchester": (coded._CodedPhyBase, "_correlate"),
+               "ofdm_adaptive": (ofdm_adaptive.OfdmAdaptiveStreamPhy, "_starts"),
+               "psk": (stream_sc._SingleCarrierStreamPhy, "_starts"),
+               "fsk": (stream_sc._SingleCarrierStreamPhy, "_starts")}
     frames_o, caps_o = ofdm_input()
     _, caps_o1 = ofdm_input(v1=True)
     x_o, x_o1 = torch.from_numpy(caps_o).to(dev), torch.from_numpy(caps_o1).to(dev)
@@ -3504,6 +3891,10 @@ def main() -> None:
     frames_c4, caps_c4 = coded4_input()
     x_c, x_c4 = torch.from_numpy(caps_c).to(dev), torch.from_numpy(caps_c4).to(dev)
     coded_phy = coded.CodedManchesterPhy(cfg, local_addr=LOCAL_ADDR, device=dev)
+    frames_ad, caps_ad = adaptive_input()
+    frames_al, caps_al = adaptive_input(loaded=True)
+    x_a, x_al = torch.from_numpy(caps_ad).to(dev), torch.from_numpy(caps_al).to(dev)
+    sc_in = sc_input()
     log(f"flagship input: {b} x {t} samples; fourb5b_b32 input: {b} x {t4} samples; "
         f"equalized_b32 input: {b} x {xe.shape[1]} samples; {N_FRAMES} frames per capture; "
         f"ask_b16 input: {xa.shape[0]} x {xa.shape[1]} samples, {ASK_FRAMES} frames per capture; "
@@ -3516,7 +3907,11 @@ def main() -> None:
         f"{x_o.shape[0]} x {x_o.shape[1]} samples, {OFDM_FRAMES} frames per capture (v1: "
         f"{x_o1.shape[0]} x {x_o1.shape[1]}); coded_manchester_b8 input: {x_c.shape[0]} x "
         f"{x_c.shape[1]} samples, {CODED_FRAMES} frames per capture; coded 4B5B rate-3/4 input: "
-        f"{x_c4.shape[0]} x {x_c4.shape[1]} samples, {CODED4_FRAMES} frames per capture")
+        f"{x_c4.shape[0]} x {x_c4.shape[1]} samples, {CODED4_FRAMES} frames per capture; "
+        f"ofdm_adaptive_b8 input: {x_a.shape[0]} x {x_a.shape[1]} samples, {ADAPTIVE_FRAMES} "
+        f"frames per capture (loaded: {x_al.shape[0]} x {x_al.shape[1]}); single-carrier "
+        f"inputs: {', '.join(f'{k} {len(w)}' for k, (_, w) in sc_in[1].items())} samples, "
+        f"{SC_FRAMES} frames each")
     pre, pre4 = preamble_waveform(cfg), preamble_waveform(cfg4)
     sync = pre[cfg.preamble_len - cfg.sync_len:]
     sync4 = pre4[cfg4.preamble_len - cfg4.sync_len:]
@@ -3638,13 +4033,20 @@ def main() -> None:
                                  check_rowstats(torch, xn, xcorr_hits, xa, chirp, "ask_b16"))
     errs["normalized_xcorr"] = max(
         check_dense(torch, xn, xcorr_hits, xa, chirp, xe, pre),
-        check_ofdm_corr(torch, xn, ofdm, [(x_o, OFDM_FRAMES), (x_o1, OFDM_FRAMES)],
-                        "ofdm_v2_b32 and v1 captures"))
+        check_ofdm_corr(torch, xn, ofdm, [(x_o, OFDM_FRAMES), (x_o1, OFDM_FRAMES),
+                                          (x_a, ADAPTIVE_FRAMES), (x_al, ADAPTIVE_FRAMES)],
+                        "ofdm_v2_b32, v1, ofdm_adaptive_b8 and ofdm_adaptive_loaded_b8 captures"))
     for k_name, v in check_robustness_kernels(torch, sd, xn, channel, timing, equalizer, ber,
                                               xcorr_hits, xcorr_hits_plain, cfg, robust_in,
                                               dev).items():
         errs[k_name] = max(errs.get(k_name, 0), v)
-    errs["viterbi"] = check_viterbi(torch, convcode, coded_phy, x_c, dev)
+    adaptive_rows = []
+    for tag, xx, loaded in (("ofdm_adaptive_b8", x_a, False),
+                            ("ofdm_adaptive_loaded_b8", x_al, True)):
+        hdr_a, pay_a = adaptive_blocks(torch, ofdm, adaptive_phy(ofdm_adaptive, loaded, dev), xx)
+        adaptive_rows += [(f"{tag} headers", hdr_a, 56),
+                          (f"{tag} payloads", pay_a, 8 * ADAPTIVE_PAYLOAD)]
+    errs["viterbi"] = check_viterbi(torch, convcode, coded_phy, x_c, dev, adaptive_rows)
 
 
     # --- phase 2: the main paths -----------------------------------------------
@@ -3719,9 +4121,16 @@ def main() -> None:
                                      frames_c4, frames_o, dev)
     ofdm_launches["OfdmModem(fec='conv').decode"] = coded_launches.pop("normalized_xcorr_dense")
     launches["normalized_xcorr"] += sum(ofdm_launches.values())
-    for k_name, n in coded_launches.items():
-        k_name = KERNEL_NAMES.get(k_name, k_name)
-        launches[k_name] = launches.get(k_name, 0) + n
+    adaptive_runs, retrain_buckets = run_adaptive_paths(
+        torch, ofdm_adaptive, fsk, psk, ofdm, xn, convcode, x_a, frames_ad, x_al, frames_al,
+        sc_in, dev)
+    adaptive_launches = {}
+    for got in (coded_launches, *adaptive_runs.values()):
+        for k_name, n in got.items():
+            k_name = KERNEL_NAMES.get(k_name, k_name)
+            launches[k_name] = launches.get(k_name, 0) + n
+            if got is not coded_launches:
+                adaptive_launches[k_name] = adaptive_launches.get(k_name, 0) + n
     blocked = {}
     for tag, c, xx, fr, st, n_blocks, fold in (
             ("blocked_600s", cfg, xb, frames_b, starts_b, BLOCKED_BLOCKS, False),
@@ -3793,15 +4202,19 @@ def main() -> None:
         for name, opts in runs.items():
             opts = opts[2] if runs is MAC_RUNS else opts
             if "phy" in opts:
-                (ofdm_buckets if opts["phy"] == "ofdm_v2" else coded_buckets).extend(run_in[name])
+                (coded_buckets if opts["phy"].startswith("coded") else ofdm_buckets).extend(
+                    run_in[name])
                 continue
             c = cfg4 if opts.get("line_coding") == "4b5b" else cfg
             err = max(err, check_recorded(torch, sd, xcorr_hits, xcorr_hits_plain, c,
                                           run_in[name], f"{name} decode buffers"))
     errs["xcorr_hits"] = max(errs["xcorr_hits"], err)
+    adaptive_buckets = mac_in["csma_transfer, ofdm_adaptive"]
+    ofdm_buckets += retrain_buckets
     errs["normalized_xcorr"] = max(errs["normalized_xcorr"], check_ofdm_corr(
         torch, xn, ofdm, bucket_batches(torch, ofdm_buckets),
-        f"{len(ofdm_buckets)} buckets the OFDM runs decoded"))
+        f"{len(ofdm_buckets)} buckets the OFDM, adaptive OFDM, PSK and FSK runs and the retrain "
+        "decoded"))
     errs["xcorr_hits"] = max(errs["xcorr_hits"], check_coded_corr(
         torch, xcorr_hits_plain, coded_phy.pre, coded_buckets,
         "buckets the coded MAC run correlated"))
@@ -3925,6 +4338,17 @@ def main() -> None:
         "bound": bound(x_o.numel() * 4 + x_o.shape[0] * n_lags_o * 4,
                        x_o.shape[0] * n_lags_o * 4 * len(ochirp)),
     }
+    # and at ofdm_adaptive_b8's shape
+    n_lags_ad = x_a.shape[1] - len(ochirp) + 1
+    adaptive_xc = {
+        "ms": time_ms(torch, lambda: xn.normalized_xcorr_dense(x_a, ochirp, ope)),
+        "plain_ms": time_ms(torch, lambda: xn.normalized_xcorr_dense_plain(x_a, ochirp, ope)),
+        "library_ms": time_ms(torch, lambda: (
+            torch.nn.functional.conv1d(x_a[:, None], chirp_w),
+            torch.nn.functional.conv1d(x_a[:, None] * x_a[:, None], ones_w))),
+        "bound": bound(x_a.numel() * 4 + x_a.shape[0] * n_lags_ad * 4,
+                       x_a.shape[0] * n_lags_ad * 4 * len(ochirp)),
+    }
     conv30_ms = time_ms(torch, lambda: conv_dot(demod_in, 30))
 
     # least times, from the shapes and this run's candidates
@@ -4004,6 +4428,11 @@ def main() -> None:
         f"L=440): kernel {ofdm_xc['ms']:.4f} ms, plain {ofdm_xc['plain_ms']:.4f} ms, conv1d dot + "
         f"conv1d energy {ofdm_xc['library_ms']:.4f} ms, bound {ofdm_xc['bound'][0]:.4f} ms "
         f"({ofdm_xc['bound'][1]}) [{card}]")
+    log(f"phase 4: normalized_xcorr at the ofdm_adaptive_b8 shape ({x_a.shape[0]} x "
+        f"{x_a.shape[1]}, L=440): kernel {adaptive_xc['ms']:.4f} ms, plain "
+        f"{adaptive_xc['plain_ms']:.4f} ms, conv1d dot + conv1d energy "
+        f"{adaptive_xc['library_ms']:.4f} ms, bound {adaptive_xc['bound'][0]:.4f} ms "
+        f"({adaptive_xc['bound'][1]}) [{card}]")
     log(f"phase 4: sliding_dot at L=440 vs conv1d: {library_ms['sliding_dot']:.4f} ms "
         f"(max |conv1d - kernel| {conv_err:.3g}); at L=30 ({demod_in.shape[0]} x "
         f"{demod_in.shape[1]}): kernel {sd30_ms:.4f} ms, plain {sd30_plain_ms:.4f} ms, conv1d "
@@ -4237,7 +4666,11 @@ def main() -> None:
         "normalized_xcorr ask_b16 (L=440)": (
             (xn.normalized_xcorr_dense, None, (xa, chirp)), "normalized_xcorr_kernel",
             ms["normalized_xcorr"], bounds["normalized_xcorr"],
-            launches["normalized_xcorr"] - sum(ofdm_launches.values()) - ofdm_stream_launches),
+            launches["normalized_xcorr"] - sum(ofdm_launches.values()) - ofdm_stream_launches
+            - adaptive_launches["normalized_xcorr"]),
+        "normalized_xcorr ofdm_adaptive_b8 (L=440)": (
+            (xn.normalized_xcorr_dense, None, (x_a, ochirp, ope)), "normalized_xcorr_kernel",
+            adaptive_xc["ms"], adaptive_xc["bound"], adaptive_launches["normalized_xcorr"]),
         "normalized_xcorr ofdm_v2_b32 (L=440)": (
             (xn.normalized_xcorr_dense, None, (x_o, ochirp, ope)), "normalized_xcorr_kernel",
             ofdm_xc["ms"], ofdm_xc["bound"], sum(ofdm_launches.values()) + ofdm_stream_launches),
@@ -4484,6 +4917,7 @@ def main() -> None:
                       dev)
     time_ofdm_paths(torch, ofdm, ofdm_v2, x_o, ofdm_buckets, card, dev)
     vit = time_coded_paths(torch, coded, convcode, coded_phy, x_c, coded_buckets, card)
+    time_adaptive_paths(torch, ofdm_adaptive, convcode, ofdm, x_a, adaptive_buckets, card)
     ms["viterbi"], plain_ms["viterbi"], bounds["viterbi"] = vit["ms"], vit["plain_ms"], vit["bound"]
     log(f"phase 4: viterbi: {launches['viterbi']} launches on the paths, launches x (device - "
         f"bound) at the payload shape {launches['viterbi'] * (vit['device'] - vit['bound'][0]):.4f}"

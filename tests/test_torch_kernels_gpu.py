@@ -57,7 +57,7 @@ from trackmaker_tpu_torch.core import convcode
 from trackmaker_tpu_torch.dsp import channel, equalizer, timing
 from trackmaker_tpu_torch.dsp.osc import chirp_np
 from trackmaker_tpu_torch.parallel.stream import spec_block
-from trackmaker_tpu_torch.phy import ask, ask_spec, ofdm, ofdm_v2
+from trackmaker_tpu_torch.phy import ask, ask_spec, ofdm, ofdm_adaptive, ofdm_v2
 from trackmaker_tpu_torch.phy import spec_decode as sd
 from trackmaker_tpu_torch.phy.decoder import decode_capture, decode_capture_fast
 from trackmaker_tpu_torch.phy.encoder import PhyEncoder
@@ -108,6 +108,7 @@ from test_torch_ask_walk_4b5b_design import (
 from test_torch_channel_timing import GATE_CORPORA, gate_corpus, hit_vectors, skewed_capture
 from test_torch_coded import KINDS as CODED_KINDS
 from test_torch_coded import batch_corpus, port_phy
+from test_torch_ofdm_adaptive import batch_corpus as adaptive_corpus
 from test_torch_convcode import viterbi_corpora
 from test_torch_equalizer_dd import CORPORA as DD_CORPORA
 from test_torch_probe_offset_design import (
@@ -1955,6 +1956,39 @@ def test_viterbi_and_coded_decode_copy_nothing_to_the_card(cuda):
     assert not card.work, card.work
     assert not csrc_copies("viterbi")
     assert (CSRC / "viterbi.cu").read_text().count("<<<") == 1    # one launch a call
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loaded", [False, True])
+def test_adaptive_batch_decode_launches_and_copies_nothing_to_the_card(cuda, loaded):
+    """A batched adaptive OFDM decode of captures on the card launches the
+    normalized correlation kernel once and the Viterbi kernel twice
+    (headers, then payloads), copies nothing to the card (its tables copied
+    once a process, at the first call), and equals the CPU's decode."""
+    loading = tuple(int(v) for v in np.random.default_rng(3).choice(
+        [1, 2, 4, 6], size=74, p=[0.2, 0.4, 0.3, 0.1])) if loaded else None
+    frames, batch = adaptive_corpus()
+    if loaded:
+        phy = ofdm_adaptive.OfdmAdaptiveStreamPhy(loading=loading, local_addr=2, device="cpu")
+        wave = phy.encode_frames(frames, gap_samples=333)
+        z = np.zeros(150, np.float32)
+        batch = np.stack([np.concatenate([wave, z]), np.concatenate([z, wave])])
+        batch += np.random.default_rng(5).normal(0, 0.002, batch.shape).astype(np.float32)
+    phy = ofdm_adaptive.OfdmAdaptiveStreamPhy(loading=loading, local_addr=2, device=cuda)
+    x = torch.from_numpy(batch.astype(np.float32)).to(cuda)
+    first = phy.decode_equal_frames(x, 4, 48)
+    torch.cuda.synchronize()
+    before = launches_of(convcode.viterbi_decode, normalized_xcorr_dense)
+    with CardWork() as card:
+        got = phy.decode_equal_frames(x, 4, 48)
+    torch.cuda.synchronize()
+    assert launches_of(convcode.viterbi_decode, normalized_xcorr_dense) == [before[0] + 2,
+                                                                            before[1] + 1]
+    assert not card.h2d, card.h2d
+    assert got == first == [frames, frames]
+    cpu = ofdm_adaptive.OfdmAdaptiveStreamPhy(loading=loading, local_addr=2, device="cpu")
+    want = cpu.batched_decode_fn(4, 48)(torch.from_numpy(batch.astype(np.float32)))
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(phy.batched_decode_fn(4, 48)(x), want))
 
 
 @pytest.mark.gpu

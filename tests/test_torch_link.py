@@ -27,12 +27,14 @@ from trackmaker_tpu_torch.core.config import FOUR_B_FIVE_B, MacConfig, PhyConfig
 from trackmaker_tpu_torch.core.framing import Frame
 from trackmaker_tpu_torch.link import AppState, AudioEndpoint, SimulatedBus, is_channel_busy
 from trackmaker_tpu_torch.link import gbn, sr, transfer
-from trackmaker_tpu_torch.phy import coded, ofdm, ofdm_v2
+from trackmaker_tpu_torch.phy import coded, ofdm, ofdm_adaptive, ofdm_v2, stream_sc
 
 # the transfers, and the stream PHYs that replace the line-coded one
 PORT_LINK = {"csma": transfer.transfer_over_bus, "gbn": gbn.gbn_transfer,
              "sr": sr.sr_transfer, "ofdm": ofdm.OfdmStreamPhy,
-             "ofdm_v2": ofdm_v2.OfdmStreamPhyV2, "coded_manchester": coded.CodedManchesterPhy}
+             "ofdm_v2": ofdm_v2.OfdmStreamPhyV2, "coded_manchester": coded.CodedManchesterPhy,
+             "ofdm_adaptive": ofdm_adaptive.OfdmAdaptiveStreamPhy,
+             "psk": stream_sc.PskStreamPhy, "fsk": stream_sc.FskStreamPhy}
 OFDM = ("ofdm", "ofdm_v2")
 # (ARQ, line code or OFDM PHY, noise sigma): a few frames each; sigma 0.12
 # at seed 5 is tests/test_link.py's noisy channel
@@ -58,11 +60,14 @@ def _jax_link():
     from trackmaker_tpu.link.transfer import transfer_over_bus
     from trackmaker_tpu.phy.coded import CodedManchesterPhy
     from trackmaker_tpu.phy.ofdm import OfdmStreamPhy
+    from trackmaker_tpu.phy.ofdm_adaptive import OfdmAdaptiveStreamPhy
     from trackmaker_tpu.phy.ofdm_v2 import OfdmStreamPhyV2
+    from trackmaker_tpu.phy.stream_sc import FskStreamPhy, PskStreamPhy
 
     return {"csma": transfer_over_bus, "gbn": gbn_transfer, "sr": sr_transfer,
             "ofdm": OfdmStreamPhy, "ofdm_v2": OfdmStreamPhyV2,
-            "coded_manchester": CodedManchesterPhy}
+            "coded_manchester": CodedManchesterPhy, "ofdm_adaptive": OfdmAdaptiveStreamPhy,
+            "psk": PskStreamPhy, "fsk": FskStreamPhy}
 
 
 def _jax_configs():

@@ -19,8 +19,11 @@ fragmentation, ARP, NAT, Ethernet, DNS and conntrack codecs and tables,
 the router with its ports, the TUN bridge and the ping and IP-host tools
 (``net.tools.run_ping_simulation``, a full PHY+MAC+NET round trip).  The
 OFDM modems (``phy.ofdm`` v1, ``phy.ofdm_v2`` with Schmidl-Cox timing and
-pilot tracking) sync on the normalized correlation kernel and plug under
-the same MAC and network layer as stream PHYs.
+pilot tracking, ``phy.ofdm_adaptive`` with per-bin bit-loading, a
+rate-1/2 code decoded by the Viterbi kernel, the probe, handshake and
+retrain) and the single-carrier modems (``phy.fsk``, ``phy.psk``, their
+stream PHYs in ``phy.stream_sc``) sync on the normalized correlation
+kernel and plug under the same MAC and network layer as stream PHYs.
 Importing the package touches no device and builds nothing.
 
 On the CPU, ``tests/test_torch_*.py`` hold each module against the JAX
@@ -30,14 +33,18 @@ package (``tests/test_torch_channel_timing.py`` and
 its streaming receive path and link layer, ``tests/test_torch_net.py``,
 ``tests/test_torch_ping.py`` and ``tests/test_torch_router.py`` its network
 layer, ``tests/test_torch_ofdm.py`` and ``tests/test_torch_ofdm_v2.py`` its
-OFDM modems); on a card, ``python3
+OFDM modems, ``tests/test_torch_ofdm_adaptive.py``,
+``tests/test_torch_ofdm_adaptive_mac.py`` and ``tests/test_torch_fsk_psk.py``
+adaptive OFDM and the single-carrier modems); on a card, ``python3
 chip_smoke.py`` runs every path, its ``phase 2 (clock_search)``,
 ``(timing_gate)``, ``(timing_gate, flagship gaps)``, ``(decode_dd)`` and
 ``(sweeps)`` lines the robustness ones, ``phase 2 (stream_latency)`` and
 the ``phase 2 (csma_transfer ...)``, ``(gbn_transfer ...)`` and
 ``(sr_transfer ...)`` lines the streaming path and the MAC, the ``phase 2
 (ping ...)`` and ``(router)`` lines the network layer, ``phase 2
-(ofdm_v2_b32)`` the OFDM modems.
+(ofdm_v2_b32)`` the OFDM modems, ``phase 2 (ofdm_adaptive_b8)``,
+``(retrain)`` and ``(fsk modem)`` adaptive OFDM and the single-carrier
+modems.
 
     trackmaker_tpu_torch.core   PhyConfig, MacConfig, NetConfig, bit ops, CRC8, frame codec,
                                 first-set queries, Hamming(7,4) and the interleaver
@@ -50,7 +57,8 @@ the ``phase 2 (csma_transfer ...)``, ``(gbn_transfer ...)`` and
                                 correlation, row-stats and sliding-dot kernels
     trackmaker_tpu_torch.phy    line code, encoder, exact and speculative decode,
                                 the streaming PhyDecoder; the ASK modem and its
-                                speculative receiver; the OFDM modems v1 and v2
+                                speculative receiver; the OFDM modems v1, v2 and
+                                adaptive; the FSK and PSK modems
     trackmaker_tpu_torch.link   the streaming decode pipeline, the simulated
                                 bus and endpoints, the CSMA, Go-Back-N and
                                 Selective-Repeat nodes and transfers, the

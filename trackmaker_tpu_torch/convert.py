@@ -2,9 +2,11 @@
 
 The system has no weights: its state is the ``PhyConfig`` of the line-coded
 PHY, the ``MacConfig`` of the link layer, the ``NetConfig`` of the network
-layer, the ``AskConfig`` of the ASK modem and the ``OfdmConfig`` and
-``OfdmV2Config`` of the OFDM modems (the pattern and pilot tables follow
-from them).  These helpers take plain Python and numpy values, so neither
+layer, the ``AskConfig`` of the ASK modem, the ``OfdmConfig``,
+``OfdmV2Config`` and ``OfdmAdaptiveConfig`` of the OFDM modems (an
+adaptive config carries its loading and gains) and the ``FskConfig`` and
+``PskConfig`` of the single-carrier modems (the pattern and pilot tables
+follow from them).  These helpers take plain Python and numpy values, so neither
 side imports the other.
 """
 
@@ -18,8 +20,11 @@ import numpy as np
 from trackmaker_tpu_torch.core.config import MacConfig, NetConfig, PhyConfig
 from trackmaker_tpu_torch.phy.ask import AskConfig
 from trackmaker_tpu_torch.phy.decoder import DecodedFrames
+from trackmaker_tpu_torch.phy.fsk import FskConfig
 from trackmaker_tpu_torch.phy.ofdm import OfdmConfig
+from trackmaker_tpu_torch.phy.ofdm_adaptive import OfdmAdaptiveConfig
 from trackmaker_tpu_torch.phy.ofdm_v2 import OfdmV2Config
+from trackmaker_tpu_torch.phy.psk import PskConfig
 
 
 def _config_from_fields(cls, fields: Mapping):
@@ -64,6 +69,29 @@ def ofdm_v2_config_from_fields(fields: Mapping) -> OfdmV2Config:
     """The port's OfdmV2Config from ``dataclasses.asdict`` of the JAX one,
     or any mapping of the same fields; a field the port lacks raises."""
     return _config_from_fields(OfdmV2Config, fields)
+
+
+def ofdm_adaptive_config_from_fields(fields: Mapping) -> OfdmAdaptiveConfig:
+    """The port's OfdmAdaptiveConfig from ``dataclasses.asdict`` of the JAX
+    one, or any mapping of the same fields, its loading and gains as tuples
+    (the config stays hashable); a field the port lacks raises."""
+    fields = dict(fields)
+    for name in ("loading", "gains"):
+        if name in fields:
+            fields[name] = tuple(fields[name])
+    return _config_from_fields(OfdmAdaptiveConfig, fields)
+
+
+def fsk_config_from_fields(fields: Mapping) -> FskConfig:
+    """The port's FskConfig from ``dataclasses.asdict`` of the JAX one, or
+    any mapping of the same fields; a field the port lacks raises."""
+    return _config_from_fields(FskConfig, fields)
+
+
+def psk_config_from_fields(fields: Mapping) -> PskConfig:
+    """The port's PskConfig from ``dataclasses.asdict`` of the JAX one, or
+    any mapping of the same fields; a field the port lacks raises."""
+    return _config_from_fields(PskConfig, fields)
 
 
 def frames_to_numpy(frames: DecodedFrames) -> dict[str, np.ndarray]:

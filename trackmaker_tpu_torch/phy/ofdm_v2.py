@@ -164,6 +164,28 @@ def _expj(phase: torch.Tensor) -> torch.Tensor:
     return torch.polar(torch.ones_like(phase), phase)
 
 
+def smoothed_channel(cfg: OfdmV2Config, pilot_spec: torch.Tensor) -> torch.Tensor:
+    """The smoothed channel estimate complex64[..., n_bins] from the SC
+    pilot symbol's spectrum: the even bins' estimates, each odd bin the mean
+    of its neighbours, the moving average, and bins of |h| < 1e-9 set to 1."""
+    dev = pilot_spec.device
+    sc_tx = const(_sc_pilot(cfg), dev)
+    h_raw = cdiv(pilot_spec * sc_tx.conj(), (sc_tx.abs() ** 2).clamp(min=1e-12))
+    idx = torch.arange(cfg.n_bins, device=dev)
+    even = (idx + cfg.bin_lo) % 2 == 0
+    left = (idx - 1).clamp(0, cfg.n_bins - 1)
+    right = (idx + 1).clamp(0, cfg.n_bins - 1)
+    h_f = torch.where(even, h_raw, 0.5 * (h_raw[..., left] + h_raw[..., right]))
+    h = _smooth_complex(h_f, cfg.smooth_bins)
+    return torch.where(h.abs() < 1e-9, torch.ones_like(h), h)
+
+
+def equalize_one_tap(data_spec: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Data symbols complex[..., n_sym, n_bins] times conj(h) over |h|², a
+    tap a bin, for h complex[..., n_bins]."""
+    return cdiv(data_spec * h.conj()[..., None, :], (h.abs() ** 2).clamp(min=1e-12)[..., None, :])
+
+
 def symbols_v2(cfg: OfdmV2Config, rx: torch.Tensor, n_sym: int, starts,
                vsyms=None) -> torch.Tensor:
     """The equalized, de-rotated data symbols complex64[..., F, n_sym,
@@ -187,22 +209,8 @@ def equalize_track(cfg: OfdmV2Config, spec: torch.Tensor, vsyms=None) -> torch.T
     n_sym = spec.shape[-2] - 1
     pbins = const(cfg.pilot_bin_idx, dev)
     dbins = const(cfg.data_bin_idx, dev)
-    sc_tx = const(_sc_pilot(cfg), dev)
-
-    # smoothed channel estimate from the SC pilot (even bins): odd bins
-    # interpolated from their neighbours, then the moving average
-    h_raw = cdiv(spec[..., 0, :] * sc_tx.conj(), (sc_tx.abs() ** 2).clamp(min=1e-12))
-    idx = torch.arange(cfg.n_bins, device=dev)
-    even = (idx + cfg.bin_lo) % 2 == 0
-    left = (idx - 1).clamp(0, cfg.n_bins - 1)
-    right = (idx + 1).clamp(0, cfg.n_bins - 1)
-    h_f = torch.where(even, h_raw, 0.5 * (h_raw[..., left] + h_raw[..., right]))
-    h = _smooth_complex(h_f, cfg.smooth_bins)
-    h = torch.where(h.abs() < 1e-9, torch.ones_like(h), h)
-
-    # one-tap equalization of every data symbol
-    eq = cdiv(spec[..., 1:, :] * h.conj()[..., None, :],
-              (h.abs() ** 2).clamp(min=1e-12)[..., None, :])  # [..., n_sym, n_bins]
+    h = smoothed_channel(cfg, spec[..., 0, :])
+    eq = equalize_one_tap(spec[..., 1:, :], h)                # [..., n_sym, n_bins]
 
     # pilot tones, MRC-weighted by |H|^2: a line in the symbol index for the
     # common phase and for the phase slope across the band
