@@ -24,7 +24,11 @@ rate-1/2 code decoded by the Viterbi kernel, the probe, handshake and
 retrain) and the single-carrier modems (``phy.fsk``, ``phy.psk``, their
 stream PHYs in ``phy.stream_sc``) sync on the normalized correlation
 kernel and plug under the same MAC and network layer as stream PHYs.
-Importing the package touches no device and builds nothing.
+``python -m trackmaker_tpu_torch.cli`` is the command line, the JAX
+package's thirteen subcommands on the card (``--cpu`` for the CPU); its
+``decode`` takes many WAV or FLAC recordings and decodes each length
+bucket as one batch.  Importing the package touches no device and builds
+nothing, the host runtime's C++ included.
 
 On the CPU, ``tests/test_torch_*.py`` hold each module against the JAX
 package (``tests/test_torch_channel_timing.py`` and
@@ -35,7 +39,9 @@ its streaming receive path and link layer, ``tests/test_torch_net.py``,
 layer, ``tests/test_torch_ofdm.py`` and ``tests/test_torch_ofdm_v2.py`` its
 OFDM modems, ``tests/test_torch_ofdm_adaptive.py``,
 ``tests/test_torch_ofdm_adaptive_mac.py`` and ``tests/test_torch_fsk_psk.py``
-adaptive OFDM and the single-carrier modems); on a card, ``python3
+adaptive OFDM and the single-carrier modems, ``tests/test_torch_io.py``,
+``tests/test_torch_cli.py`` and ``tests/test_torch_bench_viz.py`` the audio
+files, the host runtime, the command line and the dashboards); on a card, ``python3
 chip_smoke.py`` runs every path, its ``phase 2 (clock_search)``,
 ``(timing_gate)``, ``(timing_gate, flagship gaps)``, ``(decode_dd)`` and
 ``(sweeps)`` lines the robustness ones, ``phase 2 (stream_latency)`` and
@@ -44,9 +50,10 @@ the ``phase 2 (csma_transfer ...)``, ``(gbn_transfer ...)`` and
 (ping ...)`` and ``(router)`` lines the network layer, ``phase 2
 (ofdm_v2_b32)`` the OFDM modems, ``phase 2 (ofdm_adaptive_b8)``,
 ``(retrain)`` and ``(fsk modem)`` adaptive OFDM and the single-carrier
-modems.
+modems, ``phase 2 (cli ...)`` the command line on WAV and FLAC files.
 
-    trackmaker_tpu_torch.core   PhyConfig, MacConfig, NetConfig, bit ops, CRC8, frame codec,
+    trackmaker_tpu_torch.core   PhyConfig, MacConfig, NetConfig, bit ops, CRC8, frame codec
+                                (host and batched),
                                 first-set queries, Hamming(7,4) and the interleaver
     trackmaker_tpu_torch.dsp    carrier and chirp synthesis, EMA power, the channel
                                 models (noise, gain, clock offset, delay, echo, mix),
@@ -65,10 +72,22 @@ modems.
                                 acoustic packet interface
     trackmaker_tpu_torch.net    IPv4, ICMP, fragmentation, ARP, NAT, Ethernet,
                                 DNS, conntrack, the router and its ports, the
-                                TUN bridge, the ping and IP-host tools
-    trackmaker_tpu_torch.utils  logging setup (``TM_LOG``)
+                                TUN bridge, the ping and IP-host tools, the
+                                router demo
+    trackmaker_tpu_torch.utils  logging setup (``TM_LOG``), progress bars, the
+                                text / bit-string converter
     trackmaker_tpu_torch.parallel  the blocked decode of one long capture
-    trackmaker_tpu_torch.bench  frame loss against noise and clock offset
+    trackmaker_tpu_torch.bench  frame loss against noise and clock offset, the
+                                contended MAC/PHY parameter sweep, the PNG
+                                (matplotlib) and self-contained HTML dashboards
+    trackmaker_tpu_torch.cli    the command line: test, tx, ping, decode, encode,
+                                ask-test, ofdm-test, ofdm-adapt, ber, sweep,
+                                viz, router and tun
+    trackmaker_tpu_torch.io     16-bit WAV, JSON dumps, FLAC through the runtime
+    trackmaker_tpu_torch.runtime  the native host runtime (C++ built with g++
+                                at first use): the FLAC decoder, CRC8, the
+                                frame codec, the energy detector, the sample
+                                ring, the segmenter, audio duplex
     trackmaker_tpu_torch.tools  the window health probe, the flagship stage
                                 profiler and the two-stream correlation
                                 experiment; each runs on the card as

@@ -2,8 +2,10 @@
 
 Byte layout: big-endian 2-byte payload length, CRC8 over the payload only,
 then type/seq/src/dst, then data: ``[Len:2][CRC8:1][Type:1][Seq:1][Src:1]
-[Dst:1][Data:N]``.  ``Frame`` is the host class; ``parse_header`` reads the
-header fields of a batch of decoded frame byte tensors.
+[Dst:1][Data:N]``.  ``Frame`` is the host class; the batched codec works on
+zero-padded ``uint8[B, 7+max_len]`` tensors with explicit per-frame lengths:
+``build_frame_bytes`` serializes a batch, ``parse_header`` reads the header
+fields and ``verify_frames`` adds the CRC check.
 """
 
 from __future__ import annotations
@@ -19,6 +21,16 @@ from trackmaker_tpu_torch.core.config import (
     FRAME_TYPE_DATA,
     PHY_HEADER_BYTES,
 )
+
+__all__ = [
+    "Frame",
+    "build_frame_bytes",
+    "parse_header",
+    "verify_frames",
+    "FRAME_TYPE_DATA",
+    "FRAME_TYPE_ACK",
+    "PHY_HEADER_BYTES",
+]
 
 
 @dataclass
@@ -95,3 +107,51 @@ def parse_header(frame_bytes: torch.Tensor) -> dict[str, torch.Tensor]:
         "dst": fb[..., 6],
         "type_valid": (ftype == FRAME_TYPE_DATA) | (ftype == FRAME_TYPE_ACK),
     }
+
+
+def build_frame_bytes(
+    payload: torch.Tensor,      # uint8[B, max_len] zero-padded payloads
+    length: torch.Tensor,       # int[B] true payload lengths
+    frame_type: torch.Tensor,   # int[B]
+    sequence: torch.Tensor,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+) -> torch.Tensor:
+    """Serialize a batch of frames -> uint8[B, 7+max_len] (zero-padded).
+
+    Bytes past 7+length are zero; callers carry `length` alongside.  The
+    header holds each field's low byte (the length's low 16 bits); a length
+    past max_len takes the CRC of the whole row.
+    """
+    payload = payload.to(torch.uint8)
+    max_len = payload.shape[-1]
+    length = length.to(torch.int32)
+    crc = bitops.crc8(payload, length.clamp(0, max_len))
+    col = torch.arange(max_len, dtype=torch.int32, device=payload.device)
+    masked = torch.where(col[None, :] < length[:, None], payload, 0)
+    hdr = torch.stack([
+        (length >> 8).to(torch.uint8),
+        (length & 0xFF).to(torch.uint8),
+        crc,
+        frame_type.to(torch.uint8),
+        sequence.to(torch.uint8),
+        src.to(torch.uint8),
+        dst.to(torch.uint8),
+    ], dim=-1)
+    return torch.cat([hdr, masked], dim=-1)
+
+
+def verify_frames(frame_bytes: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Header parse and CRC check of a batch of frame byte tensors
+    uint8[B, 7+max_len].
+
+    `crc_ok` holds where the CRC8 of payload[0:length] (the length clipped to
+    max_len) equals the header's and the type is valid; callers combine it
+    with their own length and destination checks.
+    """
+    hdr = parse_header(frame_bytes)
+    payload = frame_bytes[..., PHY_HEADER_BYTES:]
+    length = hdr["length"].clamp(0, payload.shape[-1])
+    crc = bitops.crc8(payload, length)
+    hdr["crc_ok"] = (crc.to(torch.int32) == hdr["crc"]) & hdr["type_valid"]
+    return hdr

@@ -1,6 +1,9 @@
-"""EMA power detector (counterpart of ``trackmaker_tpu/dsp/filters.py:ema_power``).
+"""FIR filtering, box smoothing, windowed-sinc taps and the EMA power
+detector (counterpart of ``trackmaker_tpu/dsp/filters.py``).
 
-The ASK receiver tracks ``p[i] = (1-α) p[i-1] + α x[i]²``.  As in the JAX
+``fir_filter`` follows XLA's convolution convention: the taps slide over
+the samples unflipped (a cross-correlation), in `same`, `valid` or `full`
+mode, one cuDNN convolution with TF32 off on the card.  The ASK receiver tracks ``p[i] = (1-α) p[i-1] + α x[i]²``.  As in the JAX
 package, the recurrence is blocked: inside each 512-sample block it is
 one product with a lower-triangular decay matrix, and only the block-end
 values chain from block to block.  Decisions hang on this product
@@ -11,6 +14,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from trackmaker_tpu_torch.sync.correlate import _conv_valid
 
 BLOCK = 512   # samples per block of the decay-matrix product
 
@@ -56,3 +61,53 @@ def ema_power(x: torch.Tensor, alpha: float = 1.0 / 64.0) -> torch.Tensor:
     tail = (1.0 - alpha) ** (torch.arange(BLOCK, dtype=torch.float32, device=dev) + 1.0)
     p = p_local + c_prev[..., None] * tail
     return p.reshape(*x.shape[:-1], nb * BLOCK)[..., :t]
+
+
+def fir_filter(x: torch.Tensor, taps, mode: str = "same") -> torch.Tensor:
+    """FIR filter along the last axis of x[..., T], the taps unflipped.
+    mode: 'same' | 'valid' | 'full'."""
+    taps = torch.as_tensor(taps, dtype=x.dtype, device=x.device)
+    l = taps.shape[0]
+    if mode == "same":
+        lo = (l - 1) // 2
+        xp = torch.nn.functional.pad(x, (lo, l - 1 - lo))
+    elif mode == "full":
+        xp = torch.nn.functional.pad(x, (l - 1, l - 1))
+    elif mode == "valid":
+        xp = x
+    else:
+        raise ValueError(mode)
+    return _conv_valid(xp, taps)
+
+
+def box_smooth_truncated(x: torch.Tensor, half: int = 5) -> torch.Tensor:
+    """Edge-truncated centered moving average: out[j] = mean of
+    x[max(0,j-half) : min(n, j+half+1)]."""
+    n = x.shape[-1]
+    w = 2 * half + 1
+    sums = fir_filter(x, torch.ones(w, dtype=x.dtype, device=x.device), mode="same")
+    idx = torch.arange(n, device=x.device)
+    counts = (idx + half + 1).clamp(max=n) - (idx - half).clamp(min=0)
+    return sums / counts.to(x.dtype)
+
+
+def sinc_lowpass_taps(num_taps: int, cutoff_hz: float, sample_rate: int,
+                      device: torch.device | str = "cuda") -> torch.Tensor:
+    """Hamming-windowed sinc low-pass f32[num_taps], in float32 as the JAX
+    package computes it, on `device`."""
+    m = num_taps - 1
+    k = torch.arange(num_taps, dtype=torch.float32, device=device)
+    n = k - m / 2.0
+    fc = 2.0 * cutoff_hz / sample_rate
+    h = torch.where(n == 0, fc, fc * torch.sinc(fc * n))
+    w = 0.54 - 0.46 * torch.cos(2.0 * np.pi * k / m)
+    taps = h * w
+    return taps / taps.sum()
+
+
+def bandpass_taps(num_taps: int, lo_hz: float, hi_hz: float, sample_rate: int,
+                  device: torch.device | str = "cuda") -> torch.Tensor:
+    """Windowed-sinc band-pass: the difference of two low-passes."""
+    lp_hi = sinc_lowpass_taps(num_taps, hi_hz, sample_rate, device)
+    lp_lo = sinc_lowpass_taps(num_taps, lo_hz, sample_rate, device)
+    return lp_hi - lp_lo
