@@ -260,6 +260,31 @@ Phases, each raising on failure (non-zero exit):
    --count 2`` and ``tx --arq sr`` of 512 B, each gated on its exit code and
    outcome line; the phase within CLI_BUDGET_S; after it, phase 1's
    check_path_batch of #1, #3 / #5 and #4 on the two decoded batches;
+   then the multi-device decode (``parallel/``, phase 2 (mesh)), each call
+   with #1, #3, #5, #4 and #2's counts set to 0 just before it, over
+   meshes of the card repeated (and over the distinct cards where
+   ``torch.cuda.device_count() > 1``): ``decode_blocked_sharded`` of
+   blocked_600s over MESH_SHARDS shards (every shard ok, one launch of #1
+   and of #3, one walk a fixpoint turn, the 48 frames equal to
+   ``decode_blocked_single_chip``'s) and its exact route; the seam
+   scenarios of tests/test_parallel_adversarial.py:119-164 in both line
+   codes over 8 shards, both routes, equal to SHARDED_EXPECT (the JAX
+   package's) with sequence 99 never decoded; ``batch_sharded_decode`` of
+   the flagship over dp = MESH_SHARDS, equal to ``decode_capture_fast``;
+   ``decode_ofdm_blocked_sharded`` of ofdm_v2_b32's frames and of the
+   loaded adaptive tiers laid end to end across the seams of MESH_SHARDS
+   shards (every payload in capture order, equal to the single-device
+   pass, #2 once); the optimistic batch (``optimistic_input``) through
+   ``decode_capture(optimistic=True)`` and ``decode_capture_fast``, equal
+   to OPTIMISTIC_EXPECT, its non-conformant rows equal to the exact scan;
+   ``tools.dryrun_multichip`` over 8 shards of the card (the four checks of
+   ``__graft_entry__.py``'s dry run); then phase 1 on these inputs (#1,
+   #3 / #5 and #4 on the shards' windows at their valid lengths and the
+   walk at every fixpoint turn's cursors, #1 on the optimistic batch, #2
+   on the OFDM windows); last in the run,
+   after the profiler's sessions, MP_PROCS processes of
+   ``tools/multihost_dryrun.py`` on the card over gloo, MP_ROWS flagship
+   rows each, within MP_TIMEOUT_S;
 3. the fallbacks: a Manchester capture that overflows the candidate table,
    a 4B5B capture with a zeroed level inside an attempted frame, and an
    ASK capture of 150 back-to-back chirps before three frames (more fire
@@ -345,16 +370,22 @@ Phases, each raising on failure (non-zero exit):
    from a CUDA graph), its peak memory and busy share, #2 at its shape
    beside its plain version, conv1d and its bound, and one
    ``OfdmAdaptiveStreamPhy.process_samples`` call on the largest bucket the
-   adaptive MAC run decoded; each printed beside the card's name and power
-   limit.
+   adaptive MAC run decoded; the mesh paths (median of 30, the optimistic
+   batch's host-loop scans of OPT_RUNS, and peak memory):
+   the sharded blocked decode beside ``decode_blocked_single_chip``,
+   ``batch_sharded_decode`` beside ``decode_capture_fast``, each sharded
+   OFDM decode beside its single-device pass, and the optimistic batch
+   (``decode_capture_fast``, the optimistic scan) beside the exact scan of
+   its rows; each printed beside the card's name and power limit.
 
 The line before the last is a JSON object with the kernels' measurements:
 ``launches`` counts each kernel's launches in the main-path runs of
 phase 2 (the line-coded paths, the blocked runs, the profiler path, the
 robustness paths, the streaming latency run, the MAC runs, the network
 runs, the OFDM paths, the coded paths, the adaptive OFDM, retrain and
-single-carrier paths and the command line's runs; the
-probe's in phase 0's health run; the
+single-carrier paths, the command line's runs and the mesh paths, the
+dry-run processes' own counts included; the probe's in phase 0's health
+run; the
 batch-folded hit rows are on no path and count 0),
 ``ms`` and ``plain_ms`` time it at the shapes of its first path, and
 ``bound_ms`` is the least time the card could take for that work (bytes
@@ -549,6 +580,62 @@ SC_PAYLOAD = 32
 SC_GAP = 400
 SC_NOISE = 0.1
 SC_SEED = 0
+# phase 2 (mesh), the multi-device decode over meshes of the card repeated:
+# blocked_600s and the OFDM captures over MESH_SHARDS shards, the flagship's
+# rows over dp = MESH_SHARDS; the seam scenarios of
+# tests/test_parallel_adversarial.py:119-164 (8 shards of 16,000 samples:
+# evil frames, whose payload embeds the preamble's bytes and a CRC-valid
+# frame of sequence 99, and plain frames across seams; a chain of evil
+# frames back to back across 8 shards of halo + 200 samples), in both line
+# codes, over an 8-shard mesh; SHARDED_EXPECT holds the (start, sequence)
+# pairs the JAX package's decode_blocked_sharded gives on them
+# (tests/test_torch_parallel.py)
+MESH_SHARDS = 4
+SEAM_SHARD_BLOCK = 16_000
+SEAM_SHARD_MFPB = 8
+SEAM_MESHES = {"evil_seam": (2, 4), "chain": (1, 8)}     # (dp, sp)
+SHARDED_EXPECT = {
+    "evil_seam, manchester": [(15800, 1), (47960, 2), (80011, 3), (111700, 4)],
+    "chain, manchester": [(12922, 7), (14026, 7), (15130, 7), (16234, 7), (17338, 7),
+                          (18442, 7)],
+    "evil_seam, 4b5b": [(15800, 1), (47960, 2), (80011, 3), (111700, 4)],
+    "chain, 4b5b": [(8143, 7), (8833, 7), (9523, 7), (10213, 7), (10903, 7), (11593, 7)],
+}
+# the sharded OFDM captures: ofdm_v2_b32's frames (and OFDM_SHARD_ADAPTIVE
+# frames of ADAPTIVE_PAYLOAD bytes through ofdm_adaptive_loaded_b8's
+# loading, uncoded) laid end to end with gaps from
+# default_rng(OFDM_SHARD_SEED) in OFDM_SHARD_GAPS, noise sigma OFDM_NOISE
+# (ADAPTIVE_LOADED_NOISE)
+OFDM_SHARD_SEED = 0
+OFDM_SHARD_GAPS = (200, 2500)
+OFDM_SHARD_ADAPTIVE = 16
+# the multi-process dry run: two processes of tools/multihost_dryrun.py on
+# the card over gloo, MP_ROWS of the flagship's rows each, within MP_TIMEOUT_S
+MP_PROCS = 2
+MP_ROWS = 16
+MP_TIMEOUT_S = 240
+# the optimistic batch: OPT_ROWS captures of the same OPT_FRAMES 4B5B frames
+# of random OPT_PAYLOAD-byte payloads at samples_per_level OPT_SPL (which the
+# speculative kernels do not cover), OPT_GAP samples apart after OPT_LEAD,
+# noise sigma OPT_NOISE, payloads and noise from default_rng(OPT_SEED), the
+# rows OPT_BROKEN_ROWS with one symbol of frame 3's payload zeroed (an
+# invalid symbol); OPTIMISTIC_EXPECT is the digest of the JAX package's
+# conformant flags and frames of decode_capture(optimistic=True) and of
+# decode_capture_fast on it (tests/test_torch_optimistic.py)
+OPT_SPL = 4
+OPT_ROWS = 8
+OPT_FRAMES = 16
+OPT_PAYLOAD = 64
+OPT_GAP = 300
+OPT_LEAD = 200
+OPT_NOISE = 0.05
+OPT_SEED = 0
+OPT_BROKEN_ROWS = (2, 5)
+OPT_MAX_FRAMES = OPT_FRAMES + 8
+OPT_RUNS = 5                # phase 4 times its host-loop scans by a median of 5
+OPTIMISTIC_EXPECT = "25135ef0a992fc2a"
+DIGEST_FIELDS = ("valid", "frame_bytes", "length", "frame_type", "sequence", "src", "dst",
+                 "start")
 # the MAC runs over the port's PHY: name -> (ARQ, bytes of bytes(range(256))
 # repeated, options: the transfer's keywords, line_coding and
 # energy_threshold for its PhyConfig and MacConfig, and phy, the stream PHY
@@ -1147,17 +1234,24 @@ def stream_capture(encode_frame, rng):
     return payloads, arrival, wave
 
 
+def ofdm_frames(rng=None):
+    """ofdm_v2_b32's frames, drawn from `rng` (default_rng(OFDM_SEED))."""
+    from trackmaker_tpu_torch.core.framing import Frame
+
+    rng = np.random.default_rng(OFDM_SEED) if rng is None else rng
+    return [Frame.new_data(i, 1, 2, rng.integers(0, 256, OFDM_PAYLOAD, dtype=np.uint8).tobytes())
+            for i in range(OFDM_FRAMES)]
+
+
 def ofdm_input(v1: bool = False):
     """(frames, captures f32[OFDM_BATCH, T] in NumPy) of ofdm_v2_b32, or of
     the v1 run: built on the host, so that every machine builds the same
     samples."""
-    from trackmaker_tpu_torch.core.framing import Frame
     from trackmaker_tpu_torch.phy.ofdm import OfdmModem
     from trackmaker_tpu_torch.phy.ofdm_v2 import OfdmModemV2
 
     rng = np.random.default_rng(OFDM_SEED)
-    frames = [Frame.new_data(i, 1, 2, rng.integers(0, 256, OFDM_PAYLOAD, dtype=np.uint8)
-                             .tobytes()) for i in range(OFDM_FRAMES)]
+    frames = ofdm_frames(rng)
     modem = OfdmModem(device="cpu") if v1 else OfdmModemV2(device="cpu")
     wave = modem.encode_frames(frames, gap_samples=OFDM_GAP)
     if v1:
@@ -1334,6 +1428,109 @@ def sc_input():
         wave = modem.encode_frames(frames, gap_samples=SC_GAP)
         out[name] = (modem.cfg, (wave + rng.normal(0, SC_NOISE, len(wave))).astype(np.float32))
     return frames, out
+
+
+def sharded_inputs() -> dict:
+    """name -> (line coding, capture f32[T] in NumPy, (dp, sp)) of the seam
+    scenarios, encoded by the port's encoder on the host."""
+    from trackmaker_tpu_torch.core.config import PhyConfig
+    from trackmaker_tpu_torch.core.framing import Frame
+    from trackmaker_tpu_torch.parallel.stream import halo_size
+    from trackmaker_tpu_torch.phy.encoder import PhyEncoder
+    from trackmaker_tpu_torch.tools.dryrun_multichip import evil_frame
+
+    out = {}
+    for coding in ("manchester", "4b5b"):
+        cfg = PhyConfig(line_coding=coding)
+        enc = PhyEncoder(cfg, device="cpu")
+        block = SEAM_SHARD_BLOCK
+        wave = np.zeros(8 * block, np.float32)
+        for pos, frame in ((block - 200, evil_frame(1, b"SHARD-EVIL")),
+                           (3 * block - 40, Frame.new_data(2, 1, 2, b"plain")),
+                           (5 * block + 11, evil_frame(3, b"INNER")),
+                           (7 * block - 300, Frame.new_data(4, 1, 2, b"last-seam"))):
+            w = enc.encode_frame(frame).numpy()
+            wave[pos:pos + len(w)] = w
+        out[f"evil_seam, {coding}"] = (coding, wave, SEAM_MESHES["evil_seam"])
+        w = enc.encode_frame(evil_frame(7, b"CHAIN")).numpy()
+        block = halo_size(cfg) + 200
+        wave = np.zeros(8 * block, np.float32)
+        pos, k = block - 60, 0
+        while pos + len(w) < 7 * block and k < 6:   # back to back, each across a new seam
+            wave[pos:pos + len(w)] = w
+            pos += len(w)
+            k += 1
+        out[f"chain, {coding}"] = (coding, wave, SEAM_MESHES["chain"])
+    return out
+
+
+def ofdm_shard_input(adaptive: bool = False):
+    """(modem, frames, their starts, capture f32[T] in NumPy) of a sharded
+    OFDM capture, built on the host: the frames laid end to end with gaps,
+    some across the seams of MESH_SHARDS shards."""
+    from trackmaker_tpu_torch.core.framing import Frame
+    from trackmaker_tpu_torch.phy.ofdm_adaptive import OfdmAdaptiveConfig, OfdmAdaptiveModem
+    from trackmaker_tpu_torch.phy.ofdm_v2 import OfdmModemV2
+
+    if adaptive:
+        modem = OfdmAdaptiveModem(OfdmAdaptiveConfig(), loading=adaptive_loading(),
+                                  device="cpu")
+        rng = np.random.default_rng(OFDM_SHARD_SEED + 1)
+        frames = [Frame.new_data(i, 1, 2, rng.integers(0, 256, ADAPTIVE_PAYLOAD, dtype=np.uint8)
+                                 .tobytes()) for i in range(OFDM_SHARD_ADAPTIVE)]
+        sigma = ADAPTIVE_LOADED_NOISE
+    else:
+        modem = OfdmModemV2(device="cpu")
+        frames = ofdm_frames()
+        rng = np.random.default_rng(OFDM_SHARD_SEED)
+        sigma = OFDM_NOISE
+    parts, starts, pos = [np.zeros(500, np.float32)], [], 500
+    for f in frames:
+        w = modem.encode_frames([f])
+        gap = int(rng.integers(*OFDM_SHARD_GAPS))
+        parts += [w, np.zeros(gap, np.float32)]
+        starts.append(pos)
+        pos += len(w) + gap
+    wave = np.concatenate(parts + [np.zeros(900, np.float32)])
+    wave = (wave + rng.normal(0, sigma, len(wave))).astype(np.float32)
+    return modem, frames, starts, wave
+
+
+def optimistic_input():
+    """(frames, captures f32[OPT_ROWS, T] in NumPy, valid lengths int32) of
+    the optimistic batch, built on the host."""
+    from trackmaker_tpu_torch.core.config import PhyConfig
+    from trackmaker_tpu_torch.core.framing import Frame
+    from trackmaker_tpu_torch.phy.encoder import PhyEncoder
+
+    cfg = PhyConfig(line_coding="4b5b", samples_per_level=OPT_SPL)
+    rng = np.random.default_rng(OPT_SEED)
+    frames = [Frame.new_data(i, 1, LOCAL_ADDR, rng.integers(0, 256, OPT_PAYLOAD, dtype=np.uint8)
+                             .tobytes()) for i in range(OPT_FRAMES)]
+    enc = PhyEncoder(cfg, device="cpu")
+    wave = enc.encode_frames(frames, gap_samples=OPT_GAP).numpy()
+    t = OPT_LEAD + len(wave) + 500
+    x = np.zeros((OPT_ROWS, t), np.float32)
+    x[:, OPT_LEAD:OPT_LEAD + len(wave)] = wave
+    x += rng.normal(0, OPT_NOISE, x.shape).astype(np.float32)
+    step = len(enc.encode_frame(frames[0])) + OPT_GAP
+    sym = OPT_LEAD + 3 * step + cfg.preamble_len + 40 * 5 * OPT_SPL   # symbol 40: payload
+    x[list(OPT_BROKEN_ROWS), sym:sym + 5 * OPT_SPL] = 0.0
+    return frames, x, np.full(OPT_ROWS, t, np.int32)
+
+
+def optimistic_digest(conformant, opt: dict, fast: dict) -> str:
+    """A short SHA-256 of the optimistic scan's conformant flags and fields
+    and of the fast decode's fields (DIGEST_FIELDS, NumPy arrays of either
+    package): equal digests mean equal decisions, slot for slot."""
+    import hashlib
+
+    h = hashlib.sha256(np.ascontiguousarray(conformant, np.uint8).tobytes())
+    for fields in (opt, fast):
+        for name in DIGEST_FIELDS:
+            dtype = np.uint8 if name in ("valid", "frame_bytes") else np.int32
+            h.update(np.ascontiguousarray(fields[name], dtype).tobytes())
+    return h.hexdigest()[:16]
 
 
 def ofdm_digest(starts, bits) -> str:
@@ -3544,6 +3741,332 @@ def check_blocked_fallback(torch, stream, decode_capture, cfg, x, starts) -> Non
         f"(of {len(starts)} planted), equal to the sequential exact scan's")
 
 
+def checked_walk(torch, sd, calls: list):
+    """spec_walk with each call held against its plain version on the same
+    fields, cursors and limits (the seam fixpoint's own); appends each
+    call's start cursors to `calls`."""
+    def walk(fields, cur, limit, max_frames):
+        got = sd.spec_walk(fields, cur, limit, max_frames)
+        torch.cuda.synchronize()
+        want = sd.spec_walk_plain(fields, cur, limit, max_frames)
+        require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                "spec_walk differs from its plain version at a fixpoint turn's cursors")
+        calls.append(cur.tolist())
+        return got
+    return walk
+
+
+def check_sharded(torch, sd, stream, xcorr_hits, xcorr_hits_plain, cfg, capture, mesh,
+                  max_frames: int, tag: str) -> float:
+    """Phase 1 on a sharded decode's own inputs: #1, #3 (#5) and #4 on the
+    shards' windows at their valid lengths, a batch a device
+    (check_path_batch), and #4 at every turn of the speculative route's
+    seam fixpoint, on its cursors.  Returns #1's max |err|."""
+    sw = stream.shard_windows(capture, mesh, stream.halo_size(cfg))
+    err = 0.0
+    for dev, (idx, wins) in sw.groups.items():
+        vlens = torch.tensor([sw.vlens[i] for i in idx], dtype=torch.int32, device=dev)
+        err = max(err, check_path_batch(torch, sd, xcorr_hits, xcorr_hits_plain, cfg, wins,
+                                        max_frames, f"{tag} windows", vlens=vlens))
+    calls = []
+    _, ok, turns = stream.sharded_spec_run(cfg, capture, LOCAL_ADDR, mesh, max_frames, N_CAND,
+                                           walk=checked_walk(torch, sd, calls))
+    require(bool(ok.all()) and len(calls) == turns, f"the {tag}: not ok, or {len(calls)} walks "
+            f"in {turns} turns")
+    log(f"phase 1: the {tag}: spec_walk == plain at each of the seam fixpoint's {turns} turns "
+        f"(start cursors {calls})")
+    return err
+
+
+def mesh_frames(res) -> list[tuple[int, int]]:
+    """The (start, sequence) pairs of a sharded decode's valid frames."""
+    valid = res.valid.cpu().numpy()
+    return sorted(zip(res.start.cpu().numpy()[valid].tolist(),
+                      res.sequence.cpu().numpy()[valid].tolist()))
+
+
+def run_mesh_paths(torch, sd, stream, mesh_mod, ofdm_stream, decoder_mod, cfg, xb, frames_b,
+                   starts_b, x, frames, kernels, dev) -> tuple[dict, dict]:
+    """phase 2 (mesh): the multi-device decode over meshes of the card
+    repeated (and of distinct cards where more than one is visible), each
+    call with the kernels' counts set to 0 just before it; returns (the
+    launches of each kernel over these runs, the inputs phases 1 and 4
+    use)."""
+    from trackmaker_tpu_torch.core.config import PhyConfig
+
+    total: dict[str, int] = {}
+
+    def counted(fn):
+        out, got, wall = count_launches(torch, kernels, fn)
+        for k_name, n in got.items():
+            total[k_name] = total.get(k_name, 0) + n
+        return out, got, wall
+
+    m4 = mesh_mod.make_mesh(sp=MESH_SHARDS, devices=[dev] * MESH_SHARDS)
+    mdp = mesh_mod.make_mesh(dp=MESH_SHARDS, devices=[dev] * MESH_SHARDS)
+    n_cards = torch.cuda.device_count()
+    log(f"phase 2 (mesh): meshes of the card repeated: (1, {MESH_SHARDS}) {m4.flat}, "
+        f"({MESH_SHARDS}, 1) {mdp.flat}, and (2, 4) / (1, 8) of 8 x {dev} for the seam "
+        "scenarios; " + ("a mesh over the distinct cards runs too" if n_cards > 1 else
+                         "a mesh over distinct cards: not run, torch.cuda.device_count() is 1"))
+    want_b = sorted((s, f.sequence, f.to_bytes()) for s, f in zip(starts_b, frames_b))
+    res, got, wall = counted(lambda: stream.decode_blocked_sharded(cfg, xb, LOCAL_ADDR, m4,
+                                                                   n_cand=N_CAND))
+    spec, ok, turns = stream.sharded_spec_run(cfg, xb, LOCAL_ADDR, m4, 32, N_CAND)
+    require(bool(ok.all()), f"blocked_600s over {MESH_SHARDS} shards: a shard is not ok "
+            f"({ok.tolist()})")
+    require(all(torch.equal(p, q) for p, q in zip(res, spec)),
+            "decode_blocked_sharded differs from its speculative route with every shard ok")
+    single = stream.decode_blocked_single_chip(cfg, xb, LOCAL_ADDR, BLOCKED_BLOCKS, BLOCKED_MFPB,
+                                               N_CAND)
+    require(frame_set(res) == frame_set(single) == want_b,
+            f"blocked_600s over {MESH_SHARDS} shards: {len(frame_set(res))} of "
+            f"{len(frames_b)} frames, or not decode_blocked_single_chip's")
+    expect = {"xcorr_hits": 1, "attempt_manchester": 1, "attempt_4b5b": 0, "spec_walk": turns,
+              "normalized_xcorr_dense": 0}
+    require(got == expect, f"blocked_600s over {MESH_SHARDS} shards: launches {got}, "
+            f"expected {expect}")
+    log(f"phase 2 (mesh, blocked_600s): decode_blocked_sharded of {xb.shape[0]} samples over "
+        f"{MESH_SHARDS} shards took {wall * 1e3:.1f} ms (first call), every shard ok, "
+        f"{turns} fixpoint turn(s), launches {got}; the {len(frames_b)} frames, their starts "
+        "and payloads, equal to decode_blocked_single_chip's")
+    res_x, got_x, wall_x = counted(lambda: stream.decode_blocked_sharded(
+        cfg, xb, LOCAL_ADDR, m4, n_cand=N_CAND, use_spec=False))
+    require(frame_set(res_x) == want_b, "blocked_600s over the exact route: frames differ")
+    log(f"phase 2 (mesh, blocked_600s, use_spec=False): the exact route took "
+        f"{wall_x * 1e3:.1f} ms, launches {got_x}; the same {len(frames_b)} frames")
+    if n_cards > 1:
+        cards = mesh_mod.make_mesh(sp=n_cards)
+        res_c, got_c, wall_c = counted(lambda: stream.decode_blocked_sharded(
+            cfg, xb, LOCAL_ADDR, cards, n_cand=N_CAND))
+        require(frame_set(res_c) == want_b, f"blocked_600s over {n_cards} cards: frames differ")
+        log(f"phase 2 (mesh, blocked_600s over {n_cards} cards {cards.flat}): took "
+            f"{wall_c * 1e3:.1f} ms, launches {got_c}; the same {len(frames_b)} frames")
+
+    for name, (coding, wave, (dp, sp)) in sharded_inputs().items():
+        c = PhyConfig(line_coding=coding)
+        m8 = mesh_mod.make_mesh(dp=dp, sp=sp, devices=[dev] * 8)
+        xw = torch.from_numpy(wave).to(dev)
+        _, ok, turns = stream.sharded_spec_run(c, xw, LOCAL_ADDR, m8, SEAM_SHARD_MFPB, N_CAND)
+        require(bool(ok.all()), f"{name}: the speculative route is not ok")
+        for use_spec in (True, False):
+            res, got, _ = counted(lambda: stream.decode_blocked_sharded(
+                c, xw, LOCAL_ADDR, m8, SEAM_SHARD_MFPB, N_CAND, use_spec=use_spec))
+            pairs = mesh_frames(res)
+            require(pairs == SHARDED_EXPECT[name], f"{name} (use_spec={use_spec}): {pairs}, "
+                    f"the JAX package's {SHARDED_EXPECT[name]}")
+            require(all(q != 99 for _, q in pairs), f"{name}: the embedded frame decoded")
+            log(f"phase 2 (mesh, {name}): decode_blocked_sharded over ({dp}, {sp}) "
+                f"use_spec={use_spec}: {pairs} == SHARDED_EXPECT, sequence 99 decoded 0 times"
+                + (f", {turns} fixpoint turn(s)" if use_spec else "") + f"; launches {got}")
+
+    res, got, wall = counted(lambda: mesh_mod.batch_sharded_decode(
+        cfg, x, LOCAL_ADDR, mdp, max_frames=MAX_FRAMES))
+    whole = decoder_mod.decode_capture_fast(cfg, x, LOCAL_ADDR, max_frames=MAX_FRAMES)
+    require(all(torch.equal(p, q) for p, q in zip(res, whole)),
+            "batch_sharded_decode differs from decode_capture_fast on the whole batch")
+    for r in range(x.shape[0]):
+        require([f.data for f in res.to_frames(r)] == [f.data for f in frames],
+                f"batch_sharded_decode: row {r}'s payloads differ from the flagship's")
+    log(f"phase 2 (mesh, flagship): batch_sharded_decode of {x.shape[0]} x {x.shape[1]} over "
+        f"dp={MESH_SHARDS} took {wall * 1e3:.1f} ms (first call), launches {got}; every row "
+        f"equals decode_capture_fast's on the whole batch and the flagship's {N_FRAMES} payloads")
+
+    ofdm_in = {}
+    for tag, adaptive in (("ofdm_v2", False), ("ofdm_adaptive_loaded", True)):
+        modem, fr, st, wave = ofdm_shard_input(adaptive)
+        xo = torch.from_numpy(wave).to(dev)
+        fb_len = len(fr[0].to_bytes())
+        got_f, got, wall = counted(lambda: ofdm_stream.decode_ofdm_blocked_sharded(
+            modem.cfg, xo, fb_len, m4))
+        single = ofdm_stream.decode_ofdm_blocked_sharded(
+            modem.cfg, xo, fb_len, mesh_mod.make_mesh(devices=[dev]), len(fr) + 8)
+        require([f.data for f in got_f] == [f.data for f in fr],
+                f"decode_ofdm_blocked_sharded ({tag}): {len(got_f)} of {len(fr)} payloads in order")
+        require([f.to_bytes() for f in got_f] == [f.to_bytes() for f in single],
+                f"decode_ofdm_blocked_sharded ({tag}) differs from the single-device pass")
+        block = -(-len(wave) // MESH_SHARDS)
+        flen = len(modem.encode_frames([fr[0]]))
+        across = [p for p in st if p % block + flen > block]
+        require(len(across) > 0, f"{tag}: no frame across a seam")
+        require(got["normalized_xcorr_dense"] == 1, f"{tag}: launches {got}")
+        log(f"phase 2 (mesh, {tag}): decode_ofdm_blocked_sharded of {len(wave)} samples over "
+            f"{MESH_SHARDS} shards took {wall * 1e3:.1f} ms (first call), launches {got}; the "
+            f"{len(fr)} payloads in capture order, the {len(across)} frames across seams "
+            f"(at {across}) each once, equal to the single-device pass")
+        ofdm_in[tag] = (modem.cfg, xo, fb_len, len(fr))
+
+    frames_o, x_opt, vl = optimistic_input()
+    cfg_o = PhyConfig(line_coding="4b5b", samples_per_level=OPT_SPL)
+    xt = torch.from_numpy(x_opt).to(dev)
+    rows, got, wall = counted(lambda: [decoder_mod.decode_capture(
+        cfg_o, xt[r], LOCAL_ADDR, OPT_MAX_FRAMES, valid_len=int(vl[r]), optimistic=True)
+        for r in range(OPT_ROWS)])
+    fast, got_f, wall_f = counted(lambda: decoder_mod.decode_capture_fast(
+        cfg_o, xt, LOCAL_ADDR, OPT_MAX_FRAMES, valid_len=vl.tolist()))
+    conformant = [ok for _, ok in rows]
+    opt = {name: torch.stack([getattr(r, name) for r, _ in rows]).cpu().numpy()
+           for name in DIGEST_FIELDS}
+    fast_np = {name: getattr(fast, name).cpu().numpy() for name in DIGEST_FIELDS}
+    got_digest = optimistic_digest(conformant, opt, fast_np)
+    require(got_digest == OPTIMISTIC_EXPECT,
+            f"the optimistic batch's digest {got_digest}, the JAX package's {OPTIMISTIC_EXPECT}")
+    broken = [r for r, ok in enumerate(conformant) if not ok]
+    require(broken == list(OPT_BROKEN_ROWS), f"rows {broken} not conformant")
+    for r in range(OPT_ROWS):
+        exact = decoder_mod.decode_capture(cfg_o, xt[r], LOCAL_ADDR, OPT_MAX_FRAMES,
+                                           valid_len=int(vl[r]))
+        require(all(torch.equal(p[r], q) for p, q in zip(fast, exact)),
+                f"the optimistic batch's row {r} differs from the exact scan")
+        if r not in broken:
+            require([f.data for f in fast.to_frames(r)] == [f.data for f in frames_o],
+                    f"the optimistic batch's row {r}: payloads differ")
+    log(f"phase 2 (mesh, optimistic): decode_capture(optimistic=True) of {OPT_ROWS} rows of "
+        f"{x_opt.shape[1]} samples (4B5B, samples_per_level={OPT_SPL}) took {wall * 1e3:.1f} ms, "
+        f"launches {got}; rows {broken} not conformant; decode_capture_fast took "
+        f"{wall_f * 1e3:.1f} ms, launches {got_f}, every row equal to the exact scan; digest "
+        f"{got_digest} == OPTIMISTIC_EXPECT")
+    from trackmaker_tpu_torch.tools.dryrun_multichip import dryrun_multichip
+
+    dry, got, wall = counted(lambda: dryrun_multichip(8, [dev] * 8))
+    log(f"phase 2 (mesh, dryrun_multichip): the four checks of __graft_entry__.py's dry run "
+        f"over 8 x {dev} took {wall * 1e3:.1f} ms: mesh {dry['mesh']}, blocked counts "
+        f"{dry['counts']}, dp counts {dry['dp_counts']}, {dry['ofdm_frames']} OFDM frames, "
+        f"evil-seam frames {dry['evil_seam']}; launches {got}")
+    return total, dict(m4=m4, mdp=mdp, ofdm=ofdm_in, opt=(cfg_o, xt, vl))
+
+
+def run_multiprocess(torch, frames, seed: int) -> dict[str, int]:
+    """phase 2 (mesh, multi-process): MP_PROCS processes of
+    tools/multihost_dryrun.py on the card over gloo, MP_ROWS of the
+    flagship's rows each; each must exit 0 within MP_TIMEOUT_S with every
+    row's payloads the flagship's, else both are killed and the run fails.
+    Returns the kernels' launches the processes report."""
+    import socket
+    import subprocess
+    import tempfile
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        # each process writes to files, not pipes: a process blocked on a
+        # full pipe would never reach the barrier the other waits at
+        files = [(open(os.path.join(tmp, f"{pid}.out"), "w+"),
+                  open(os.path.join(tmp, f"{pid}.err"), "w+")) for pid in range(MP_PROCS)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "trackmaker_tpu_torch.tools.multihost_dryrun",
+             f"127.0.0.1:{port}", str(MP_PROCS), str(pid), "--flagship", str(MP_ROWS),
+             "--seed", str(seed)], cwd=root, stdout=out, stderr=err, text=True)
+            for pid, (out, err) in enumerate(files)]
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, MP_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+                p.wait()
+            require(False, f"the multi-process dry run did not end within {MP_TIMEOUT_S} s")
+        wall = time.perf_counter() - t0
+        outs = []
+        for out, err in files:
+            out.seek(0)
+            err.seek(0)
+            outs.append((out.read(), err.read()))
+            out.close()
+            err.close()
+    launches: dict[str, int] = {}
+    for pid, (p, (out, err)) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0, f"dry-run process {pid} exited {p.returncode}: {err[-2000:]}")
+        got = json.loads(out.strip().splitlines()[-1])
+        rows = [[bytes.fromhex(h) for _, _, h in row] for row in got["frames"]]
+        require(got["ok"] and len(rows) == MP_ROWS
+                and all(row == [f.data for f in frames] for row in rows),
+                f"dry-run process {pid}: payloads differ from the flagship's")
+        for k_name, n in got["launches"].items():
+            launches[k_name] = launches.get(k_name, 0) + n
+        log(f"phase 2 (mesh, multi-process): process {pid} of {MP_PROCS} on {got['devices']} "
+            f"over gloo: exit 0, rows {pid * MP_ROWS}-{(pid + 1) * MP_ROWS - 1} of the flagship, "
+            f"every row's {N_FRAMES} payloads the flagship's; launches {got['launches']}")
+    log(f"phase 2 (mesh, multi-process): both processes done in {wall:.1f} s (limit "
+        f"{MP_TIMEOUT_S} s)")
+    return launches
+
+
+def time_mesh_paths(torch, stream, mesh_mod, ofdm_stream, decoder_mod, cfg, xb, x, mesh_in,
+                    card) -> None:
+    """Phase 4 of the mesh paths: each call beside its one-device
+    counterpart, CUDA events (median of RUNS), with its peak memory."""
+    m4, mdp = mesh_in["m4"], mesh_in["mdp"]
+    one = mesh_mod.make_mesh(devices=[x.device])
+    cfg_o, xt, vl = mesh_in["opt"]
+    calls = {
+        f"decode_blocked_sharded blocked_600s ({MESH_SHARDS} shards)": (lambda: (
+            stream.decode_blocked_sharded(cfg, xb, LOCAL_ADDR, m4, n_cand=N_CAND)), True),
+        f"decode_blocked_single_chip blocked_600s ({BLOCKED_BLOCKS} blocks)": (lambda: (
+            stream.decode_blocked_single_chip(cfg, xb, LOCAL_ADDR, BLOCKED_BLOCKS, BLOCKED_MFPB,
+                                              N_CAND)), True),
+        f"batch_sharded_decode flagship (dp={MESH_SHARDS})": (lambda: (
+            mesh_mod.batch_sharded_decode(cfg, x, LOCAL_ADDR, mdp, max_frames=MAX_FRAMES)), False),
+        "decode_capture_fast flagship": (lambda: decoder_mod.decode_capture_fast(
+            cfg, x, LOCAL_ADDR, max_frames=MAX_FRAMES), False),
+        f"optimistic batch: decode_capture_fast ({OPT_ROWS} rows, 4B5B spl={OPT_SPL})": (
+            lambda: decoder_mod.decode_capture_fast(cfg_o, xt, LOCAL_ADDR, OPT_MAX_FRAMES,
+                                                    valid_len=vl.tolist()), False),
+        f"optimistic batch: decode_capture(optimistic=True), {OPT_ROWS} rows": (lambda: [
+            decoder_mod.decode_capture(cfg_o, xt[r], LOCAL_ADDR, OPT_MAX_FRAMES,
+                                       valid_len=int(vl[r]), optimistic=True)
+            for r in range(OPT_ROWS)], False),
+        f"optimistic batch: the exact scan of the same {OPT_ROWS} rows": (
+            lambda: decoder_mod.decode_captures(cfg_o, xt, LOCAL_ADDR, OPT_MAX_FRAMES,
+                                                vl.tolist()), False),
+    }
+    for tag, (cfg_x, xo, fb_len, n_frames) in mesh_in["ofdm"].items():
+        calls[f"decode_ofdm_blocked_sharded {tag} ({MESH_SHARDS} shards)"] = (
+            lambda c=cfg_x, xo=xo, n=fb_len: ofdm_stream.decode_ofdm_blocked_sharded(
+                c, xo, n, m4), False)
+        calls[f"decode_ofdm_blocked_sharded {tag} (one shard: the single-device pass)"] = (
+            lambda c=cfg_x, xo=xo, n=fb_len, k=n_frames: ofdm_stream.decode_ofdm_blocked_sharded(
+                c, xo, n, one, k + 8), False)
+    for what, (fn, realtime) in calls.items():
+        # the optimistic batch's scans are host loops of a third of a second
+        runs = OPT_RUNS if what.startswith("optimistic") else RUNS
+        med = time_ms(torch, fn, runs=runs)
+        rt = (f", {xb.shape[0] / cfg.sample_rate / (med / 1e3):.1f}x real time"
+              if realtime else "")
+        log(f"phase 4: {what}: {med:.4f} ms (median of {runs}){rt}; peak memory "
+            f"{peak_memory(torch, fn)} [{card}]")
+
+
+def check_mesh_inputs(torch, sd, stream, mesh_mod, xn, ofdm, ofdm_stream, xcorr_hits,
+                      xcorr_hits_plain, cfg, xb, mesh_in, dev) -> tuple[float, float]:
+    """Phase 1 on phase 2 (mesh)'s own inputs: #1, #3 (#5) and #4 on the
+    sharded windows of blocked_600s and of the seam scenarios and at their
+    fixpoints' cursors (check_sharded), #1 on the optimistic batch, and #2's
+    normalized form on the sharded OFDM windows.  Returns (#1's, #2's max
+    |err|)."""
+    from trackmaker_tpu_torch.core.config import PhyConfig
+    from trackmaker_tpu_torch.phy.line_coding import preamble_waveform
+
+    err = check_sharded(torch, sd, stream, xcorr_hits, xcorr_hits_plain, cfg, xb, mesh_in["m4"],
+                        32, f"blocked_600s over {MESH_SHARDS} shards")
+    for name, (coding, wave, (dp, sp)) in sharded_inputs().items():
+        err = max(err, check_sharded(
+            torch, sd, stream, xcorr_hits, xcorr_hits_plain, PhyConfig(line_coding=coding),
+            torch.from_numpy(wave).to(dev), mesh_mod.make_mesh(dp=dp, sp=sp, devices=[dev] * 8),
+            SEAM_SHARD_MFPB, name))
+    cfg_o, xt, _ = mesh_in["opt"]
+    err = max(err, check_xcorr(torch, xcorr_hits, xcorr_hits_plain, xt, preamble_waveform(cfg_o),
+                               cfg_o.correlation_threshold, "optimistic batch")[0])
+    windows = []
+    for cfg_x, xo, fb_len, _ in mesh_in["ofdm"].values():
+        sw = stream.shard_windows(xo, mesh_in["m4"], ofdm_stream.ofdm_halo_size(cfg_x, fb_len * 8))
+        windows += [(wins, 16) for _, wins in sw.groups.values()]
+    return err, check_ofdm_corr(torch, xn, ofdm, windows, "sharded OFDM windows")
+
+
 def shared_bound(sd, cfg, k_name: str, info: dict) -> tuple[float, str]:
     """The least time of a shared-capture attempt: the samples its live
     candidates need (at most the whole capture) and its small inputs read,
@@ -4206,6 +4729,7 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
+    t_start = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -4222,7 +4746,8 @@ def main() -> None:
     from trackmaker_tpu_torch.dsp import channel, equalizer, timing
     from trackmaker_tpu_torch.link import gbn, sr, transfer
     from trackmaker_tpu_torch.link import stream as lstream
-    from trackmaker_tpu_torch.parallel import stream
+    from trackmaker_tpu_torch.parallel import mesh as mesh_mod
+    from trackmaker_tpu_torch.parallel import ofdm_stream, stream
     from trackmaker_tpu_torch.phy import (
         ask, ask_spec, coded, fsk, ofdm, ofdm_adaptive, ofdm_v2, psk, stream_sc)
     from trackmaker_tpu_torch.phy import spec_decode as sd
@@ -4623,6 +5148,20 @@ def main() -> None:
             k_name = KERNEL_NAMES.get(k_name, k_name)
             launches[k_name] = launches.get(k_name, 0) + n
             cli_launches[k_name] = cli_launches.get(k_name, 0) + n
+    t_mesh = time.perf_counter()
+    mesh_launches, mesh_in = run_mesh_paths(
+        torch, sd, stream, mesh_mod, ofdm_stream, decoder_mod, cfg, xb, frames_b, starts_b, x,
+        frames, (xcorr_hits, sd.attempt_manchester, sd.attempt_4b5b, sd.spec_walk,
+                 xn.normalized_xcorr_dense), dev)
+    for k_name, n in mesh_launches.items():
+        k_name = KERNEL_NAMES.get(k_name, k_name)
+        launches[k_name] = launches.get(k_name, 0) + n
+    err_x, err_n = check_mesh_inputs(torch, sd, stream, mesh_mod, xn, ofdm, ofdm_stream,
+                                     xcorr_hits, xcorr_hits_plain, cfg, xb, mesh_in, dev)
+    errs["xcorr_hits"] = max(errs["xcorr_hits"], err_x)
+    errs["normalized_xcorr"] = max(errs["normalized_xcorr"], err_n)
+    log(f"phase 2 (mesh): the mesh paths and their phase 1 checks took "
+        f"{time.perf_counter() - t_mesh:.1f} s")
     # phase 1 on what these paths decoded, recorded as they ran: the
     # latency segments and every MAC and network run's buffers
     seg_in = [(torch.from_numpy(lstream.padded_segment(seg)[:-1]).to(dev), len(seg),
@@ -5354,10 +5893,16 @@ def main() -> None:
     time_ofdm_paths(torch, ofdm, ofdm_v2, x_o, ofdm_buckets, card, dev)
     vit = time_coded_paths(torch, coded, convcode, coded_phy, x_c, coded_buckets, card)
     time_adaptive_paths(torch, ofdm_adaptive, convcode, ofdm, x_a, adaptive_buckets, card)
+    time_mesh_paths(torch, stream, mesh_mod, ofdm_stream, decoder_mod, cfg, xb, x, mesh_in, card)
     ms["viterbi"], plain_ms["viterbi"], bounds["viterbi"] = vit["ms"], vit["plain_ms"], vit["bound"]
     log(f"phase 4: viterbi: {launches['viterbi']} launches on the paths, launches x (device - "
         f"bound) at the payload shape {launches['viterbi'] * (vit['device'] - vit['bound'][0]):.4f}"
         f" ms [{card}]")
+    # the multi-process dry run after the profiler's last session: its
+    # processes share the card; its launches are the processes' own counts
+    for k_name, n in run_multiprocess(torch, frames, args.seed).items():
+        launches[k_name] = launches.get(k_name, 0) + n
+    t_phase4 = time.perf_counter()
     # registers and spills last: cuobjdump runs as a child process, and the
     # profiler's sessions after one lose their last launches
     for src in ("sliding_dot", "xcorr_norm", "xcorr_hits", "spec_walk", "attempt_manchester",
@@ -5399,6 +5944,8 @@ def main() -> None:
         # no Pallas counterpart: the JAX package's Viterbi is a lax.scan
         "viterbi": "trackmaker_tpu/core/convcode.py:164",
     }
+    log(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s in all, cuobjdump's "
+        f"{time.perf_counter() - t_phase4:.1f} s included")
     print(json.dumps({"kernels": [
         {"name": k_name, "route": "cuda",
          "source": f"trackmaker_tpu_torch/csrc/{SOURCES.get(k_name, k_name)}.cu",

@@ -51,6 +51,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
+import chip_smoke
 from trackmaker_tpu_torch import PhyConfig, _build, decode_blocked_exact, decode_blocked_single_chip
 from trackmaker_tpu_torch.core.framing import Frame
 from trackmaker_tpu_torch.core import convcode
@@ -2019,3 +2020,78 @@ def test_ofdm_conv_modem_on_the_card_equals_the_cpu(cuda):
     got = ofdm.OfdmModem(fec="conv", device=cuda).decode(x, 47, 8)
     assert convcode.viterbi_decode.launches == before + 1
     assert got == ofdm.OfdmModem(fec="conv", device="cpu").decode(x, 47, 8) == frames
+
+
+# --- the multi-device decode (parallel/) on meshes of the card repeated ---------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(chip_smoke.SHARDED_EXPECT))
+@pytest.mark.parametrize("use_spec", [True, False])
+def test_sharded_decode_on_the_card_equals_the_cpu(cuda, name, use_spec):
+    """decode_blocked_sharded over 8 shards of the card equals the same
+    mesh of the CPU in every field; the speculative route launches #1 and
+    the attempt once for the 8 shards and the walk once a fixpoint turn."""
+    from trackmaker_tpu_torch.parallel import mesh, stream
+
+    coding, wave, (dp, sp) = chip_smoke.sharded_inputs()[name]
+    cfg = PhyConfig(line_coding=coding)
+    attempt = sd.attempt_manchester if coding == "manchester" else sd.attempt_4b5b
+    before = (xcorr_hits.launches, attempt.launches, sd.spec_walk.launches)
+    got = stream.decode_blocked_sharded(cfg, torch.from_numpy(wave).to(cuda), 2, mesh.make_mesh(
+        dp=dp, sp=sp, devices=[cuda] * 8), 8, use_spec=use_spec)
+    after = (xcorr_hits.launches, attempt.launches, sd.spec_walk.launches)
+    want = stream.decode_blocked_sharded(cfg, wave, 2, mesh.make_mesh(
+        dp=dp, sp=sp, devices=["cpu"] * 8), 8, use_spec=use_spec)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w) if g.dtype != torch.float32 else torch.allclose(
+            g.cpu(), w, rtol=0, atol=1e-5)
+    if use_spec:
+        _, ok, turns = stream.sharded_spec_run(cfg, wave, 2, mesh.make_mesh(
+            dp=dp, sp=sp, devices=["cpu"] * 8), 8)
+        assert bool(ok.all())
+        assert (after[0] - before[0], after[1] - before[1], after[2] - before[2]) == (1, 1, turns)
+
+
+@pytest.mark.gpu
+def test_batch_sharded_decode_on_the_card_equals_the_cpu(cuda):
+    from trackmaker_tpu_torch.parallel import mesh
+
+    x = _captures()
+    got = mesh.batch_sharded_decode(CFG, torch.from_numpy(x).to(cuda), 2,
+                                    mesh.make_mesh(dp=4, devices=[cuda] * 4), 16)
+    want = mesh.batch_sharded_decode(CFG, x, 2, mesh.make_mesh(dp=4, devices=["cpu"] * 4), 16)
+    for g, w in zip(got, want):
+        assert torch.allclose(g.cpu().double(), w.double(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_sharded_ofdm_on_the_card_equals_the_cpu(cuda, adaptive):
+    from trackmaker_tpu_torch.parallel import mesh
+    from trackmaker_tpu_torch.parallel.ofdm_stream import decode_ofdm_blocked_sharded
+
+    modem, frames, _, wave = chip_smoke.ofdm_shard_input(adaptive)
+    n = len(frames[0].to_bytes())
+    before = normalized_xcorr_dense.launches
+    got = decode_ofdm_blocked_sharded(modem.cfg, torch.from_numpy(wave).to(cuda), n,
+                                      mesh.make_mesh(sp=4, devices=[cuda] * 4))
+    assert normalized_xcorr_dense.launches == before + 1
+    want = decode_ofdm_blocked_sharded(modem.cfg, wave, n, mesh.make_mesh(sp=4,
+                                                                          devices=["cpu"] * 4))
+    assert got == want and [f.data for f in got] == [f.data for f in frames]
+
+
+@pytest.mark.gpu
+def test_optimistic_decode_on_the_card_equals_the_cpu(cuda):
+    frames, x, vlens = chip_smoke.optimistic_input()
+    cfg = PhyConfig(line_coding="4b5b", samples_per_level=chip_smoke.OPT_SPL)
+    mf = chip_smoke.OPT_MAX_FRAMES
+    for r in range(x.shape[0]):
+        got, ok = decode_capture(cfg, torch.from_numpy(x[r]).to(cuda), 2, mf,
+                                 valid_len=int(vlens[r]), optimistic=True)
+        want, ok_cpu = decode_capture(cfg, torch.from_numpy(x[r]), 2, mf,
+                                      valid_len=int(vlens[r]), optimistic=True)
+        assert ok == ok_cpu == (r not in chip_smoke.OPT_BROKEN_ROWS)
+        for g, w in zip(got, want):
+            assert torch.allclose(g.cpu().double(), w.double(), rtol=0, atol=1e-5)

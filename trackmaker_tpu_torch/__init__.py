@@ -8,7 +8,10 @@ ASK/chirp modem's receiver run on an NVIDIA Hopper card through
 hand-written CUDA kernel sources (``csrc/``, thirteen with the tools'),
 built with ``nvcc`` at first use; on CPU tensors every kernel wrapper runs
 its plain PyTorch version.  One long recording decodes in blocks of time
-through ``decode_blocked_single_chip``; live capture decodes through
+through ``decode_blocked_single_chip``, or sharded over a device mesh
+through ``parallel.decode_blocked_sharded`` (``parallel`` also holds the
+data-parallel batch decode, the sharded OFDM decode and the multi-process
+bring-up); live capture decodes through
 ``PhyDecoder`` (the chunked feed the MAC polls) and the energy-gated
 ``link.stream.StreamingDecodePipeline``, and the link layer moves files
 between simulated nodes with CSMA/stop-and-wait, Go-Back-N or
@@ -41,7 +44,10 @@ OFDM modems, ``tests/test_torch_ofdm_adaptive.py``,
 ``tests/test_torch_ofdm_adaptive_mac.py`` and ``tests/test_torch_fsk_psk.py``
 adaptive OFDM and the single-carrier modems, ``tests/test_torch_io.py``,
 ``tests/test_torch_cli.py`` and ``tests/test_torch_bench_viz.py`` the audio
-files, the host runtime, the command line and the dashboards); on a card, ``python3
+files, the host runtime, the command line and the dashboards,
+``tests/test_torch_parallel.py``, ``tests/test_torch_parallel_ofdm.py``,
+``tests/test_torch_multihost.py`` and ``tests/test_torch_optimistic.py`` the
+multi-device decode and the optimistic 4B5B mode); on a card, ``python3
 chip_smoke.py`` runs every path, its ``phase 2 (clock_search)``,
 ``(timing_gate)``, ``(timing_gate, flagship gaps)``, ``(decode_dd)`` and
 ``(sweeps)`` lines the robustness ones, ``phase 2 (stream_latency)`` and
@@ -50,7 +56,8 @@ the ``phase 2 (csma_transfer ...)``, ``(gbn_transfer ...)`` and
 (ping ...)`` and ``(router)`` lines the network layer, ``phase 2
 (ofdm_v2_b32)`` the OFDM modems, ``phase 2 (ofdm_adaptive_b8)``,
 ``(retrain)`` and ``(fsk modem)`` adaptive OFDM and the single-carrier
-modems, ``phase 2 (cli ...)`` the command line on WAV and FLAC files.
+modems, ``phase 2 (cli ...)`` the command line on WAV and FLAC files,
+``phase 2 (mesh ...)`` the multi-device decode over meshes of the card.
 
     trackmaker_tpu_torch.core   PhyConfig, MacConfig, NetConfig, bit ops, CRC8, frame codec
                                 (host and batched),
@@ -62,7 +69,8 @@ modems, ``phase 2 (cli ...)`` the command line on WAV and FLAC files.
                                 and the per-frame timing gate
     trackmaker_tpu_torch.sync   correlation sync, the correlation, normalized-
                                 correlation, row-stats and sliding-dot kernels
-    trackmaker_tpu_torch.phy    line code, encoder, exact and speculative decode,
+    trackmaker_tpu_torch.phy    line code, encoder, exact (and optimistic 4B5B) and
+                                speculative decode,
                                 the streaming PhyDecoder; the ASK modem and its
                                 speculative receiver; the OFDM modems v1, v2 and
                                 adaptive; the FSK and PSK modems
@@ -76,7 +84,10 @@ modems, ``phase 2 (cli ...)`` the command line on WAV and FLAC files.
                                 router demo
     trackmaker_tpu_torch.utils  logging setup (``TM_LOG``), progress bars, the
                                 text / bit-string converter
-    trackmaker_tpu_torch.parallel  the blocked decode of one long capture
+    trackmaker_tpu_torch.parallel  device meshes, the data-parallel batch decode, the
+                                blocked decode of one long capture on one device
+                                or sharded over a mesh (line-coded and OFDM), the
+                                multi-process bring-up over torch.distributed
     trackmaker_tpu_torch.bench  frame loss against noise and clock offset, the
                                 contended MAC/PHY parameter sweep, the PNG
                                 (matplotlib) and self-contained HTML dashboards
@@ -89,9 +100,9 @@ modems, ``phase 2 (cli ...)`` the command line on WAV and FLAC files.
                                 frame codec, the energy detector, the sample
                                 ring, the segmenter, audio duplex
     trackmaker_tpu_torch.tools  the window health probe, the flagship stage
-                                profiler and the two-stream correlation
-                                experiment; each runs on the card as
-                                ``python -m trackmaker_tpu_torch.tools.<name>``
+                                profiler, the two-stream correlation
+                                experiment and the multi-process dry run; each
+                                runs as ``python -m trackmaker_tpu_torch.tools.<name>``
 """
 
 __version__ = "0.1.0"

@@ -106,3 +106,10 @@ def crc8(data: torch.Tensor, length: torch.Tensor | None = None) -> torch.Tensor
         half = contrib.shape[-1] // 2
         contrib = contrib[..., :half] ^ contrib[..., half:]
     return contrib[..., 0]
+
+
+def crc8_bits(bits: torch.Tensor, length_bytes) -> torch.Tensor:
+    """CRC8 of MSB-first message bits uint8[..., N*8] that are zero past
+    `length_bytes` bytes (counterpart of ``crc8_bits_matmul``, whose GF(2)
+    matmul is a TPU construction): the bits packed, then :func:`crc8`."""
+    return crc8(pack_bits(bits), length_bytes)

@@ -8,9 +8,11 @@ completeness rules, and moves the cursor by what the attempt consumed.
 Manchester bodies never fail to decode, so the bodies of the accepted
 frames are decoded and CRC-checked together afterwards.  A 4B5B body can
 stop at an invalid symbol, and then the cursor moves by the valid part
-only, so each 4B5B step decodes its body and checks its CRC in the scan.
-It is the fallback and the oracle of the speculative decode
-(``phy/spec_decode.py``), which ``decode_capture_fast`` runs first.
+only, so each 4B5B step decodes its body and checks its CRC in the scan;
+the optimistic mode (``optimistic=True``) assumes no such stop, decodes
+the bodies afterwards as Manchester does, and reports whether the
+assumption held.  It is the fallback and the oracle of the speculative
+decode (``phy/spec_decode.py``), which ``decode_capture_fast`` runs first.
 
 ``PhyDecoder`` is the receiver's chunked-feed facade, the one the MAC
 (``link/``) polls: it buffers samples on the host and decodes the whole
@@ -27,6 +29,7 @@ import torch
 
 from trackmaker_tpu_torch.core import bitops
 from trackmaker_tpu_torch.core.config import (
+    FOUR_B_FIVE_B,
     FRAME_TYPE_ACK,
     FRAME_TYPE_DATA,
     MANCHESTER,
@@ -100,6 +103,23 @@ def _decode_body(cfg: PhyConfig, window: torch.Tensor, dlen: torch.Tensor):
     return frame_bytes, n_valid_bits, crc
 
 
+def _decode_body_opt(cfg: PhyConfig, window: torch.Tensor, dlen: torch.Tensor):
+    """(frame bytes, non-conformant, payload CRC8) of 4B5B body windows
+    f32[N, max_window] holding frames of `dlen` payload bytes, decoded
+    optimistically: a frame is non-conformant when an invalid symbol or a
+    near-zero level lies inside it."""
+    bits, bit_ok, near0 = line_coding.fourb5b_decode_opt(window, cfg.samples_per_level)
+    total_bits = (PHY_HEADER_BYTES + dlen) * 8
+    in_frame = torch.arange(bits.shape[-1], device=bits.device) < total_bits[:, None]
+    lvl_in_frame = (torch.arange(near0.shape[-1], device=bits.device)
+                    < (total_bits // 4 * 5)[:, None])
+    nonconf = (~bit_ok & in_frame).any(-1) | (near0 & lvl_in_frame).any(-1)
+    masked = torch.where(in_frame, bits, 0)
+    frame_bytes = bitops.pack_bits(masked)
+    crc = bitops.crc8_bits(masked[:, PHY_HEADER_BYTES * 8:], dlen.clamp(0, cfg.max_frame_bytes))
+    return frame_bytes, nonconf, crc
+
+
 def decode_capture(
     cfg: PhyConfig,
     samples: torch.Tensor,       # f32[T]
@@ -109,6 +129,7 @@ def decode_capture(
     with_cursor: bool = False,
     start_cursor: int | None = None,
     scan_limit: int | None = None,
+    optimistic: bool = False,
 ):
     """Decode one capture with the exact scan.
 
@@ -121,7 +142,20 @@ def decode_capture(
     `searched_until` is the start of a pending incomplete frame if the
     scan stopped on one, ``valid_len - (preamble_len - 1)`` if it ran out
     of candidates, else the cursor where `max_frames` ran out.
+
+    ``optimistic=True`` (4B5B only, without the cursor) walks as if no
+    attempted frame held an invalid symbol or a near-zero level, reading
+    each header with ``fourb5b_decode_opt``, and decodes the attempted
+    frames' bodies and CRCs in one pass after the walk.  It returns
+    ``(frames, conformant)``: when `conformant` is False an attempted frame
+    line-failed or held a near-zero level, or an examined header held one,
+    so the walk may differ from the exact scan's from there on, and the
+    caller must decode the capture again without it.  When True the frames
+    equal the exact scan's, slot for slot.
     """
+    if optimistic:
+        assert cfg.line_coding == FOUR_B_FIVE_B, "optimistic mode is the 4B5B fast path"
+        assert not with_cursor, "optimistic mode has no cursor semantics"
     if samples.ndim != 1:
         raise ValueError("samples must be f32[T]")
     x = samples.to(torch.float32)
@@ -140,7 +174,7 @@ def decode_capture(
     # Manchester bodies decode in one batch after the scan: decoding each in
     # its step made a flagship row 75-112 ms in place of 44-68 ms (H100,
     # `chip_smoke.py` phase 4, two runs of each)
-    body_in_scan = cfg.line_coding != MANCHESTER
+    body_in_scan = cfg.line_coding != MANCHESTER and not optimistic
     if t < l_pre:   # shorter than the preamble: nothing to find
         x = torch.nn.functional.pad(x, (0, l_pre - t))
         t = l_pre
@@ -162,6 +196,9 @@ def decode_capture(
     done, pending = False, _BIG
     kept = []   # (slot, i, fs, dlen, ftype, seq, src, dst, crc)
     kept_bytes = []   # 4B5B: the frame bytes of each kept slot
+    attempted = []    # optimistic: (fs, dlen) of each attempted frame
+    attempt_row = {}  # optimistic: slot -> its row in `attempted`
+    hdr_nonconf = False
     for step in range(max_frames):
         j = np.searchsorted(hits, min(max(cursor, 0), last_lag))
         first = int(hits[j]) if j < len(hits) else _BIG
@@ -183,10 +220,16 @@ def decode_capture(
         best_pos = torch.where(cc.amax() > -1.0, base + cc.argmax(), expected)
         fs_t = best_pos + sync_len
         off = (fs_t - base).clamp(0, slab_len - hdr_samples)
-        bits, bit_ok = line_coding.decode(cfg, slab[off + hdr_idx])
+        if optimistic:
+            bits, bit_ok, near0 = line_coding.fourb5b_decode_opt(
+                slab[off + hdr_idx], cfg.samples_per_level)
+        else:
+            bits, bit_ok = line_coding.decode(cfg, slab[off + hdr_idx])
         n_hdr = bit_ok[:hdr_bits].sum()
         hdr = bitops.pack_bits(torch.where(hdr_bit_idx < n_hdr, bits[:hdr_bits], 0))
         vals = [fs_t.reshape(1), n_hdr.reshape(1), hdr.to(torch.int64)]
+        if optimistic:
+            vals.append(near0.any().reshape(1))
         if body_in_scan:
             body_bytes, n_valid_bits, crc_calc = _decode_body(
                 cfg, padded[fs_t + body_idx], hdr[0].to(torch.int64) * 256 + hdr[1])
@@ -194,6 +237,9 @@ def decode_capture(
         fields = torch.cat(vals).tolist()   # the step's one host sync
         fs, n_hdr, dlen_hi, dlen_lo, crc, ftype, seq, src, dst = fields[:9]
         dlen = dlen_hi * 256 + dlen_lo
+        # a near-zero level in any examined header: the receiver's skip
+        # could change its bytes without an invalid symbol
+        hdr_nonconf = hdr_nonconf or (optimistic and bool(fields[9]))
 
         hdr_incomplete = fs + hdr_samples > vlen
         header_ok = (n_hdr >= line_coding.MIN_HEADER_BITS
@@ -204,7 +250,7 @@ def decode_capture(
         incomplete = fs + total_samples > vlen
         if body_in_scan:
             n_valid_bits, crc_ok = fields[9], fields[10] == crc
-        else:   # every Manchester bit decodes; the CRC is checked after the scan
+        else:   # every bit decodes (optimistic: assumed); the CRC is checked after the scan
             n_valid_bits, crc_ok = total_bits, True
         line_fail = n_valid_bits < total_bits
         if hdr_incomplete or (header_ok and not len_bad and incomplete):
@@ -212,6 +258,9 @@ def decode_capture(
             pending = min(pending, i)
             done = True
             break
+        if optimistic and header_ok and not len_bad:
+            attempt_row[step] = len(attempted)
+            attempted.append((fs, dlen))
         if (header_ok and not len_bad and not line_fail and crc_ok
                 and (dst == local_addr or local_addr < 0)):
             kept.append((step, i, fs, dlen, ftype, seq, src, dst, crc))
@@ -227,12 +276,24 @@ def decode_capture(
             cursor = i + l_pre + total_samples
 
     res = _empty_frames(cfg, max_frames, dev)
+    conformant = not hdr_nonconf
+    if optimistic and attempted:
+        # every attempted frame's body, the foreign ones too: their
+        # consumption depended on the assumption as well
+        a_fs, a_dlen = (torch.tensor(col, device=dev) for col in zip(*attempted))
+        body, nonconf, crc_opt = _decode_body_opt(cfg, padded[a_fs[:, None] + body_idx],
+                                                  a_dlen)
+        conformant = conformant and not bool(nonconf.any())
     if kept:
         slot, i, fs, dlen, ftype, seq, src, dst, crc = (
             torch.tensor(col, device=dev) for col in zip(*kept))
         if body_in_scan:
             frame_bytes = torch.stack(kept_bytes)
             good = torch.ones_like(slot, dtype=torch.bool)
+        elif optimistic:   # kept frames are attempted ones: their rows of the pass
+            rows = torch.tensor([attempt_row[k] for k, *_ in kept], device=dev)
+            frame_bytes = body[rows]
+            good = (crc_opt[rows].to(torch.int64) == crc) & ~nonconf[rows]
         else:
             frame_bytes, _, crc_calc = _decode_body(
                 cfg, padded[fs[:, None] + body_idx], dlen)
@@ -246,6 +307,8 @@ def decode_capture(
             field[slot] = col[good].to(torch.int32)
         lag = i[good].clamp(0, corr.shape[0] - 1)
         res.corr[slot] = corr[lag]
+    if optimistic:
+        return res, conformant
     if not with_cursor:
         return res
     if pending < _BIG:
@@ -284,9 +347,12 @@ def decode_capture_fast(
     The speculative decode (kernels on a CUDA tensor, their plain versions
     on a CPU tensor) runs first; the rows it flags not ``ok`` (a candidate
     table that overflowed, or, for 4B5B, a near-zero level in an attempted
-    frame) are decoded again by the exact scan and take its result.  Every row
-    equals :func:`decode_capture` frame for frame; the speculative rows
-    hold their frames in the leading slots.
+    frame) are decoded again by the exact scan and take its result.  A 4B5B
+    configuration the kernels do not cover takes the optimistic scan first
+    (``decode_capture(optimistic=True)``), and its rows that are not
+    conformant the exact scan.  Every row equals :func:`decode_capture`
+    frame for frame; the speculative rows hold their frames in the leading
+    slots, the others in the exact scan's.
     """
     from trackmaker_tpu_torch.phy import spec_decode
 
@@ -305,6 +371,13 @@ def decode_capture_fast(
                                     [vlens[r] for r in redo])
             for field, fix in zip(res, exact):
                 field[redo] = fix
+    elif cfg.line_coding == FOUR_B_FIVE_B:
+        rows = [decode_capture(cfg, xb[r], local_addr, max_frames, valid_len=vlens[r],
+                               optimistic=True) for r in range(b)]
+        rows = [res_r if conformant else decode_capture(cfg, xb[r], local_addr, max_frames,
+                                                        valid_len=vlens[r])
+                for r, (res_r, conformant) in enumerate(rows)]
+        res = DecodedFrames(*(torch.stack(col) for col in zip(*rows)))
     else:
         res = decode_captures(cfg, xb, local_addr, max_frames, vlens)
     return res if batched else DecodedFrames(*(f[0] for f in res))

@@ -109,21 +109,20 @@ def _last_valid_scan(avg: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return vals.gather(-1, last)
 
 
-def fourb5b_decode(samples: torch.Tensor,
-                   samples_per_level: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """f32[..., M] -> (bits uint8[..., n_sym*4], bit_valid bool[..., same]).
-
-    n_sym = (M // spl) // 5 whole symbols.  `bit_valid` is True up to (and
-    excluding) the first invalid 4B5B symbol.
-    """
+def _level_means(samples: torch.Tensor, samples_per_level: int) -> torch.Tensor:
+    """The mean of each level of the whole symbols in f32[..., M]:
+    f32[..., n_sym*5], n_sym = (M // spl) // 5."""
     spl = samples_per_level
-    n_sym = samples.shape[-1] // spl // 5
-    n_lvl = n_sym * 5
+    n_lvl = samples.shape[-1] // spl // 5 * 5
     x = samples[..., : n_lvl * spl].reshape(*samples.shape[:-1], n_lvl, spl)
-    avg = x.mean(dim=-1)
-    prev = _last_valid_scan(avg, avg.abs() > NEAR_ZERO)
-    coded = (prev * avg < 0.0).to(torch.int64)               # transition -> 1
-    dev = samples.device
+    return x.mean(dim=-1)
+
+
+def _transitions_to_bits(coded: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(bits, bit_valid) of coded bits int64[..., n_sym*5] (1 = a
+    transition), valid up to the first symbol outside the 4B5B table."""
+    dev = coded.device
+    n_sym = coded.shape[-1] // 5
     sym_bits = coded.reshape(*coded.shape[:-1], n_sym, 5)
     symbols = (sym_bits * torch.tensor([16, 8, 4, 2, 1], device=dev)).sum(-1)
     nibbles = torch.from_numpy(FOURB_FIVEB_DECODE).to(dev)[symbols]
@@ -132,6 +131,33 @@ def fourb5b_decode(samples: torch.Tensor,
     bits = (nib[..., None] >> torch.arange(3, -1, -1, device=dev)) & 1
     bits = bits.reshape(*bits.shape[:-2], n_sym * 4).to(torch.uint8)
     return bits, prefix_ok.repeat_interleave(4, dim=-1)
+
+
+def fourb5b_decode(samples: torch.Tensor,
+                   samples_per_level: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32[..., M] -> (bits uint8[..., n_sym*4], bit_valid bool[..., same]).
+
+    n_sym = (M // spl) // 5 whole symbols.  `bit_valid` is True up to (and
+    excluding) the first invalid 4B5B symbol.
+    """
+    avg = _level_means(samples, samples_per_level)
+    prev = _last_valid_scan(avg, avg.abs() > NEAR_ZERO)
+    return _transitions_to_bits((prev * avg < 0.0).to(torch.int64))   # transition -> 1
+
+
+def fourb5b_decode_opt(samples: torch.Tensor, samples_per_level: int,
+                       eps: float = NEAR_ZERO) -> tuple[torch.Tensor, ...]:
+    """The optimistic 4B5B decode: each transition read against the level
+    just before, as if no level mean were near zero, so no running scan.
+    Returns ``(bits, bit_valid, near0)``, near0 bool[..., n_sym*5] marking
+    the levels whose mean is at most `eps` from zero: where one lies inside
+    a frame, the receiver (which skips it) may read other bits, and the
+    caller must decode with :func:`fourb5b_decode`."""
+    avg = _level_means(samples, samples_per_level)
+    ones = torch.ones((*avg.shape[:-1], 1), dtype=avg.dtype, device=avg.device)
+    prev = torch.cat([ones, avg[..., :-1]], dim=-1)
+    bits, bit_ok = _transitions_to_bits((prev * avg < 0.0).to(torch.int64))
+    return bits, bit_ok, avg.abs() <= eps
 
 
 # --- dispatch and preamble ----------------------------------------------------
