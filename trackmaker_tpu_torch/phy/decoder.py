@@ -40,6 +40,7 @@ from trackmaker_tpu_torch.core.framing import Frame
 from trackmaker_tpu_torch.phy import line_coding
 from trackmaker_tpu_torch.sync import auto_xcorr
 from trackmaker_tpu_torch.sync.correlate import preamble_energy
+from trackmaker_tpu_torch.utils.trace import span, spanned
 
 _BIG = 2**30
 _HIT_BLOCK = 512   # the reference's hit lookup clamps the cursor to its blocks
@@ -321,8 +322,10 @@ def decode_capture(
 def decode_captures(cfg: PhyConfig, x: torch.Tensor, local_addr: int,
                     max_frames: int, valid_len: list[int]) -> DecodedFrames:
     """The exact scan of every row of x f32[B, T], stacked to [B, K]."""
-    rows = [decode_capture(cfg, x[r], local_addr, max_frames, valid_len=valid_len[r])
-            for r in range(x.shape[0])]
+    rows = []
+    for r in range(x.shape[0]):
+        with span("tm.exact.row"):
+            rows.append(decode_capture(cfg, x[r], local_addr, max_frames, valid_len=valid_len[r]))
     return DecodedFrames(*(torch.stack(col) for col in zip(*rows)))
 
 
@@ -335,6 +338,7 @@ def as_capture(samples, device: torch.device | str | None = None) -> torch.Tenso
     return samples.to(device=device, dtype=torch.float32)
 
 
+@spanned("tm.entry.decode")
 def decode_capture_fast(
     cfg: PhyConfig,
     samples: torch.Tensor,       # f32[T] or f32[B, T]
@@ -365,7 +369,8 @@ def decode_capture_fast(
     if spec_decode.spec_supported_cfg(cfg):
         res, ok = spec_decode.decode_capture_spec(
             cfg, xb, local_addr, max_frames=max_frames, valid_len=vlens)
-        redo = torch.nonzero(~ok).flatten().tolist()
+        with span("tm.entry.ok_sync"):
+            redo = torch.nonzero(~ok).flatten().tolist()
         if redo:
             exact = decode_captures(cfg, xb[redo], local_addr, max_frames,
                                     [vlens[r] for r in redo])

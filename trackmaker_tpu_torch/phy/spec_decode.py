@@ -62,6 +62,7 @@ from trackmaker_tpu_torch.sync.xcorr_hits import (
     xcorr_hits,
     xcorr_hits_refine,
 )
+from trackmaker_tpu_torch.utils.trace import span, spanned
 
 GROUP_ROWS = 32     # hit rows per first-stage compaction group
 GROUP_SLOTS = 16    # hits a group may hold before the table overflows
@@ -111,6 +112,7 @@ def _check_cfg(cfg: PhyConfig) -> None:
                          "Manchester and 4B5B configurations")
 
 
+@spanned("tm.glue.upload")
 def _per_row(value, b: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(value, dtype=torch.int32, device=device).expand(b).contiguous()
 
@@ -132,6 +134,7 @@ def _compact_all(arrays, valid: torch.Tensor, n_out: int) -> list[torch.Tensor]:
             for vals, fill in arrays]
 
 
+@spanned("tm.glue.compact_hits")
 def compact_hit_rows(rows: torch.Tensor, n_cand: int, with_fs: bool = False):
     """(cand, corr, n_valid, overflow) from hit rows int32[B, R, 16].
 
@@ -317,6 +320,7 @@ def _count(wrapper, x: torch.Tensor) -> None:
         wrapper.launches += 1
 
 
+@spanned("tm.kernel.attempt_manchester")
 def attempt_manchester(x: torch.Tensor, cand: torch.Tensor,
                        n_valid: torch.Tensor, vlen: torch.Tensor,
                        sync: np.ndarray, sync_e: float):
@@ -357,6 +361,7 @@ _FOLD_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 2 + [c
                   + [ctypes.c_void_p] * 3)
 
 
+@spanned("tm.kernel.attempt_manchester_fold")
 def attempt_manchester_fold(x: torch.Tensor, fs: torch.Tensor, n_valid: torch.Tensor):
     """The frame decode of :func:`attempt_manchester` from given frame
     starts fs int32[B, C] (the sync-refine fold): bytes uint8[B, C, 263]
@@ -422,6 +427,7 @@ def attempt_4b5b_fold_plain(x: torch.Tensor, fs: torch.Tensor, n_valid: torch.Te
 _ATTEMPT_4B5B_ARGTYPES = _ATTEMPT_ARGTYPES + [ctypes.c_void_p] * 2   # + first_bad, first_zero
 
 
+@spanned("tm.kernel.attempt_4b5b")
 def attempt_4b5b(x: torch.Tensor, cand: torch.Tensor,
                  n_valid: torch.Tensor, vlen: torch.Tensor,
                  sync: np.ndarray, sync_e: float):
@@ -467,6 +473,7 @@ attempt_4b5b.shared_launches = 0
 _FOLD_4B5B_ARGTYPES = _FOLD_ARGTYPES + [ctypes.c_void_p] * 2   # + first_bad, first_zero
 
 
+@spanned("tm.kernel.attempt_4b5b_fold")
 def attempt_4b5b_fold(x: torch.Tensor, fs: torch.Tensor, n_valid: torch.Tensor):
     """The decode of :func:`attempt_4b5b` from given frame starts fs
     int32[B, C] (the sync-refine fold): (bytes, fs, first_bad, first_zero),
@@ -560,48 +567,49 @@ def spec_phase_a(cfg: PhyConfig, x: torch.Tensor, local_addr: int,
             byts, fs, first_bad, first_zero = attempt_4b5b(
                 x, cand, n_valid, vlens, sync, preamble_energy(sync))
 
-    hdr = framing.parse_header(byts)
-    dlen, ftype, dst = hdr["length"], hdr["frame_type"], hdr["dst"]
-    total_bits = (PHY_HEADER_BYTES + dlen) * 8
-    total_samples = cfg.samples_for_bits(8) * (PHY_HEADER_BYTES + dlen)
-    if cfg.line_coding == MANCHESTER:   # every Manchester bit decodes
-        header_ok = hdr["type_valid"]
-        line_fail = torch.zeros_like(header_ok)
-        nonconf = torch.zeros_like(header_ok)
-        fail_samples = total_samples
-    else:
-        # a symbol past the frame decides nothing: frames of at most 263
-        # bytes end by symbol 526, and a longer length is len_bad
-        symbols = total_bits // 4
-        valid_symbols = torch.minimum(first_bad, symbols)
-        header_ok = hdr["type_valid"] & (first_bad >= MIN_HEADER_SYMBOLS)
-        line_fail = 4 * valid_symbols < total_bits
-        # a near-zero level in the header or the frame: the receiver skips
-        # it when it reads transitions, the kernel does not
-        nonconf = ((first_zero < HEADER_SYMBOLS)
-                   | (first_zero < symbols.clamp(max=ZERO_SYMBOLS)))
-        fail_samples = valid_symbols * SYMBOL_SAMPLES
-    len_bad = ((ftype == FRAME_TYPE_DATA) & (dlen == 0)) | (dlen > cfg.max_frame_bytes)
-    vl = vlens[:, None]
-    hdr_incomplete = fs + cfg.header_samples > vl
-    incomplete = fs + total_samples > vl
-    dst_ok = (dst == local_addr) | (local_addr < 0)
+    with span("tm.glue.epilogue"):
+        hdr = framing.parse_header(byts)
+        dlen, ftype, dst = hdr["length"], hdr["frame_type"], hdr["dst"]
+        total_bits = (PHY_HEADER_BYTES + dlen) * 8
+        total_samples = cfg.samples_for_bits(8) * (PHY_HEADER_BYTES + dlen)
+        if cfg.line_coding == MANCHESTER:   # every Manchester bit decodes
+            header_ok = hdr["type_valid"]
+            line_fail = torch.zeros_like(header_ok)
+            nonconf = torch.zeros_like(header_ok)
+            fail_samples = total_samples
+        else:
+            # a symbol past the frame decides nothing: frames of at most 263
+            # bytes end by symbol 526, and a longer length is len_bad
+            symbols = total_bits // 4
+            valid_symbols = torch.minimum(first_bad, symbols)
+            header_ok = hdr["type_valid"] & (first_bad >= MIN_HEADER_SYMBOLS)
+            line_fail = 4 * valid_symbols < total_bits
+            # a near-zero level in the header or the frame: the receiver skips
+            # it when it reads transitions, the kernel does not
+            nonconf = ((first_zero < HEADER_SYMBOLS)
+                       | (first_zero < symbols.clamp(max=ZERO_SYMBOLS)))
+            fail_samples = valid_symbols * SYMBOL_SAMPLES
+        len_bad = ((ftype == FRAME_TYPE_DATA) & (dlen == 0)) | (dlen > cfg.max_frame_bytes)
+        vl = vlens[:, None]
+        hdr_incomplete = fs + cfg.header_samples > vl
+        incomplete = fs + total_samples > vl
+        dst_ok = (dst == local_addr) | (local_addr < 0)
 
-    in_frame = torch.arange(FRAME_BYTES, device=x.device) < (PHY_HEADER_BYTES + dlen)[..., None]
-    bytes_m = torch.where(in_frame, byts, 0)
-    crc = bitops.crc8(bytes_m[..., PHY_HEADER_BYTES:],
-                      dlen.clamp(0, cfg.max_frame_bytes))
-    crc_ok = crc.to(torch.int32) == hdr["crc"]
+        in_frame = torch.arange(FRAME_BYTES, device=x.device) < (PHY_HEADER_BYTES + dlen)[..., None]
+        bytes_m = torch.where(in_frame, byts, 0)
+        crc = bitops.crc8(bytes_m[..., PHY_HEADER_BYTES:],
+                          dlen.clamp(0, cfg.max_frame_bytes))
+        crc_ok = crc.to(torch.int32) == hdr["crc"]
 
-    consumed = torch.where(
-        ~header_ok, cfg.header_samples,
-        torch.where(len_bad, 1, cfg.preamble_len
-                    + torch.where(line_fail, fail_samples, total_samples)))
-    stopf = hdr_incomplete | (header_ok & ~len_bad & incomplete)
-    keepf = (~hdr_incomplete & header_ok & ~len_bad & ~incomplete & ~line_fail
-             & dst_ok & crc_ok)
-    fields = torch.stack([cand, consumed.to(torch.int32), stopf.to(torch.int32),
-                          keepf.to(torch.int32)], dim=1)
+        consumed = torch.where(
+            ~header_ok, cfg.header_samples,
+            torch.where(len_bad, 1, cfg.preamble_len
+                        + torch.where(line_fail, fail_samples, total_samples)))
+        stopf = hdr_incomplete | (header_ok & ~len_bad & incomplete)
+        keepf = (~hdr_incomplete & header_ok & ~len_bad & ~incomplete & ~line_fail
+                 & dst_ok & crc_ok)
+        fields = torch.stack([cand, consumed.to(torch.int32), stopf.to(torch.int32),
+                              keepf.to(torch.int32)], dim=1)
     return SpecFields(cand=cand, fields=fields, overflow=overflow, nonconf=nonconf,
                       bytes_m=bytes_m, dlen=dlen, ftype=ftype, seq=hdr["sequence"],
                       src=hdr["src"], dst=dst, corr=corr)
@@ -669,6 +677,7 @@ def spec_walk_plain(fields: torch.Tensor, start_cursor: torch.Tensor,
 _WALK_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
 
 
+@spanned("tm.kernel.spec_walk")
 def spec_walk(fields: torch.Tensor, start_cursor: torch.Tensor,
               scan_limit: torch.Tensor, max_frames: int) -> WalkResult:
     """The consumption walk of every capture over fields int32[B, 4, C]
@@ -706,6 +715,7 @@ spec_walk.launches = 0
 # --- step 6 -----------------------------------------------------------------
 
 
+@spanned("tm.glue.compact")
 def spec_compact(a: SpecFields, keep: torch.Tensor, max_frames: int) -> DecodedFrames:
     """The kept candidates, in position order, in the leading `max_frames`
     slots; the other slots are empty (invalid, zero, start -1)."""
@@ -731,6 +741,7 @@ def spec_compact(a: SpecFields, keep: torch.Tensor, max_frames: int) -> DecodedF
         corr=pick(a.corr, 0.0))
 
 
+@spanned("tm.glue.spec")
 def decode_capture_spec(
     cfg: PhyConfig,
     samples: torch.Tensor,       # f32[B, T]
@@ -766,10 +777,11 @@ def decode_capture_spec(
     limit = _per_row(BIGI if scan_limit is None else scan_limit, b, dev)
     walk = spec_walk(a.fields, cur0, limit, max_frames)
     res = spec_compact(a, walk.keep, max_frames)
-    ok = ~(a.overflow | (walk.attempted & a.nonconf).any(-1))
-    if not with_cursor:
-        return res, ok
-    drained = torch.where(walk.done, vlens - (cfg.preamble_len - 1), walk.cur_f)
-    searched_until = torch.where(walk.pending < BIGI, walk.pending, drained)
-    searched_until = torch.minimum(searched_until.clamp(min=0), vlens)
-    return res, ok, searched_until, walk.cur_f
+    with span("tm.glue.ok"):
+        ok = ~(a.overflow | (walk.attempted & a.nonconf).any(-1))
+        if not with_cursor:
+            return res, ok
+        drained = torch.where(walk.done, vlens - (cfg.preamble_len - 1), walk.cur_f)
+        searched_until = torch.where(walk.pending < BIGI, walk.pending, drained)
+        searched_until = torch.minimum(searched_until.clamp(min=0), vlens)
+        return res, ok, searched_until, walk.cur_f

@@ -40,6 +40,7 @@ import torch
 from trackmaker_tpu_torch import _build
 from trackmaker_tpu_torch.sync import correlate
 from trackmaker_tpu_torch.sync.xcorr_norm import normalized_xcorr_dense_plain
+from trackmaker_tpu_torch.utils.trace import spanned
 
 BIGI = 2**30
 ROW_LAGS = 128
@@ -108,6 +109,7 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
 
+@spanned("tm.kernel.xcorr_hits")
 def xcorr_hits(x: torch.Tensor, pattern: np.ndarray, threshold: float,
                emit_corr: bool = False):
     """Correlation and hit rows of the captures x f32[B, T] against the host
@@ -236,6 +238,7 @@ _REFINE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float]
     ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
 
 
+@spanned("tm.kernel.xcorr_hits_refine")
 def xcorr_hits_refine(x: torch.Tensor, vlens: torch.Tensor, pattern: np.ndarray,
                       sync_pattern: np.ndarray, threshold: float, *, sync_off: int,
                       n_pos: int, sync_len: int, fall_off: int) -> torch.Tensor:
